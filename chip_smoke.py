@@ -1,19 +1,22 @@
 #!/usr/bin/env python3
-"""Drive the torch port's verbs datapath on one CUDA card and hold every
-kernel of that path against its plain PyTorch version.
+"""Drive the torch port's verbs datapath and its KV-cache transfer leg on
+one CUDA card and hold every kernel of those paths against its plain
+PyTorch version.
 
     python3 chip_smoke.py              # from the root of a checkout
 
 It needs one CUDA card: without one it exits non-zero and reports
-nothing. The same main path runs on the CPU at a small size in
-`tests/test_torch_datapath.py::test_smoke_rig_matches_reference_and_oracle`.
+nothing. The same main paths run on the CPU at a small size in
+`tests/test_torch_datapath.py::test_smoke_rig_matches_reference_and_oracle`
+and `tests/test_torch_kv.py` (transfer, page round trip, migration,
+failover).
 
 Phases (any failure exits non-zero):
   1. the card (nvidia-smi name and power limit) and the kernel build;
   2. each kernel against its plain version on the card, exact, at the
-     main path's shapes (4096 records of 4 KiB in a 12 GiB region, ring
-     depth 4096) and at edge shapes; kernel, plain, library and bound
-     times;
+     main paths' shapes (4096 records of 4 KiB in a 12 GiB region, ring
+     depth 4096; 2048 gemma-2b KV pages of 16 x 1 x 256 bf16) and at
+     edge shapes; kernel, plain, library and bound times;
   3. the datapath against its scalar oracle: two rigs built from the
      verbs entry points, seeded from one numpy generator with a 12 GiB
      block MR; 4096-WR WRITE/READ/SEND chains and a 64-WR mixed chain
@@ -21,12 +24,23 @@ Phases (any failure exits non-zero):
      CQE streams, MR contents and
      counters; launches per flush and per fused poll are checked, and
      every kernel must have launched on the main path;
-  4. timing of each chain on the vectorized rig (median of 5).
+  4. timing of each chain on the vectorized rig (median of 5);
+  5. the KV-cache transfer leg at full gemma-2b width (decode cache of
+     batch 4 x 32768 tokens, prefilled to 32000, 2.2 GiB per tree) on
+     two rigs, `Fabric(pods=2)` vectorized and its scalar oracle:
+     `KVTransferEngine.transfer` / `transfer_many` (one doorbell), the
+     paged ingest + gather round trip of every (layer, batch) row
+     (PDServer's), page migration as 256-WR RDMA_WRITE chains (4 fused
+     launches, 1 doorbell, 1 descriptor fetch each), and a transfer
+     replayed through a decode-node kill on a 3-pod fabric; equal CQE
+     streams, MR contents and counters across the rigs; timings on the
+     vectorized rig (median of 5). It needs ~15 GiB of device memory.
 The last three lines are the card's `nvidia-smi` line, one JSON object
 with a row per kernel, and `{"ok": true, "device": {...}}`.
 """
 from __future__ import annotations
 
+import gc
 import json
 import statistics
 import subprocess
@@ -51,6 +65,27 @@ class Sizes:
 
 
 FULL = Sizes(blocks=3 << 20, rec=1024, n=4096, ring=4096, mixed=64, reps=5)
+
+
+@dataclass(frozen=True)
+class KvSizes:
+    arch: str           # model config, at full width
+    batch: int          # decode batch (decode_32k's 128, cut to fit a card)
+    seq: int            # decode cache length (decode_32k)
+    prefill: int        # prefill length: the last seq - prefill rows pad
+    page: int           # tokens per KV page (the serve engine's default)
+    chunk: int          # pages per leaf per migration chain (256 WRs)
+    reps: int           # timing repetitions
+
+
+KV = KvSizes(arch="gemma-2b", batch=4, seq=32768, prefill=32000, page=16,
+             chunk=128, reps=5)
+# the registry leaves the two phase-5 rigs must agree on
+KV_COUNTERS = {"doorbell_writes", "desc_fetch_dmas", "dma_writes",
+               "dma_reads", "transfers_replayed", "route_reresolutions",
+               "pages_migrated", "transmits", "wire_sends", "disconnects",
+               "nodes_killed", "kills_triggered", "wire_packets",
+               "drops_injected", "delays_injected", "retry_exhausted"}
 
 
 def check(cond, msg: str):
@@ -116,6 +151,14 @@ class Timer:
         self.torch.cuda.synchronize()
 
 
+def free_device_memory(torch):
+    """Return the memory of dropped objects to the card: the verbs
+    objects (QPs, transports, CQs) form reference cycles, so a rig's MRs
+    are freed only by a collection pass, not by `del`."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def bound_ms(nbytes: int) -> float:
     return nbytes / HBM_BYTES_PER_S * 1e3
 
@@ -163,6 +206,7 @@ def phase_kernels(torch, np, dev, S, rng, T) -> dict:
         bound_ms=bound_ms(move), bound_by="bytes",
         library_ms=T.ms(lambda: plain.index_put_((offs_t,), vals),
                         cold=True),
+        entry="scatter_rows",
         shape=f"{m}x{row_bytes}B into {R}x{row_bytes}B")
     del plain
     got = wr_ops.gather_records(region, offs, L)
@@ -188,6 +232,7 @@ def phase_kernels(torch, np, dev, S, rng, T) -> dict:
         bound_ms=bound_ms(move), bound_by="bytes",
         library_ms=T.ms(lambda: region.index_select(0, offs_t),
                         cold=True),
+        entry="gather_rows",
         shape=f"{m}x{row_bytes}B from {R}x{row_bytes}B")
     # an empty run launches nothing, so it counts as no launch
     before = dict(_build.LAUNCHES)
@@ -316,7 +361,7 @@ def phase_kernels(torch, np, dev, S, rng, T) -> dict:
             wrapper_ms=T.ms(wrappers[fn]),
             plain_ms=T.ms(plains[fn]),
             bound_ms=bound_ms(moves[fn]), bound_by="bytes",
-            library_ms=None, shape=f"depth {cap} x 64 B")
+            library_ms=None, entry=fn, shape=f"depth {cap} x 64 B")
     for r in rows.values():
         log(f"phase 2: {r['name']:<26} {r['shape']:<36} kernel "
             f"{r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  bound "
@@ -539,7 +584,7 @@ def phase_datapath(torch, np, dev, S, rng, T):
     log(f"phase 3: MR contents equal; launches per flush {lpf}; main-path "
         f"kernel launches {main_launches}")
     del orc
-    torch.cuda.empty_cache()
+    free_device_memory(torch)
     return vec, D, lpf, main_launches
 
 
@@ -590,6 +635,425 @@ def phase_timing(torch, np, dev, S, T, vec, D):
     return out
 
 
+# -- phase 2, T2 kernels ------------------------------------------------------------
+def phase_kv_kernels(torch, np, dev, K, rng, T) -> dict:
+    """kv_ingest and the page gather against their plain versions at the
+    KV leg's shape (one (layer, batch) row: 2048 pages of 16 x 1 x 256
+    bf16 into a 2048-page pool) and at edge shapes, exact."""
+    import math
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.offload_engine import dedupe_last_wins
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.kv_ingest import ops as kv_ops
+    from repro_torch.kernels.kv_ingest import ref as kv_ref
+
+    cfg = get_config(K.arch)
+    gen = torch.Generator(device=dev).manual_seed(int(rng.integers(1 << 31)))
+    n = K.seq // K.page
+    page = (K.page, cfg.n_kv_heads, cfg.resolved_head_dim)
+    page_bytes = math.prod(page) * 2
+    pages = torch.randn((n,) + page, generator=gen, device=dev,
+                        dtype=torch.bfloat16)
+    payload = torch.randn((n,) + page, generator=gen, device=dev,
+                          dtype=torch.bfloat16)
+    ids = rng.permutation(n)
+    ids_t = torch.from_numpy(ids).to(dev)
+    plain = pages.clone()
+    check(kv_ops.kv_ingest(pages, payload, ids) is pages, "not in place")
+    kv_ref.ingest(plain, ids_t, payload)
+    T.sync()
+    check(torch.equal(pages, plain), "ingest_pages != plain ingest")
+    err = float((pages.float() - plain.float()).abs().max())
+    move = 2 * n * page_bytes + 8 * n
+    lib = _build.load("wr_rows", kv_ops._SIG)
+    stream = _build.stream_ptr(dev)
+
+    def k_ingest():
+        _build.check(lib, lib.ingest_pages(
+            pages.data_ptr(), payload.data_ptr(), ids_t.data_ptr(), n,
+            page_bytes, stream), "ingest_pages")
+    shape = f"{n} pages of {page_bytes} B ({'x'.join(map(str, page))} bf16)"
+    rows = {"kv_ingest": dict(
+        name="kv_ingest", route="cuda",
+        source="src/repro_torch/csrc/wr_rows.cu",
+        replaces="src/repro/kernels/kv_ingest/kv_ingest.py:24",
+        max_abs_err=err, ms=T.ms(k_ingest, cold=True),
+        wrapper_ms=T.ms(lambda: kv_ops.kv_ingest(pages, payload, ids),
+                        cold=True),
+        plain_ms=T.ms(lambda: kv_ref.ingest(plain, ids_t, payload),
+                      cold=True),
+        bound_ms=bound_ms(move), bound_by="bytes",
+        library_ms=T.ms(lambda: plain.index_copy_(0, ids_t, payload),
+                        cold=True),
+        entry="ingest_pages", shape=shape + " into a pool of as many")}
+    got = kv_ops.gather_pages(pages, ids)
+    exp = kv_ref.gather(pages, ids_t)
+    T.sync()
+    check(torch.equal(got, exp), "gather_rows != plain page gather")
+    check(torch.equal(got, payload), "page gather did not read the ingest")
+    err = float((got.float() - exp.float()).abs().max())
+    out = torch.empty_like(got)
+
+    def k_gather():
+        _build.check(lib, lib.gather_rows(
+            out.data_ptr(), pages.data_ptr(), ids_t.data_ptr(), n,
+            page_bytes, stream), "gather_rows")
+    rows["wr_gather.pages"] = dict(
+        name="wr_gather.pages", route="cuda",
+        source="src/repro_torch/csrc/wr_rows.cu",
+        replaces="src/repro/core/rx_engine.py:33",
+        max_abs_err=err, ms=T.ms(k_gather, cold=True),
+        wrapper_ms=T.ms(lambda: kv_ops.gather_pages(pages, ids), cold=True),
+        plain_ms=T.ms(lambda: kv_ref.gather(pages, ids_t), cold=True),
+        bound_ms=bound_ms(move), bound_by="bytes",
+        library_ms=T.ms(lambda: pages.index_select(0, ids_t), cold=True),
+        entry="gather_rows", shape=shape + " from a pool of as many")
+    log(f"phase 2: kv_ingest and page gather at {shape}: exact")
+    del pages, payload, plain, got, exp, out
+
+    # edge shapes: dtypes, page rows not a multiple of 16 B, bases off
+    # 16-byte alignment, repeated ids (the last one wins), one page, and
+    # a payload cast to the pool's dtype
+    P = 40
+    before = dict(_build.LAUNCHES)
+    cases = 0
+    for dtype, shp, src in ((torch.float32, (4, 4), torch.float32),
+                            (torch.uint8, (3, 5), torch.uint8),
+                            (torch.int32, (2, 3), torch.int32),
+                            (torch.bfloat16, page, torch.bfloat16),
+                            (torch.bfloat16, page, torch.float32)):
+        F = math.prod(shp)
+        for shift in (0, 1):
+            for idx in (rng.choice(P, 13, replace=False),
+                        rng.integers(0, 8, 13), rng.integers(0, P, 1)):
+                m = idx.size
+                base = (torch.rand((P * F + 1,), generator=gen, device=dev)
+                        * 200).to(dtype)
+                pg = base[shift:shift + P * F].view((P,) + shp)
+                seq = pg.clone()
+                vb = (torch.rand((m * F + 1,), generator=gen, device=dev)
+                      * 200).to(src)
+                v = vb[shift:shift + m * F].view((m,) + shp)
+                kv_ops.kv_ingest(pg, v, idx)
+                o, vv = dedupe_last_wins(idx.astype(np.int64), v)
+                pl = seq.clone()
+                kv_ref.ingest(pl, torch.from_numpy(o).to(dev),
+                              vv.to(dtype).contiguous())
+                for i in range(m):          # the in-order grid
+                    seq[int(idx[i])] = v[i].to(dtype)
+                T.sync()
+                check(torch.equal(pg, pl) and torch.equal(pg, seq),
+                      f"ingest edge {dtype} {shp} from {src} shift {shift} "
+                      f"ids {idx}")
+                g = kv_ops.gather_pages(pg, idx)
+                check(torch.equal(g, kv_ref.gather(
+                    pg, torch.from_numpy(idx.astype(np.int64)).to(dev))),
+                    f"page gather edge {dtype} {shp} shift {shift}")
+                cases += 1
+    check(_build.LAUNCHES.get("ingest_pages", 0)
+          - before.get("ingest_pages", 0) == cases, "an edge case launched "
+          "no ingest kernel")
+    log(f"phase 2: kv_ingest edge shapes ({cases} cases: float32/uint8/"
+        "int32/bfloat16, page rows of 64/15/24/8192 B, misaligned bases, "
+        "float32 payloads cast, repeated ids, n=1): exact")
+    for r in rows.values():
+        log(f"phase 2: {r['name']:<26} {r['shape']:<36} kernel "
+            f"{r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  bound "
+            f"{r['bound_ms']:.4f} ms  library {r['library_ms']:.4f} ms")
+    return rows
+
+
+# -- phase 5 ----------------------------------------------------------------------
+def _kv_caches(torch, np, dev, K, rng, model):
+    """The decode caches a prefill of K.prefill tokens would hand the
+    transfer, seeded from numpy as bf16 bit patterns (exponent below
+    all-ones: every value finite, so equality is exact)."""
+    from repro_torch import tree
+    from repro_torch.convert import tree_from_numpy
+    from repro_torch.models.module import is_spec
+
+    def bits(s):
+        u = rng.integers(0, 1 << 16, s.shape, dtype=np.uint16)
+        u &= 0xBFFF
+        return u
+    return tree_from_numpy(tree.map(bits, model.cache_specs(
+        K.batch, K.prefill), is_leaf=is_spec), dev, bf16_bits=True)
+
+
+def _same_leaves(torch, tree, a, b) -> bool:
+    la, lb = tree.leaves(a), tree.leaves(b)
+    return len(la) == len(lb) > 0 and all(torch.equal(x, y)
+                                          for x, y in zip(la, lb))
+
+
+def kv_rig(torch, np, dev, K, T, model, caches, perm, vectorized: bool,
+           timing: bool) -> dict:
+    """One rig of phase 5 from the entry points a user calls: transfer,
+    transfer_many, the paged round trip, page migration, failover."""
+    from repro_torch import tree
+    from repro_torch import verbs as V
+    from repro_torch.core.kvtransfer import KVTransferEngine
+    from repro_torch.kernels import _build
+    from repro_torch.obs import metrics
+    from repro_torch.serve.kvcache import pad_caches, page_roundtrip
+
+    reg = metrics.get_registry()
+    fused = reg.scope("fused").counter("launches")
+    before = reg.snapshot()
+    polled: list = []
+    orig_poll = V.CompletionQueue.poll
+
+    def poll(cq, *a, **kw):             # record every CQE the rig polls
+        wcs = orig_poll(cq, *a, **kw)
+        polled.extend((w.wr_id, w.opcode, w.status, w.length) for w in wcs)
+        return wcs
+    V.CompletionQueue.poll = poll
+    _build.reset_launches()             # this path's launches from here
+    try:
+        out = {}
+        f = V.Fabric(pods=2, vectorized=vectorized)
+        eng = KVTransferEngine(model, K.batch, K.prefill, fabric=f)
+        # 1. transfer, then two trees in one doorbell
+        got = eng.transfer(caches)
+        single = eng.stats
+        check(_same_leaves(torch, tree, got, caches), "transfer changed data")
+        d0 = eng.ep.qp.doorbell_writes
+        many = eng.transfer_many([caches, caches])
+        check(eng.ep.qp.doorbell_writes - d0 == 1 and eng._wr_id == 3,
+              "transfer_many took more than one doorbell")
+        check(eng.stats.payload_bytes == 2 * single.payload_bytes
+              == 2 * sum(x.numel() * 2 for x in tree.leaves(caches))
+              and single.header_bytes == 64 * single.n_leaves,
+              f"transfer stats {single} / {eng.stats}")
+        check(all(_same_leaves(torch, tree, m, caches) for m in many),
+              "transfer_many changed data")
+        # 2. the paged round trip of every (layer, batch) row
+        padded = pad_caches(got, K.prefill, K.seq)
+        k0 = dict(_build.LAUNCHES)
+        rt = page_roundtrip(padded, K.seq, K.page)
+        T.sync()
+        rows = sum(x.shape[0] * x.shape[1] for x in tree.leaves(padded))
+        for fn in ("ingest_pages", "gather_rows"):
+            check(_build.LAUNCHES.get(fn, 0) - k0.get(fn, 0) == rows,
+                  f"{fn}: {_build.LAUNCHES.get(fn, 0) - k0.get(fn, 0)} "
+                  f"launches for {rows} rows")
+        check(_same_leaves(torch, tree, rt, padded),
+              "page round trip != padded caches")
+        check(all(not x[:, :, K.prefill:].any()
+                  for x in tree.leaves(padded)), "padding is not zero")
+        del rt
+        out["rows"] = rows
+        # 3. page migration: one page of every layer per MR record
+        src_pd, dst_pd = f.node(f.gids[0]).pd, f.node(eng.decode_gid).pd
+        n_pages = K.seq // K.page
+        srcs, dsts = [], []
+        for i, leaf in enumerate(tree.leaves(padded)):
+            L = leaf.shape[0]
+            pages = leaf[:, 0].reshape((L, n_pages, K.page)
+                                       + tuple(leaf.shape[3:])) \
+                .transpose(0, 1).contiguous()
+            srcs.append(src_pd.reg_mr(f"kv{i}", pages))
+            dsts.append(dst_pd.reg_mr(f"kv{i}", torch.zeros_like(pages)))
+            del pages
+        del padded
+        free_device_memory(torch)
+
+        def migrate() -> list:
+            chains = []
+            for c in range(0, n_pages, K.chunk):
+                ids = np.arange(c, min(c + K.chunk, n_pages))
+                runs = [(s, ids, d.rkey, perm[ids])
+                        for s, d in zip(srcs, dsts)]
+                l0, kb = fused.value, dict(_build.LAUNCHES)
+                d0, f0 = eng.ep.qp.doorbell_writes, eng.ep.qp.desc_fetch_dmas
+                landed = eng.migrate_pages(runs)
+                chains.append((landed, eng.ep.qp.doorbell_writes - d0,
+                               eng.ep.qp.desc_fetch_dmas - f0,
+                               fused.value - l0,
+                               {k: v - kb.get(k, 0)
+                                for k, v in _build.LAUNCHES.items()
+                                if v != kb.get(k, 0)}))
+            return chains
+        chains = migrate()
+        T.sync()
+        want = 2 * len(srcs) if vectorized else 0
+        for landed, db, fetch, fl, kl in chains:
+            check(db == 1 and fetch == 1 and fl == want,
+                  f"migration chain: {db} doorbells, {fetch} descriptor "
+                  f"fetches, {fl} fused launches (want 1, 1, {want})")
+            check(kl == ({"gather_rows": len(srcs),
+                          "scatter_rows": len(srcs)} if vectorized else {}),
+                  f"migration chain launched {kl}")
+        check(len(chains) == n_pages // K.chunk, "chain count")
+        perm_t = torch.from_numpy(perm).to(dev)
+        for s, d in zip(srcs, dsts):
+            check(torch.equal(dst_pd.mr_array(d)[perm_t],
+                              src_pd.mr_array(s)),
+                  "migrated pages differ from the source pages")
+        out["chains"] = [c[:3] for c in chains]
+        out["dst"] = [dst_pd.mr_array(d) for d in dsts]
+        out["record_bytes"] = srcs[0].record * 2
+        # 4. a transfer replayed through a decode-node kill
+        fm = V.FaultModel(seed=7)
+        f3 = V.Fabric(pods=3, faults=fm, vectorized=vectorized)
+        e3 = KVTransferEngine(model, K.batch, K.prefill, fabric=f3)
+        e3.transfer(caches)
+        primary = e3.decode_gid
+        check(e3.transfers_replayed == 0, "clean transfer replayed")
+        fm.kill_after(primary, 1)
+        o3 = e3.transfer(caches)
+        check(e3.transfers_replayed == 1 and e3.route_reresolutions == 1
+              and e3.decode_gid != primary and not f3.alive(primary),
+              "the killed transfer did not replay exactly once")
+        check(_same_leaves(torch, tree, o3, caches), "replayed tree differs")
+        e3.close()
+        check(not f3.qps and not f3._listeners, "close() left registrations")
+        out["launches"] = dict(_build.LAUNCHES)
+    finally:
+        V.CompletionQueue.poll = orig_poll
+    cnt: dict = {}
+    for path, v in reg.diff(before, reg.snapshot()).items():
+        if path.rsplit("/", 1)[-1] in KV_COUNTERS and isinstance(v, int):
+            key = reg.group_key(path)
+            cnt[key] = cnt.get(key, 0) + v
+    out["counters"] = {k: v for k, v in cnt.items() if v}
+    out["polled"] = polled
+    if timing:                          # after the compared run
+        out["timing"] = kv_timing(torch, np, K, T, model, caches, eng, got,
+                                  migrate, out["record_bytes"] * n_pages
+                                  * len(srcs))
+    eng.close()
+    check(not f.qps and not f._listeners, "close() left registrations")
+    return out
+
+
+def kv_timing(torch, np, K, T, model, caches, eng, got, migrate,
+              migrated_bytes) -> dict:
+    """Medians over K.reps on the vectorized rig (host clock around work
+    that ends in a synchronise; kernel time from CUDA events)."""
+    from repro_torch import tree
+    from repro_torch import verbs as V
+    from repro_torch.core.kvtransfer import KVTransferEngine
+    from repro_torch.serve.kvcache import PagedKVPool, pad_caches
+
+    def wall(fn) -> float:
+        T.sync()
+        t0 = time.perf_counter()
+        fn()
+        T.sync()
+        return (time.perf_counter() - t0) * 1e3
+
+    med = statistics.median
+    res = {"transfer_ms": med(wall(lambda: eng.transfer(caches))
+                              for _ in range(K.reps)),
+           "transfer_many2_ms": med(wall(lambda: eng.transfer_many(
+               [caches, caches])) for _ in range(K.reps))}
+    padded = pad_caches(got, K.prefill, K.seq)
+    rt, ing, gat = [], [], []
+    for _ in range(K.reps):
+        ev = []
+
+        def one_trip():
+            for leaf in tree.leaves(padded):
+                flat = leaf.reshape((-1, K.seq) + tuple(leaf.shape[3:]))
+                outs = []
+                for row in range(flat.shape[0]):
+                    pool = PagedKVPool(K.seq // K.page, K.page,
+                                       tuple(flat.shape[2:]), flat.dtype,
+                                       device=flat.device)
+                    alloc = pool.allocate(K.seq)
+                    e = [torch.cuda.Event(enable_timing=True)
+                         for _ in range(3)]
+                    e[0].record()
+                    pool.ingest(alloc, flat[row], use_kernel=True)
+                    e[1].record()
+                    outs.append(pool.gather(alloc, K.seq))
+                    e[2].record()
+                    ev.append(e)
+                torch.stack(outs)
+        rt.append(wall(one_trip))
+        ing.append(sum(e[0].elapsed_time(e[1]) for e in ev))
+        gat.append(sum(e[1].elapsed_time(e[2]) for e in ev))
+    # the CUDA-event span of each wrapper call: the kernel plus whatever
+    # the card idles while the host prepares the launch
+    res.update(page_roundtrip_ms=med(rt), ingest_span_ms=med(ing),
+               gather_span_ms=med(gat), rows=len(ev))
+    del padded
+    mig = [wall(migrate) for _ in range(K.reps)]
+    res.update(migrate_ms=med(mig),
+               migrate_gb_per_s=migrated_bytes / med(mig) / 1e6)
+    clean, killed = [], []
+    for _ in range(K.reps):
+        fm = V.FaultModel(seed=7)
+        f3 = V.Fabric(pods=3, faults=fm)
+        e3 = KVTransferEngine(model, K.batch, K.prefill, fabric=f3)
+        clean.append(wall(lambda: e3.transfer(caches)))
+        fm.kill_after(e3.decode_gid, 1)
+        killed.append(wall(lambda: e3.transfer(caches)))
+        check(e3.transfers_replayed == 1, "timed failover did not replay")
+        e3.close()
+    res.update(clean_transfer_ms=med(clean), failover_transfer_ms=med(killed))
+    return res
+
+
+def phase_kv(torch, np, dev, K, rng, T, kernel_ms: dict) -> dict:
+    """Phase 5; `kernel_ms` holds phase 2's cold-L2 kernel times at the
+    page shape, to set the round trip's kernel share beside its spans."""
+    from repro_torch import tree
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.registry import build_model
+
+    t0 = time.perf_counter()
+    model = build_model(get_config(K.arch))
+    caches = _kv_caches(torch, np, dev, K, rng, model)
+    perm = rng.permutation(K.seq // K.page)
+    T.sync()
+    log(f"phase 5: {K.arch} decode caches, batch {K.batch} x {K.prefill} "
+        f"of {K.seq} tokens ({sum(x.numel() * 2 for x in tree.leaves(caches)) / 2**30:.2f}"
+        f" GiB per tree), seeded in {time.perf_counter() - t0:.1f} s")
+    held = torch.cuda.memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    vec = kv_rig(torch, np, dev, K, T, model, caches, perm, True, True)
+    free_device_memory(torch)
+    log(f"phase 5: vectorized rig: {len(vec['chains'])} migration chains "
+        f"of {2 * K.chunk} WRs, {vec['rows']} page round-trip rows, "
+        f"launches {vec['launches']}")
+    orc = kv_rig(torch, np, dev, K, T, model, caches, perm, False, False)
+    check(vec["polled"] == orc["polled"],
+          f"CQE streams differ ({len(vec['polled'])} vs "
+          f"{len(orc['polled'])} completions)")
+    check(vec["counters"] == orc["counters"],
+          f"counters differ {vec['counters']} vs {orc['counters']}")
+    check(vec["chains"] == orc["chains"], "migration chains differ")
+    check(all(torch.equal(a, b) for a, b in zip(vec["dst"], orc["dst"])),
+          "migrated MR contents differ from the oracle")
+    check(orc["launches"].get("scatter_rows", 0) == 0,
+          "the scalar oracle's migration launched a kernel")
+    for fn in ("ingest_pages", "gather_rows", "scatter_rows"):
+        check(vec["launches"].get(fn, 0) > 0,
+              f"{fn} never launched on the KV leg")
+    log(f"phase 5: CQE streams ({len(vec['polled'])} completions), MR "
+        f"contents and counters equal the oracle's: {vec['counters']}")
+    tm = vec["timing"]
+    tm["ingest_kernels_ms"] = tm["rows"] * kernel_ms["kv_ingest"]
+    tm["gather_kernels_ms"] = tm["rows"] * kernel_ms["wr_gather.pages"]
+    log(f"phase 5: transfer {tm['transfer_ms']:.3f} ms, transfer_many(2) "
+        f"{tm['transfer_many2_ms']:.3f} ms; page round trip "
+        f"{tm['page_roundtrip_ms']:.1f} ms ({tm['rows']} rows; ingest "
+        f"calls span {tm['ingest_span_ms']:.2f} ms and gather calls "
+        f"{tm['gather_span_ms']:.2f} ms on the device timeline, of which "
+        f"kernels {tm['ingest_kernels_ms']:.2f} / "
+        f"{tm['gather_kernels_ms']:.2f} ms at phase 2's rate); migrate "
+        f"{tm['migrate_ms']:.1f} ms = {tm['migrate_gb_per_s']:.3f} GB/s; "
+        f"failover transfer {tm['failover_transfer_ms']:.3f} ms vs clean "
+        f"{tm['clean_transfer_ms']:.3f} ms (median of {K.reps})")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"phase 5: peak device memory {peak:.2f} GiB ({held:.2f} GiB "
+        "held when it began)")
+    return dict(launches=vec["launches"], timing=tm, peak_gib=peak,
+                counters=vec["counters"], completions=len(vec["polled"]))
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -622,17 +1086,24 @@ def main() -> int:
                 log(f"phase 1: {name}: {line.strip()}")
 
     rows = phase_kernels(torch, np, dev, S, rng, T)
+    rows.update(phase_kv_kernels(torch, np, dev, KV, rng, T))
     vec, D, lpf, main_launches = phase_datapath(torch, np, dev, S, rng, T)
     timing = phase_timing(torch, np, dev, S, T, vec, D)
+    del vec, D                  # the 12 GiB block MRs, before phase 5
+    free_device_memory(torch)
+    kv = phase_kv(torch, np, dev, KV, rng, T,
+                  {k: rows[k]["ms"] for k in ("kv_ingest", "wr_gather.pages")})
 
+    # launches per C entry point on each main path's own run
+    paths = {"datapath": main_launches, "kv_leg": kv["launches"]}
     kernels = []
-    for fn, r in rows.items():
-        r = dict(r, launches=main_launches.get(
-            {"wr_scatter": "scatter_rows",
-             "wr_gather": "gather_rows"}.get(fn, fn), 0))
-        kernels.append(r)
+    for r in rows.values():
+        entry = r.pop("entry")
+        by_path = {p: n.get(entry, 0) for p, n in paths.items()}
+        kernels.append(dict(r, launches=sum(by_path.values()),
+                            launches_by_path=by_path))
     log(json.dumps({"chains": timing, "launches_per_flush": lpf,
-                    "seconds": time.perf_counter() - t_start}))
+                    "kv_leg": kv, "seconds": time.perf_counter() - t_start}))
     log(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,20 @@
+"""phi4-mini-3.8b [dense] — RoPE SwiGLU GQA. [arXiv:2412.08905; hf]"""
+from repro_torch.configs.base import ModelConfig, register_arch
+
+
+@register_arch("phi4-mini-3.8b")
+def config() -> ModelConfig:
+    return ModelConfig(
+        name="phi4-mini-3.8b",
+        family="dense",
+        n_layers=32,
+        d_model=3072,
+        n_heads=24,
+        n_kv_heads=8,
+        d_ff=8192,
+        vocab_size=200064,
+        act="swiglu",
+        rope_theta=10000.0,
+        tie_embeddings=True,
+        citation="arXiv:2412.08905",
+    )

@@ -14,12 +14,18 @@ contents the reference holds (handed over as numpy): with
 `ProtectionDomain._next_key` pinned to the same value in both packages,
 the same registration order mints the same lkey/rkey, so WRs built for
 one side replay on the other.
+
+`tree_from_numpy` carries a tree of arrays (the reference's caches,
+taken out with `np.asarray`) into the port as the same structure of
+tensors. bf16 crosses as its uint16 bit pattern: numpy has no bf16 of
+its own, and the card machine has no `ml_dtypes`.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch import tree
 from repro_torch.device import resolve
 
 _NP_DEMOTE = {np.dtype(np.float64): np.dtype(np.float32),
@@ -43,14 +49,18 @@ def demote(x):
 
 def to_tensor(x, device, dtype=None) -> torch.Tensor:
     """Demoted `x` as a tensor on `device`, then cast to `dtype` when
-    given. May alias `x` when no copy or cast is needed: callers that
-    keep the result copy it themselves."""
+    given. A numpy bf16 array (`ml_dtypes.bfloat16`, what the reference
+    holds) crosses as its bits. May alias `x` when no copy or cast is
+    needed: callers that keep the result copy it themselves."""
     t = demote(x)
     if not isinstance(t, torch.Tensor):
         t = np.ascontiguousarray(t)
         if not t.flags.writeable:       # read-only views (broadcasts)
             t = t.copy()
-        t = torch.from_numpy(t)
+        if t.dtype.name == "bfloat16":  # torch cannot read numpy bf16
+            t = torch.from_numpy(t.view(np.uint16)).view(torch.bfloat16)
+        else:
+            t = torch.from_numpy(t)
     return t.to(device=device, dtype=dtype)
 
 
@@ -72,3 +82,29 @@ def regions_from_numpy(pd, regions: dict, device=None) -> dict:
     if device is not None and resolve(device) != pd.engine.device:
         raise ValueError(f"pd lives on {pd.engine.device}, not {device}")
     return {name: pd.reg_mr(name, arr) for name, arr in regions.items()}
+
+
+def tree_from_numpy(arrays, device=None, *, bf16_bits: bool = False):
+    """The nested dict/list/tuple `arrays` of numpy arrays as the same
+    structure of tensors on `device` (None: the package default), with
+    the reference's demotion. A bf16 leaf crosses as its bits: either an
+    `ml_dtypes.bfloat16` array, or — with ``bf16_bits=True`` — a uint16
+    array of bit patterns (``np.asarray(x).view(np.uint16)`` on the
+    reference side); both arrive as `torch.bfloat16` with equal bits."""
+    dev = resolve(device)
+
+    def one(a):
+        a = np.asarray(a)
+        if bf16_bits:
+            if a.dtype != np.uint16:
+                raise TypeError(f"bf16_bits needs uint16 leaves, not "
+                                f"{a.dtype}")
+            a = np.ascontiguousarray(a)
+            if not a.flags.writeable:
+                a = a.copy()
+            t = torch.from_numpy(a).view(torch.bfloat16)
+        else:
+            t = to_tensor(a, "cpu")
+        # the tensor must not alias the caller's numpy memory
+        return t.clone() if dev.type == "cpu" else t.to(dev)
+    return tree.map(one, arrays)

@@ -193,7 +193,7 @@ class QPContext:
                     writes.clear()
                     return
                 offs = np.concatenate([d.offsets.ravel() for _, d in writes])
-                vals = _stack_rows([d.buf for _, d in writes], arr,
+                vals = stack_rows([d.buf for _, d in writes], arr,
                                    rec_shape)
                 offs, vals = dedupe_last_wins(offs, vals)
                 # scatter_run only exists on the coalescing path (the
@@ -238,7 +238,7 @@ def _numel(buf) -> int:
     return buf.numel() if isinstance(buf, torch.Tensor) else np.size(buf)
 
 
-def _stack_rows(bufs: list, arr: torch.Tensor, rec_shape: tuple):
+def stack_rows(bufs: list, arr: torch.Tensor, rec_shape: tuple):
     """Row-stack a fused run's WRITE sources. All-host sources stack on
     the host — numpy-first: ONE host->device copy happens at the
     scatter, not one per source. Device sources (READ results landing

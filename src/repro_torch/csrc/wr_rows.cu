@@ -1,6 +1,8 @@
-// Record copies of the fused T4 flush, in one source:
-//   scatter_rows: region[offs[r]] = vals[r], in place;
-//   gather_rows:  out[r] = region[offs[r]], a record of the flattened region.
+// Row copies of the datapath, in one source:
+//   scatter_rows: region[offs[r]] = vals[r], in place (the fused T4 flush);
+//   gather_rows:  out[r] = region[offs[r]], a record of the flattened region
+//                 (the fused T4 gather, and the T2 page gather);
+//   ingest_pages: pages[ids[i]] = payload[i], in place (the T2 paged ingest).
 //
 // Replaces: src/repro/kernels/wr_scatter/wr_scatter.py::wr_scatter (the
 // Pallas scatter: one grid step per record, the offsets scalar-prefetched,
@@ -8,19 +10,35 @@
 // _gather (a jitted jnp.take over an (n, L) element index that
 // gather_records builds on the host as int32).
 //
+// ingest_pages replaces src/repro/kernels/kv_ingest/kv_ingest.py::kv_ingest
+// (line 24): the Pallas page scatter whose grid walks the payload tiles in
+// order, scalar-prefetching the page ids and aliasing the pages in place,
+// so that no more than two tiles of an unbounded cache are ever resident
+// in VMEM (T2's "there is always an invalidated cacheline"). Here each
+// page is read once and written once, streamed through registers, with
+// nothing staged: the working set of the kernel is one 16-byte word per
+// thread, whatever the cache size. Bound: device-memory bytes,
+// 2 * n * page_bytes / 3.35 TB/s (plus 8 bytes of id per page): 10 us for
+// the main path's 2048 pages of 8 KiB (gemma-2b, 16 tokens x 1 kv head x
+// 256 x bf16), which is one block of 512 threads per page, one 16-byte
+// copy each. The grid runs pages in parallel, so a repeated id would race;
+// the wrapper keeps only the last occurrence of each id (the Pallas
+// grid's in-order last-wins) before the launch, and range-checks them.
+//
 // Bound on the card: device-memory bytes. Each record is read once and
 // written once (2 * m * row_bytes, plus 8 bytes of offset per record);
 // there is no arithmetic. For 4096 records of 4 KiB that is 32 MiB, about
 // 10 us at 3.35 TB/s.
 //
-// Design: both entry points are one row-copy kernel that differs only in
-// which side the record offset addresses. One block per record, in a
+// Design: all three entry points are one row-copy kernel that differs
+// only in which side the record offset addresses (ingest_pages is the
+// scatter with a page as the row). One block per record, in a
 // grid-stride loop over records. The block's threads copy the row in the
 // widest word (16, 8, 4, 2 or 1 bytes) that the row's byte width and both
 // base pointers allow, so a 4 KiB float32 record is 256 16-byte copies,
-// one per thread, with neighbouring threads on neighbouring addresses. The
-// row moves as raw bytes: the wrapper has already cast vals to the
-// region's dtype. The gather takes record offsets and computes addresses
+// one per thread (up to 512 threads a block), with neighbouring threads
+// on neighbouring addresses. The row moves as raw bytes: the wrapper has
+// already cast vals to the region's dtype. The gather takes record offsets and computes addresses
 // itself, so no n x L index array is built, shipped or read (32 MiB of
 // int32 indices for 16 MiB of data at 4096 x 1024, in the reference).
 // Record offsets are int64 and all addressing is 64-bit, because a region
@@ -49,7 +67,7 @@ template <typename W, bool kScatter>
 static void launch(void* dst, const void* src, const int64_t* offs,
                    int64_t m, int64_t row_bytes, cudaStream_t stream) {
   const int64_t words = row_bytes / (int64_t)sizeof(W);
-  const int threads = words >= 256 ? 256 : (int)((words + 31) / 32 * 32);
+  const int threads = words >= 512 ? 512 : (int)((words + 31) / 32 * 32);
   const unsigned grid = (unsigned)(m < 65535 ? m : 65535);
   copy_rows_kernel<W, kScatter><<<grid, threads, 0, stream>>>(
       static_cast<char*>(dst), static_cast<const char*>(src), offs, m,
@@ -82,6 +100,12 @@ extern "C" int scatter_rows(void* region, const void* vals, const void* offs,
 extern "C" int gather_rows(void* out, const void* region, const void* offs,
                            int64_t n, int64_t row_bytes, void* stream) {
   return copy_rows<false>(out, region, offs, n, row_bytes, stream);
+}
+
+extern "C" int ingest_pages(void* pages, const void* payload,
+                            const void* ids, int64_t n, int64_t page_bytes,
+                            void* stream) {
+  return copy_rows<true>(pages, payload, ids, n, page_bytes, stream);
 }
 
 extern "C" const char* kernel_error_string(int code) {

@@ -36,6 +36,7 @@ LAUNCHES: dict[str, int] = {}     # C entry point -> launches on the card
 LOGS: dict[str, str] = {}         # nvcc/ptxas output per built source
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+_TYPED: dict[str, set] = {}       # entry points given their argtypes
 _LOCK = threading.Lock()
 
 
@@ -97,22 +98,28 @@ def build(names=SOURCES):
 def load(name: str, signatures: dict) -> ctypes.CDLL:
     """The loaded library for `csrc/<name>.cu`, built on first use.
     `signatures` maps each C function to its ctypes argtypes; every
-    entry point returns an int CUDA error code."""
+    entry point returns an int CUDA error code. Several wrappers share
+    one library, each naming the entry points it calls: every entry
+    point gets its argtypes before any caller can reach it (ctypes
+    would otherwise pass each pointer as a 32-bit int)."""
     with _LOCK:
         lib = _LIBS.get(name)
-        if lib is not None:
-            return lib
-        job = _start(name)
-        if job is not None:
-            _finish(name, job)
-        lib = ctypes.CDLL(str(_paths(name)[1]))
+        if lib is None:
+            job = _start(name)
+            if job is not None:
+                _finish(name, job)
+            lib = ctypes.CDLL(str(_paths(name)[1]))
+            lib.kernel_error_string.argtypes = [ctypes.c_int]
+            lib.kernel_error_string.restype = ctypes.c_char_p
+            _LIBS[name] = lib
+            _TYPED[name] = set()
+        typed = _TYPED[name]
         for fn, argtypes in signatures.items():
-            f = getattr(lib, fn)
-            f.argtypes = argtypes
-            f.restype = ctypes.c_int
-        lib.kernel_error_string.argtypes = [ctypes.c_int]
-        lib.kernel_error_string.restype = ctypes.c_char_p
-        _LIBS[name] = lib
+            if fn not in typed:
+                f = getattr(lib, fn)
+                f.argtypes = argtypes
+                f.restype = ctypes.c_int
+                typed.add(fn)
         return lib
 
 

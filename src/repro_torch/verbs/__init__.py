@@ -7,17 +7,22 @@ One API over the FlexiNS engines:
   CompletionQueue.poll  -> T3 DMA-only notification ring
   custom opcodes via post_send  -> T4 handler dispatch (Table 2)
 
-This slice carries the loopback datapath; the routed `Fabric`, its fault
-model and rate control, and the mesh wire come with the fabric slice.
+The loopback datapath, the routed multi-pod `Fabric` (connection
+manager, fabric-scope SRQ, RNR retry), its seeded `FaultModel`, the
+`RateController`, and the `MeshTransport` wire.
 """
 from repro_torch.verbs.cq import CompletionQueue, CQOverrunError, WorkCompletion
+from repro_torch.verbs.fabric import (ConnectionManager, Fabric,
+                                      FabricAddress, FabricEndpoint)
+from repro_torch.verbs.faults import FaultModel
 from repro_torch.verbs.pd import MemoryRegion, ProtectionDomain
 from repro_torch.verbs.qp import (ENOMEMError, QPState, QPStateError,
                                   QueuePair, RecvWR, SendWR)
+from repro_torch.verbs.ratectl import RateController
 from repro_torch.verbs.srq import SharedReceiveQueue
 from repro_torch.verbs.transport import (SCALAR_DISPATCH_MAX,
-                                         LoopbackTransport, VerbsPair,
-                                         connect, two_sided_send)
+                                         LoopbackTransport, MeshTransport,
+                                         VerbsPair, connect, two_sided_send)
 from repro_torch.verbs.wqe import (IBV_WC_ACCESS_ERR, IBV_WC_RECV,
                                    IBV_WC_RETRY_EXC_ERR, IBV_WC_RNR_ERR,
                                    IBV_WC_SUCCESS, IBV_WC_WR_FLUSH_ERR,
@@ -26,11 +31,13 @@ from repro_torch.verbs.wqe import (IBV_WC_ACCESS_ERR, IBV_WC_RECV,
 
 __all__ = [
     "CompletionQueue", "CQOverrunError", "WorkCompletion",
+    "ConnectionManager", "Fabric", "FabricAddress", "FabricEndpoint",
+    "FaultModel", "RateController",
     "MemoryRegion", "ProtectionDomain",
     "ENOMEMError", "QPState", "QPStateError", "QueuePair", "RecvWR",
     "SendWR", "SharedReceiveQueue",
-    "SCALAR_DISPATCH_MAX", "LoopbackTransport", "VerbsPair", "connect",
-    "two_sided_send",
+    "SCALAR_DISPATCH_MAX", "LoopbackTransport", "MeshTransport",
+    "VerbsPair", "connect", "two_sided_send",
     "IBV_WC_ACCESS_ERR", "IBV_WC_RECV", "IBV_WC_RNR_ERR",
     "IBV_WC_RETRY_EXC_ERR", "IBV_WC_SUCCESS", "IBV_WC_WR_FLUSH_ERR",
     "IBV_WR_RDMA_READ", "IBV_WR_RDMA_WRITE", "IBV_WR_SEND",

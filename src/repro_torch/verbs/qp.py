@@ -80,7 +80,9 @@ class SendWR:
     opcode      IBV_WR_SEND / IBV_WR_RDMA_WRITE / IBV_WR_RDMA_READ, or any
                 custom opcode registered with the remote offload engine.
     payload     by-value payload (SEND / RDMA_WRITE / custom); any object
-                moves as-is by reference on the loopback transport.
+                moves as-is by reference on the loopback transport. May be
+                a tree of tensors for mesh-transport SENDs (spec_tree then
+                lowers it onto the TX engine's wire).
     mr/offsets  local MR + record offsets: SEND/WRITE source when payload
                 is None, RDMA_READ landing zone when given.
     remote_key  rkey of the remote MR (one-sided ops only).
@@ -96,6 +98,7 @@ class SendWR:
     remote_offsets: Any = None
     inline: bool | None = None
     signaled: bool = True
+    spec_tree: Any = None
 
 
 @dataclass
@@ -139,6 +142,20 @@ class _PostedSend:
     # slot for real)
     fc_peer_cq: Any = None
     fc_self_cq: Any = None
+    # RNR-stall retries consumed so far (fabric transports with a finite
+    # rnr_retry budget retire the WR with IBV_WC_RNR_ERR when exhausted)
+    rnr_tries: int = 0
+    # lossy-link state (fabrics with a FaultModel installed; see
+    # verbs/faults.py). `psn` is the per-QP packet sequence number stamped
+    # at post time, `wire_attempts` counts admission consults — together
+    # they make every fault verdict a pure function of the packet
+    # identity. `fault_stall` records why the head WR last stalled
+    # ("drop" / "delay" / "kill", None = receiver-not-ready) and
+    # `wire_tries` is the transport retry budget already spent on drops.
+    psn: int = 0
+    wire_attempts: int = 0
+    wire_tries: int = 0
+    fault_stall: str | None = None
 
 
 class QueuePair:
@@ -146,9 +163,13 @@ class QueuePair:
 
     # registry-backed telemetry (repro_torch.obs): `self.x += 1` call
     # sites and benchmark reads are unchanged, but the values live under
-    # this QP's scope (`qp{n}/...`)
+    # this QP's scope (`qp{n}/...`, re-homed to `fabric{k}/qp{n}/...` on
+    # attach to a fabric)
     doorbell_writes = metrics.counter_attr()
     desc_fetch_dmas = metrics.counter_attr()
+    rnr_retries = metrics.counter_attr()
+    rnr_exhausted = metrics.counter_attr()
+    rnr_backoff_units = metrics.counter_attr()
 
     def __init__(self, pd: ProtectionDomain, send_cq, recv_cq=None, *,
                  max_send_wr: int = 256, max_recv_wr: int = 256,
@@ -183,6 +204,17 @@ class QueuePair:
         # WQE-chain fetch DMA per post_send CALL, however many WRs ride it
         self.doorbell_writes = 0
         self.desc_fetch_dmas = 0
+        # RNR accounting (fabric transports): timeout-backoff retries
+        # consumed, backoff units slept, and WRs retired IBV_WC_RNR_ERR
+        # after retry exhaustion. These are THE counters — the Fabric's
+        # same-named attributes are read-only sums over its QPs.
+        self.rnr_retries = 0
+        self.rnr_exhausted = 0
+        self.rnr_backoff_units = 0
+        # per-QP packet sequence, stamped onto posted WRs when the
+        # transport carries a FaultModel (verbs/faults.py): the psn is
+        # half of the packet identity fault verdicts hash over
+        self._psn = 0
         # the T4 context every one-sided op against this QP coalesces in
         # (bound into the engine so handle_packet dispatches into it too)
         self.ctx = pd.engine.bind_context(
@@ -306,6 +338,14 @@ class QueuePair:
             posted = [self._build_wqe(w) for w in chain]
         if self.flow_control:
             self._fc_admit(posted)
+        tp = self.transport
+        if tp is not None and tp.faults is not None:
+            # lossy link: stamp packet sequence numbers so fault verdicts
+            # are a pure function of packet identity (see verbs/faults.py)
+            psn = self._psn
+            for k, ps in enumerate(posted):
+                ps.psn = psn + k
+            self._psn = psn + len(posted)
         self.sq.extend(posted)
         self.doorbell_writes += 1
         self.desc_fetch_dmas += 1       # whole chain rides one fetch DMA

@@ -3,7 +3,10 @@
 `LoopbackTransport` connects QPs in-process (intra-host RPC, the
 datapath on one card): payloads change hands by reference, one-sided ops
 run against the peer's registered MRs, which are tensors on the pd's
-device.
+device. `MeshTransport` is the mesh wire: a non-inline SEND whose WR
+carries a `spec_tree` lowers onto `tx_engine.transmit` (the T1 striped
+path) while the WQE/CQE headers stay on the T3 ring. Same verbs, two
+substrates.
 
 One `process()` pass is the unit of batching. Dispatch is BATCH-WISE
 (FlexTOE's discipline): consecutive same-opcode WRs form a *run*, and a
@@ -25,12 +28,12 @@ run costs O(1) python/launch overhead —
 bit-exactness oracle; it never launches a kernel of this package.
 
 Host/device boundary: payloads by value are numpy and stay on the host
-until the fused scatter's one host->device copy. Three places copy
-device data back to the host, each a synchronising transfer on the card
-and each where the reference converts to host memory too: the fused
-MR-row gather (`_fused_mr_rows`, once per same-MR segment), and an
-MR-sourced payload that is not fused (`_run_sends` landing into a posted
-MR, `_run_writes` sources) — once per WR.
+until the fused scatter's one host->device copy. MR-sourced payloads
+(the fused MR-row gather `_fused_mr_rows`, or a per-WR `_wr_source`)
+are tensors on the MR's device and stay there: a stack that holds one
+concatenates on the device (`offload_engine.stack_rows`), so device
+data never makes a round trip through the host — which numpy could not
+hold for a bf16 MR anyway.
 """
 from __future__ import annotations
 
@@ -44,9 +47,11 @@ import numpy as np
 import torch
 
 from repro_torch.convert import demote, to_host
-from repro_torch.core.offload_engine import dedupe_last_wins
+from repro_torch.core import tx_engine
+from repro_torch.core.descriptors import TransferPlan
+from repro_torch.core.offload_engine import dedupe_last_wins, stack_rows
 from repro_torch.kernels.wr_scatter import ops as wr_scatter_ops
-from repro_torch.obs import trace
+from repro_torch.obs import metrics, trace
 from repro_torch.verbs import wqe
 from repro_torch.verbs.cq import CompletionQueue
 from repro_torch.verbs.pd import MemoryRegion, ProtectionDomain
@@ -88,18 +93,29 @@ class _Cqe:
 def _submit_stacked(ctx, mr, offs: list, bufs: list, touch):
     """Submit one accumulated stack of record WRITEs as ONE DMA:
     duplicate offsets across the stacked entries retire last-writer-wins,
-    exactly like the sequential submissions they replace. Clears the
-    accumulators. Shared by the WRITE-run and SEND-landing paths."""
+    exactly like the sequential submissions they replace. Host rows
+    stack on the host; a stack holding device rows stacks on the device.
+    Clears the accumulators. Shared by the WRITE-run and SEND-landing
+    paths."""
     if not offs:
         return
     if len(offs) > 1:
-        o, b = dedupe_last_wins(np.concatenate(offs), np.concatenate(bufs))
+        o, b = dedupe_last_wins(np.concatenate(offs), stack_rows(
+            bufs, ctx.engine.regions[mr.name], tuple(mr.shape[1:])))
     else:
         o, b = offs[0], bufs[0]
     ctx.submit_dma("WRITE", mr.name, o, mr.record, buf=b)
     touch(ctx)
     offs.clear()
     bufs.clear()
+
+
+def _rows(src, rec_shape: tuple):
+    """A WRITE source as record rows: a tensor stays on its device, host
+    data becomes numpy."""
+    if not isinstance(src, torch.Tensor):
+        src = to_host(src)
+    return src.reshape((-1,) + rec_shape)
 
 
 class _CqStage:
@@ -126,6 +142,11 @@ class _CqStage:
 
 
 class LoopbackTransport:
+    # fault-injecting link layer (verbs/faults.py); only Fabric installs
+    # one, but the hook lives here so both dispatch paths consult the
+    # SAME admission points — that's the vectorized/oracle parity
+    faults = None
+
     def __init__(self, vectorized: bool = True):
         self.qps: dict[int, QueuePair] = {}
         self.vectorized = vectorized
@@ -155,6 +176,18 @@ class LoopbackTransport:
             raise IndexError(f"WR {wr.wr_id}: source offsets outside MR "
                              f"{wr.mr.name!r} of {arr.shape[0]} records")
         return arr[torch.from_numpy(offs).to(arr.device)]
+
+    def _lower_payload(self, qp: QueuePair, wr: SendWR, payload):
+        """Hook: how an ALREADY-EXTRACTED payload crosses the wire
+        (identity on loopback). Split from `_wr_source` so the fused
+        MR-run gather can extract a whole run's payloads in ONE launch
+        and still give the transport its per-WR wire lowering."""
+        return payload
+
+    def _move_payload(self, qp: QueuePair, wr: SendWR):
+        """Hook: how a non-inline payload crosses the wire — extraction
+        (`_wr_source`) then wire lowering (`_lower_payload`)."""
+        return self._lower_payload(qp, wr, self._wr_source(qp, wr))
 
     @staticmethod
     def _remote_mr(peer: QueuePair, rkey: int) -> MemoryRegion | None:
@@ -365,7 +398,7 @@ class LoopbackTransport:
         """The payload one posted SEND delivers — THE shared helper for
         the scalar and vectorized paths (they must not drift): inline
         rows unpack from the companion descriptor, everything else moves
-        by reference (`_wr_source`). Returns (payload, nbytes)
+        by reference through `_move_payload`. Returns (payload, nbytes)
         where nbytes is the inline byte count (0 for by-reference moves:
         the wire bytes are the payload's own)."""
         if ps.inline_row is not None:
@@ -375,7 +408,7 @@ class LoopbackTransport:
             block, j = ps.inline_src
             return wqe.unpack_inline(block[j], ps.inline_nbytes,
                                      ps.inline_dtype), ps.inline_nbytes
-        return self._wr_source(qp, ps.wr), 0
+        return self._move_payload(qp, ps.wr), 0
 
     @staticmethod
     def _stage_recv_run(stage, cq, ids, lens, datas):
@@ -423,15 +456,15 @@ class LoopbackTransport:
         maximal segments of consecutive WRs sourcing from the SAME local
         MR (payload=None, mr+offsets — the NIC-DMA-reads-the-source
         contract) gather through ONE `gather_records` launch per segment
-        and ONE host conversion, instead of a per-WR `pd.mr_array` +
-        device index each. Returns a run-aligned list whose fused
-        positions hold the (k, *rec) numpy row blocks (bit-exact with
-        the oracle's per-WR gather — same region, same offsets, no
-        region mutation can interleave because every DMA of the pass
-        queues until settle) and None elsewhere; or None when nothing
-        fuses. A WR whose offsets don't normalize or fall outside its MR
-        stays un-fused so it fails on the per-WR path at exactly the
-        oracle's position."""
+        instead of a per-WR `pd.mr_array` + device index each. Returns a
+        run-aligned list whose fused positions hold the (k, *rec) row
+        blocks, views of the gathered block on the MR's device
+        (bit-exact with the oracle's per-WR gather — same region, same
+        offsets, no region mutation can interleave because every DMA of
+        the pass queues until settle) and None elsewhere; or None when
+        nothing fuses. A WR whose offsets don't normalize or fall outside
+        its MR stays un-fused so it fails on the per-WR path at exactly
+        the oracle's position."""
         n = len(run)
         mrs: list = [None] * n
         offs: list = [None] * n
@@ -463,17 +496,15 @@ class LoopbackTransport:
                     rows = [None] * n
                 seg = offs[i:j]
                 cat = np.concatenate(seg)
-                # ONE region fetch + ONE fused gather launch + ONE host
-                # conversion for the whole segment
+                # ONE region fetch + ONE fused gather launch for the
+                # whole segment; the rows stay on the device, cut into
+                # per-WR views by ONE split (a python slice per WR costs
+                # several times more on a long run)
                 block = wr_scatter_ops.gather_records(
                     qp.pd.mr_array(mr), cat, int(mr.record))
-                host = to_host(block)
-                rec_shape = tuple(mr.shape[1:])
-                p = 0
-                for k, off in zip(range(i, j), seg):
-                    rows[k] = host[p:p + off.size].reshape(
-                        (off.size,) + rec_shape)
-                    p += off.size
+                parts = block.reshape((-1,) + tuple(mr.shape[1:])).split(
+                    [off.size for off in seg])
+                rows[i:j] = parts
             i = j
         return rows
 
@@ -502,10 +533,35 @@ class LoopbackTransport:
         un-submitted tail — including sideband landings queued behind the
         failed stack for CQE ordering — rolls back for redelivery rather
         than completing piecemeal; conservative (a retried sideband WR
-        re-runs `_wr_source`), but never a SUCCESS CQE for data that
+        re-runs `_move_payload`), but never a SUCCESS CQE for data that
         did not land."""
         n = len(run)
-        if peer.srq is not None:
+        if self.faults is not None:
+            # lossy link: claim + admit WR-by-WR in exactly the oracle's
+            # order. A refused packet hands its claim straight back and
+            # stalls the rest of the run — decision parity with
+            # `_dispatch_scalar` is what keeps vectorized=False a
+            # bit-exactness oracle under the same fault schedule.
+            rwrs = []
+            for ps in run:
+                if peer.srq is not None:
+                    rwr = peer.srq.take(peer.qp_num)
+                else:
+                    rwr = peer.rq.popleft() if peer.rq else None
+                if rwr is None:
+                    ps.fault_stall = None       # RNR, not a link fault
+                    break
+                if not self.faults.admit(self, qp, ps):
+                    if peer.srq is not None:
+                        peer.srq.untake(peer.qp_num, [rwr])
+                    else:
+                        peer.rq.appendleft(rwr)
+                    break
+                rwrs.append(rwr)
+            run = run[:len(rwrs)]
+            if not run:
+                return 0
+        elif peer.srq is not None:
             rwrs = peer.srq.take_many(peer.qp_num, n)
         else:
             k = min(n, len(peer.rq))
@@ -559,7 +615,9 @@ class LoopbackTransport:
                     payload = rows[pos]
                     nbytes = ps.inline_nbytes
                 elif mr_rows is not None and mr_rows[pos] is not None:
-                    payload = mr_rows[pos]  # pre-gathered block row
+                    # pre-gathered block row: by-reference move, the wire
+                    # lowering (spec_tree / fabric routing) still per-WR
+                    payload = self._lower_payload(qp, ps.wr, mr_rows[pos])
                     nbytes = 0
                 else:
                     payload, nbytes = self._wr_payload(qp, ps)
@@ -569,10 +627,11 @@ class LoopbackTransport:
                     # ALL landing validation happens here in the fallible
                     # phase — offsets normalized, payload reshaped
                     # (`_as_records` so a bad payload fails exactly like
-                    # the oracle's), numpy staging for the stack (the ONE
-                    # device conversion happens at the fused scatter)
+                    # the oracle's); host payloads stay numpy for the
+                    # stack (the ONE device conversion happens at the
+                    # fused scatter), MR-sourced ones stay on the device
                     off = np.asarray(to_host(rwr.offsets)).ravel()
-                    buf = to_host(self._as_records(rwr.mr, payload))
+                    buf = self._as_records(rwr.mr, payload)
                 landed.append((ps, rwr, payload, off, buf, nbytes))
         except BaseException:
             # payload/landing prep failed mid-run: deliver the gathered
@@ -720,9 +779,11 @@ class LoopbackTransport:
                     done += len(sub)
                     continue
                 # fallible phase: gather every source up front.
-                # numpy-first: a variadic device concatenate over
-                # thousands of tiny operands costs more than the scatter
-                # it feeds — the ONE device conversion is submit_dma's.
+                # numpy-first for payloads by value: a variadic device
+                # concatenate over thousands of tiny operands costs more
+                # than the scatter it feeds — their ONE device conversion
+                # is the scatter's. MR-sourced rows are already on the
+                # device and stay there.
                 # MR-sourced WRITEs fuse their source extraction the
                 # same way as SENDs: one gather launch per same-local-MR
                 # segment instead of a per-WR `pd.mr_array` + index.
@@ -734,11 +795,11 @@ class LoopbackTransport:
                      for o in roffs]
                 mr_rows = self._fused_mr_rows(qp, sub) \
                     if len(sub) > 1 else None
-                srcs = [(ps, off, to_host(
+                srcs = [(ps, off, _rows(
                              mr_rows[pos] if mr_rows is not None
                              and mr_rows[pos] is not None
-                             else self._wr_source(qp, ps.wr))
-                         .reshape((-1,) + rec_shape) if ok else None)
+                             else self._wr_source(qp, ps.wr), rec_shape)
+                         if ok else None)
                         for pos, (ps, off, ok)
                         in enumerate(zip(sub, roffs, inside))]
                 # infallible phase: stack, submit, stage. A WR whose
@@ -829,7 +890,18 @@ class LoopbackTransport:
                 else:
                     rwr = peer.rq.popleft() if peer.rq else None
                 if rwr is None:
+                    if self.faults is not None:
+                        ps.fault_stall = None   # RNR, not a link fault
                     break       # RNR: leave this and later SENDs queued
+                if self.faults is not None and \
+                        not self.faults.admit(self, qp, ps):
+                    # refused at the link: hand the claim back and stall
+                    # (`Fabric._police` reads ps.fault_stall for the why)
+                    if peer.srq is not None:
+                        peer.srq.untake(peer.qp_num, [rwr])
+                    else:
+                        peer.rq.appendleft(rwr)
+                    break
                 payload, nbytes = self._wr_payload(qp, ps)
                 delivered = payload
                 if rwr.mr is not None:
@@ -879,10 +951,36 @@ class LoopbackTransport:
         return processed
 
 
+class MeshTransport(LoopbackTransport):
+    """Lower payload-bearing SENDs onto the T1 TX engine: headers on the
+    ring, payload once over the fattest direct path (striped wire)."""
+
+    # registry-backed: `meshtransport{i}/wire_sends` (or `fabric{i}/...`
+    # for Fabric subclasses — the scope is minted lazily from the class
+    # name on first touch)
+    wire_sends = metrics.counter_attr()
+
+    def __init__(self, plan: TransferPlan | None = None, *,
+                 staged: bool = False, vectorized: bool = True):
+        super().__init__(vectorized=vectorized)
+        self.plan = plan or TransferPlan()
+        self.staged = staged
+        self.wire_sends = 0
+
+    def _lower_payload(self, qp: QueuePair, wr: SendWR, payload):
+        if wr.spec_tree is None:
+            return payload
+        self.wire_sends += 1
+        fn = tx_engine.transmit_staged if self.staged else tx_engine.transmit
+        return fn(payload, wr.spec_tree, self.plan)
+
+
 def two_sided_send(send_qp: QueuePair, flush, server_qp: QueuePair,
                    recv_cq: CompletionQueue, payloads: list, *,
-                   wr_id: int = 0, inline: bool | None = None):
-    """Shared body of the send/send_many conveniences: top the recv side
+                   wr_id: int = 0, spec_tree=None,
+                   inline: bool | None = None):
+    """Shared body of the send/send_many conveniences (VerbsPair and
+    FabricEndpoint): top the recv side
     up to the batch size (the server's SRQ pool, else its rq), post the
     whole list as ONE WQE chain (one doorbell write, one
     descriptor-fetch DMA), flush, and drain the recv CQ until every
@@ -900,7 +998,8 @@ def two_sided_send(send_qp: QueuePair, flush, server_qp: QueuePair,
     else:
         while len(server_qp.rq) < need:
             server_qp.post_recv(RecvWR(wr_id=wr_id + len(server_qp.rq)))
-    send_qp.post_send([SendWR(wr_id=wr_id + i, payload=p, inline=inline)
+    send_qp.post_send([SendWR(wr_id=wr_id + i, payload=p,
+                              spec_tree=spec_tree, inline=inline)
                        for i, p in enumerate(payloads)])
     flush()
     wcs = recv_cq.poll()
@@ -973,17 +1072,18 @@ class VerbsPair:
         assert wcs, "rpc produced no completion"
         return wcs[-1]
 
-    def send(self, payload, *, wr_id: int = 0, inline: bool | None = None):
+    def send(self, payload, *, wr_id: int = 0, spec_tree=None,
+             inline: bool | None = None):
         """Two-sided SEND client -> server; server-side recv completion is
         returned (the recv side — SRQ pool or per-QP rq — is topped up
         automatically)."""
         wcs = two_sided_send(self.client, self.client.flush, self.server,
                              self.server_recv_cq, [payload], wr_id=wr_id,
-                             inline=inline)
+                             spec_tree=spec_tree, inline=inline)
         assert wcs, "send was not delivered (RNR?)"
         return wcs[-1]
 
-    def send_many(self, payloads: list, *, wr_id: int = 0,
+    def send_many(self, payloads: list, *, wr_id: int = 0, spec_tree=None,
                   inline: bool | None = None):
         """Doorbell-batched two-sided SENDs: the whole list is staged as
         ONE WQE chain (one doorbell write, one descriptor-fetch DMA) and
@@ -991,7 +1091,7 @@ class VerbsPair:
         wr_id+1, ... . Returns the recv completions in posting order."""
         wcs = two_sided_send(self.client, self.client.flush, self.server,
                              self.server_recv_cq, payloads, wr_id=wr_id,
-                             inline=inline)
+                             spec_tree=spec_tree, inline=inline)
         if payloads:
             assert len(wcs) == len(payloads), \
                 f"{len(wcs)}/{len(payloads)} delivered (RNR?)"

@@ -6,13 +6,19 @@ import subprocess
 import sys
 from pathlib import Path
 
+import ml_dtypes
 import numpy as np
 import pytest
+import torch
 
 from repro import verbs as jverbs
 from repro_torch import device as tdevice
 from repro_torch import verbs as tverbs
-from repro_torch.convert import regions_from_numpy
+from repro_torch.configs.base import get_config, reduced
+from repro_torch.convert import regions_from_numpy, tree_from_numpy
+from repro_torch.core.kvtransfer import KVTransferEngine
+from repro_torch.models.registry import build_model
+from repro_torch.serve.kvcache import PagedKVPool
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
@@ -37,11 +43,24 @@ def test_port_imports_no_jax_and_nothing_of_the_reference(path):
         assert top not in ("jax", "jaxlib", "repro"), (path, name)
 
 
+def test_the_scan_covers_every_subpackage():
+    subs = {p.relative_to(ROOT / "src" / "repro_torch").parts[0]
+            for p in PORT_FILES if "repro_torch" in p.parts}
+    assert {"configs", "core", "kernels", "launch", "models", "obs",
+            "serve", "verbs"} <= subs
+
+
 def test_import_needs_no_card_no_triton_and_pulls_in_no_jax():
     code = ("import sys, torch\n"
             "import repro_torch, repro_torch.verbs, repro_torch.convert\n"
             "import repro_torch.kernels.wr_scatter.ops\n"
             "import repro_torch.kernels.desc_ring.ops\n"
+            "import repro_torch.kernels.kv_ingest.ops\n"
+            "import repro_torch.core.kvtransfer, repro_torch.core.rx_engine\n"
+            "import repro_torch.serve.kvcache, repro_torch.launch.mesh\n"
+            "import repro_torch.models.registry, repro_torch.configs.base\n"
+            "from repro_torch.configs.base import get_config\n"
+            "get_config('gemma-2b')\n"
             "assert not torch.cuda.is_available()\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in\n"
             "       ('jax', 'repro', 'triton')]\n"
@@ -65,8 +84,44 @@ def test_default_device_is_the_card_and_never_falls_back():
         assert tverbs.ProtectionDomain(device="cpu").engine.device.type \
             == "cpu"
         assert not tverbs.CompletionQueue(16).ring.device   # host ring
+        with pytest.raises(RuntimeError, match="cuda"):
+            tverbs.Fabric(pods=2)
+        with pytest.raises(RuntimeError, match="cuda"):
+            PagedKVPool(4, 2, (3,))
+        model = build_model(reduced(get_config("gemma-2b")))
+        with pytest.raises(RuntimeError, match="cuda"):
+            KVTransferEngine(model, 2, 8)
+        with pytest.raises(RuntimeError, match="cuda"):
+            model.init_cache(2, 8)
+        assert tverbs.Fabric(pods=2, device="cpu").device.type == "cpu"
+        assert PagedKVPool(4, 2, (3,), device="cpu").pages.device.type \
+            == "cpu"
     finally:
         tdevice.set_default(prev)
+
+
+def test_tree_from_numpy_keeps_bf16_bits():
+    """bf16 crosses as its bit pattern, from an ml_dtypes array or from
+    uint16 bits (the card machine has no ml_dtypes); other leaves take
+    the reference's demotion; the structure is kept."""
+    rng = np.random.default_rng(2)
+    bf = rng.standard_normal((3, 5)).astype(ml_dtypes.bfloat16)
+    bf[0, :3] = [np.inf, -0.0, np.nan]
+    tree = {"v": [bf], "k": (np.arange(4, dtype=np.int64),
+                             rng.standard_normal(2))}
+    got = tree_from_numpy(tree, "cpu")
+    assert got["v"][0].dtype == torch.bfloat16
+    np.testing.assert_array_equal(
+        got["v"][0].view(torch.int16).numpy().view(np.uint16),
+        bf.view(np.uint16))
+    assert isinstance(got["k"], tuple)
+    assert [t.dtype for t in got["k"]] == [torch.int32, torch.float32]
+    bits = tree_from_numpy([bf.view(np.uint16)], "cpu", bf16_bits=True)
+    np.testing.assert_array_equal(
+        bits[0].view(torch.int16).numpy().view(np.uint16),
+        bf.view(np.uint16))
+    with pytest.raises(TypeError):
+        tree_from_numpy([np.zeros(2, np.float32)], "cpu", bf16_bits=True)
 
 
 def test_regions_from_numpy_reproduces_reference_keys():
