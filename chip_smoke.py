@@ -1,15 +1,16 @@
 #!/usr/bin/env python3
-"""Drive the torch port's verbs datapath and its KV-cache transfer leg on
-one CUDA card and hold every kernel of those paths against its plain
-PyTorch version.
+"""Drive the torch port's verbs datapath, its KV-cache transfer leg and
+its serving path on one CUDA card and hold every kernel of those paths
+against its plain PyTorch version.
 
     python3 chip_smoke.py              # from the root of a checkout
 
 It needs one CUDA card: without one it exits non-zero and reports
 nothing. The same main paths run on the CPU at a small size in
-`tests/test_torch_datapath.py::test_smoke_rig_matches_reference_and_oracle`
-and `tests/test_torch_kv.py` (transfer, page round trip, migration,
-failover).
+`tests/test_torch_datapath.py::test_smoke_rig_matches_reference_and_oracle`,
+`tests/test_torch_kv.py` (transfer, page round trip, migration,
+failover) and `tests/test_torch_serve.py::
+test_chip_smoke_phase6_at_cpu_size_matches_reference_engine`.
 
 Phases (any failure exits non-zero):
   1. the card (nvidia-smi name and power limit) and the kernel build;
@@ -34,7 +35,23 @@ Phases (any failure exits non-zero):
      launches, 1 doorbell, 1 descriptor fetch each), and a transfer
      replayed through a decode-node kill on a 3-pod fabric; equal CQE
      streams, MR contents and counters across the rigs; timings on the
-     vectorized rig (median of 5). It needs ~15 GiB of device memory.
+     vectorized rig (median of 5). It needs ~15 GiB of device memory;
+  6. the serving path at full gemma-2b width (18 layers, vocab 256000,
+     2.5 B bf16 parameters from a seeded generator on the card):
+     `ServeEngine(max_batch=4, max_seq=4096, page_tokens=16,
+     device_ring=True)`, paged and bucketed, answers six requests of
+     seeded tokens (prompts of 5 to 3900 tokens, 32 new tokens each) on
+     four slots; every request must finish, every page return, each
+     prefill launch flash_attention once per layer and each admitting
+     step launch produce_consume once; the logits of every step are
+     held against the port's unpaged reference (unpadded prefill, dense
+     decode at batch 1, teacher-forced on the engine's tokens); prefill
+     per bucket, decode per step, tokens/s and peak memory are timed,
+     and one decode step is profiled. It peaks near 8 GiB.
+Phase 2 also holds flash_attention against its plain version at the
+prefill shapes of phase 6 (S = 512, 2048, 4096; in bf16 and in float32)
+and at 68 edge shapes: float32 within 2e-5, bf16 within 2e-2 and within
+half a bf16 ulp of the plain version's float32 result.
 The last three lines are the card's `nvidia-smi` line, one JSON object
 with a row per kernel, and `{"ok": true, "device": {...}}`.
 """
@@ -52,6 +69,7 @@ from pathlib import Path
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory (data sheet)
+PEAK_BF16_FLOPS = 989e12           # H100 SXM dense bf16 tensor cores
 
 
 @dataclass(frozen=True)
@@ -80,6 +98,37 @@ class KvSizes:
 
 KV = KvSizes(arch="gemma-2b", batch=4, seq=32768, prefill=32000, page=16,
              chunk=128, reps=5)
+
+
+@dataclass(frozen=True)
+class ServeSizes:
+    arch: str           # model config
+    reduce: bool        # reduced() widths (the CPU test), else full width
+    max_batch: int      # engine slots
+    max_seq: int        # engine cache length (the largest bucket)
+    page: int           # tokens per KV page (the engine's default)
+    prompts: tuple      # prompt length of each request
+    new: int            # tokens each request asks for
+    reps: int           # timing repetitions
+    seed: int           # parameter generator seed
+
+
+SERVE = ServeSizes(arch="gemma-2b", reduce=False, max_batch=4, max_seq=4096,
+                   page=16, prompts=(5, 300, 1500, 2100, 3000, 3900),
+                   new=32, reps=3, seed=0)
+# the prefill attention shapes phase 2 times: phase 6's buckets >= 512
+FLASH_SEQS = (512, 2048, 4096)
+# The largest |logit difference| a step of phase 6 may show against the
+# unpaged reference, as a fraction of that step's largest |logit|. The
+# engine and the reference do the same arithmetic but for the page
+# gather and the bucket padding, which move values without changing
+# them; where the card rounds a product of another shape differently (a
+# padded prefill's rows, a 4-row decode), the random network, chaotic in
+# bf16, can carry a one-ulp difference up to the size of the logits. So
+# the bf16 bound is 16 ulps of scale (2^-4): it catches a wrong page,
+# position or mask, and a miss names its step. float32 (the CPU test at
+# toy size): 1e-4, ten times what it measures.
+LOGIT_TOL = {"bfloat16": 2.0 ** -4, "float32": 1e-4}
 # the registry leaves the two phase-5 rigs must agree on
 KV_COUNTERS = {"doorbell_writes", "desc_fetch_dmas", "dma_writes",
                "dma_reads", "transfers_replayed", "route_reresolutions",
@@ -118,7 +167,8 @@ class Timer:
         self._evict = None
 
     def ms(self, fn, iters: int = 20, warmup: int = 3,
-           cold: bool = False) -> float:
+           cold: bool = False, median: bool = False) -> float:
+        """Mean (or, with `median` and `cold`, median) ms per call."""
         torch = self.torch
         for _ in range(warmup):
             fn()
@@ -145,10 +195,33 @@ class Timer:
             b.record()
             pairs.append((a, b))
         torch.cuda.synchronize()
-        return sum(a.elapsed_time(b) for a, b in pairs) / iters
+        times = [a.elapsed_time(b) for a, b in pairs]
+        return statistics.median(times) if median else sum(times) / iters
 
     def sync(self):
         self.torch.cuda.synchronize()
+
+    def wall(self, fn) -> float:
+        """Host-clock ms around `fn`, synchronised on both sides."""
+        self.sync()
+        t0 = time.perf_counter()
+        fn()
+        self.sync()
+        return (time.perf_counter() - t0) * 1e3
+
+    def span(self, fn, spans: list):
+        """Run `fn` between two CUDA events, kept in `spans`."""
+        a = self.torch.cuda.Event(enable_timing=True)
+        b = self.torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = fn()
+        b.record()
+        spans.append((a, b))
+        return out
+
+    def spans_ms(self, spans: list) -> float:
+        self.sync()
+        return sum(a.elapsed_time(b) for a, b in spans)
 
 
 def free_device_memory(torch):
@@ -1054,6 +1127,445 @@ def phase_kv(torch, np, dev, K, rng, T, kernel_ms: dict) -> dict:
                 counters=vec["counters"], completions=len(vec["polled"]))
 
 
+# -- phase 2, flash attention ----------------------------------------------------
+# float32 summation noise allowed on top of the output's own rounding
+FLASH_EPS = 2e-5
+
+
+def bf16_half_ulps(torch, got, r32):
+    """|got - r32| over half a bf16 ulp of r32 plus FLASH_EPS (1 + |r32|),
+    elementwise: <= 1 wherever `got` is r32 rounded to bf16 but for
+    float32 noise. bf16 keeps 8 significant bits, so for r32 = m 2^e with
+    0.5 <= |m| < 1 half an ulp is 2^(e - 9)."""
+    _, e = torch.frexp(r32)
+    half = torch.where(r32 == 0, torch.zeros_like(r32),
+                       torch.exp2((e - 9).float()))
+    return (got.float() - r32).abs() / (half + FLASH_EPS * (1 + r32.abs()))
+
+
+def phase_flash_kernels(torch, np, dev, Z, rng, T) -> dict:
+    """flash_attention against its plain version at the serving path's
+    shapes (gemma-2b's prefill attention at the buckets phase 6
+    prefills: B=1, H=8, KVH=1, D=256, causal) and at edge shapes: head
+    dims, grouping, ragged lengths, Sq < Sk, no mask, windows, softcap
+    and scale, a strided layout, head dims off the 16-byte staging.
+
+    Tolerances. float32: 2e-5 (summation order), as the reference's own
+    kernel tests (`tests/test_kernels.py`), at the main shapes too, so
+    the multi-tile walk of S = 4096 is held tightly. bf16: the reference
+    tests' 2e-2 against the plain bf16 result, and, tighter, within half
+    a bf16 ulp of the plain version's float32 result (plus FLASH_EPS of
+    float32 noise) at every element: the kernel keeps both products in
+    float32, so its only rounding is the output's. At S = 4096 a late
+    row's values are ~0.03, where a 2e-2 bound alone would pass a
+    skipped k-tile."""
+    import torch.nn.functional as F
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+
+    cfg = get_config(Z.arch)
+    H, KVH, D = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    gen = torch.Generator(device=dev).manual_seed(int(rng.integers(1 << 31)))
+    bf16 = torch.bfloat16
+
+    def rand(*shape, dtype=bf16):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    def hold_bf16(got, q, k, v, what, **kw) -> tuple:
+        """(max |err| against the plain bf16 result, max in half ulps)"""
+        exp = fa_ref.reference(q, k, v, **kw)
+        r32 = fa_ref.reference(q.float(), k.float(), v.float(), **kw)
+        T.sync()
+        err = float((got.float() - exp.float()).abs().max())
+        ulps = float(bf16_half_ulps(torch, got, r32).max())
+        check(got.shape == exp.shape and torch.allclose(
+            got.float(), exp.float(), atol=2e-2, rtol=2e-2) and ulps <= 1.0,
+            f"flash_attention != plain, {what}: max |err| {err}, "
+            f"{ulps} of the half-ulp bound")
+        return err, ulps
+
+    def hold_f32(got, q, k, v, what, **kw) -> float:
+        exp = fa_ref.reference(q, k, v, **kw)
+        T.sync()
+        err = float((got - exp).abs().max())
+        check(got.shape == exp.shape and torch.allclose(
+            got, exp, atol=2e-5, rtol=2e-5),
+            f"flash_attention != plain, {what}: max |err| {err}")
+        return err
+
+    lib = _build.load("flash_attention", fa_ops._SIG)
+    stream = _build.stream_ptr(dev)
+    by_seq = {}
+    for S in FLASH_SEQS:
+        q, k, v = rand(1, H, S, D), rand(1, KVH, S, D), rand(1, KVH, S, D)
+        got = fa_ops.attention(q, k, v)
+        err, ulps = hold_bf16(got, q, k, v, f"bf16 S={S}")
+        f32 = [t.float() for t in (q, k, v)]
+        err32 = hold_f32(fa_ops.attention(*f32), *f32, f"float32 S={S}")
+        del f32
+        out = torch.empty((1, S, H, D), dtype=bf16, device=dev).transpose(1, 2)
+        strides = np.asarray([*q.stride(), *k.stride(), *v.stride(),
+                              *out.stride()], np.int64)
+
+        def k_call():
+            _build.check(lib, lib.flash_attention(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                strides.ctypes.data, 1, 1, H, KVH, S, S, D, D,
+                1.0 / D ** 0.5, 0.0, 1, 0, stream), "flash_attention")
+        # causal: the (q, k) pairs with k <= q, two products of D each
+        flops = 4 * H * D * S * (S + 1) // 2
+        nbytes = (2 * H * S * D + 2 * KVH * S * D) * 2
+        by_seq[S] = dict(
+            max_abs_err=err, max_half_ulps=ulps, max_abs_err_f32=err32,
+            ms=T.ms(k_call, iters=10, cold=True, median=True),
+            plain_ms=T.ms(lambda: fa_ref.reference(q, k, v), iters=10,
+                          cold=True, median=True),
+            library_ms=T.ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True), iters=10,
+                cold=True, median=True),
+            bound_ms=max(flops / PEAK_BF16_FLOPS, nbytes / HBM_BYTES_PER_S)
+            * 1e3,
+            bound_by="operations" if flops / PEAK_BF16_FLOPS
+            > nbytes / HBM_BYTES_PER_S else "bytes",
+            gflop=flops / 1e9)
+        log(f"phase 2: flash_attention S={S}: {by_seq[S]}")
+        del q, k, v, got, out
+    free_device_memory(torch)
+
+    # edge shapes, in float32 and bf16
+    before = _build.LAUNCHES.get("flash_attention", 0)
+    cases, worst_ulps = 0, 0.0
+    for dtype in (torch.float32, bf16):
+        grid = [dict(B=1, H=8, KVH=8 // g, Sq=129, Sk=129, Dk=d, Dv=d)
+                for d in (16, 64, 128, 256) for g in (1, 2, 4, 8)]
+        grid += [dict(B=2, H=4, KVH=2, Sq=s, Sk=s, Dk=64, Dv=64, causal=c)
+                 for s in (1, 3, 100, 129, 256) for c in (True, False)]
+        grid += [dict(B=1, H=4, KVH=2, Sq=70, Sk=200, Dk=64, Dv=64, causal=c)
+                 for c in (True, False)]
+        grid += [dict(B=1, H=2, KVH=2, Sq=256, Sk=256, Dk=64, Dv=64,
+                      window=w) for w in (32, 128)]
+        grid += [dict(B=1, H=2, KVH=2, Sq=128, Sk=128, Dk=64, Dv=64,
+                      cap=20.0, sm_scale=0.2),
+                 dict(B=1, H=4, KVH=1, Sq=100, Sk=100, Dk=64, Dv=32),
+                 dict(B=2, H=8, KVH=1, Sq=77, Sk=77, Dk=256, Dv=256,
+                      strided=True),
+                 # rows off the 16-byte staging: element by element
+                 dict(B=1, H=2, KVH=1, Sq=90, Sk=90, Dk=20, Dv=20)]
+        for c in grid:
+            kw = {key: c[key] for key in ("causal", "window", "cap",
+                                          "sm_scale") if key in c}
+            if c.get("strided"):        # the layout chunked_attention hands
+                q = rand(c["B"], c["Sq"], c["H"], c["Dk"],
+                         dtype=dtype).transpose(1, 2)
+                k = rand(c["B"], c["Sk"], c["KVH"], c["Dk"],
+                         dtype=dtype).transpose(1, 2)
+                v = rand(c["B"], c["Sk"], c["KVH"], c["Dv"],
+                         dtype=dtype).transpose(1, 2)
+            else:
+                q = rand(c["B"], c["H"], c["Sq"], c["Dk"], dtype=dtype)
+                k = rand(c["B"], c["KVH"], c["Sk"], c["Dk"], dtype=dtype)
+                v = rand(c["B"], c["KVH"], c["Sk"], c["Dv"], dtype=dtype)
+            got = fa_ops.attention(q, k, v, **kw)
+            if dtype == bf16:
+                worst_ulps = max(worst_ulps, hold_bf16(
+                    got, q, k, v, f"edge case {c}", **kw)[1])
+            else:
+                hold_f32(got, q, k, v, f"edge case float32 {c}", **kw)
+            cases += 1
+    check(_build.LAUNCHES.get("flash_attention", 0) - before == cases,
+          "a flash edge case launched no kernel")
+    log(f"phase 2: flash_attention edge shapes ({cases} cases: float32 at "
+        "2e-5; bf16 at 2e-2 and within half a bf16 ulp of the float32 "
+        f"plain result (worst {worst_ulps:.3f} of that bound); D 16/64/128/"
+        "256 x G 1/2/4/8, S 1/3/100/129/256 causal and not, Sq < Sk, "
+        "windows 32/128, cap 20 with scale 0.2, Dv != Dk, strided (B,S,H,D) "
+        "views, D 20): match")
+    main = by_seq[FLASH_SEQS[-1]]
+    row = dict(name="flash_attention", route="cuda",
+               source="src/repro_torch/csrc/flash_attention.cu",
+               replaces="src/repro/kernels/flash_attention/"
+                        "flash_attention.py:84",
+               max_abs_err=max(r["max_abs_err"] for r in by_seq.values()),
+               ms=main["ms"], plain_ms=main["plain_ms"],
+               bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+               library_ms=main["library_ms"], entry="flash_attention",
+               shape=f"B=1 H={H} KVH={KVH} S={FLASH_SEQS[-1]} D={D} bf16 "
+                     "causal", by_seq=by_seq)
+    log(f"phase 2: {row['name']:<26} {row['shape']:<36} kernel "
+        f"{row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ms  bound "
+        f"{row['bound_ms']:.4f} ms  library {row['library_ms']:.4f} ms")
+    return {"flash_attention": row}
+
+
+# -- phase 6 ----------------------------------------------------------------------
+def _serve_reference(torch, model, params, prompt, toks, max_seq, dev):
+    """The port's unpaged reference, teacher-forced on the engine's own
+    tokens: an unpadded prefill, `pad_caches`, then dense `decode_step`
+    at batch 1. Returns the (len(toks), V) float32 logits it gives at
+    each step."""
+    from repro_torch.serve.kvcache import pad_caches
+    lg, caches = model.prefill(params, torch.from_numpy(prompt[None]).to(dev))
+    caches = pad_caches(caches, prompt.size, max_seq)
+    rows = [lg[0, -1].float()]
+    for t in range(1, len(toks)):
+        tok = torch.tensor([[toks[t - 1]]], dtype=torch.int32, device=dev)
+        lg, caches = model.decode_step(params, tok, caches,
+                                       prompt.size + t - 1)
+        rows.append(lg[0, 0].float())
+    return torch.stack(rows)
+
+
+def profile_decode_step(torch, eng, Z) -> dict:
+    """One decode-only engine step at Z.max_batch active slots under
+    torch.profiler: its wall time, the device time its kernels took,
+    the device's idle share of the step, and the five op kinds that
+    took the most device time. Run after the counted main path, on
+    requests of its own."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for i in range(Z.max_batch):
+        eng.submit([1 + i, 2, 3], max_new_tokens=4)
+    eng.step()                          # admits and prefills all four
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        active = eng.step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    check(active == Z.max_batch, f"profiled step had {active} slots")
+    eng.run_until_done()
+    # kernels only: a CPU op's device time is its kernels' again
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    device_ms = sum(r[1] for r in rows)
+    kernels = sum(r[2] for r in rows)
+    rows.sort(key=lambda r: -r[1])
+    return dict(wall_ms=wall, device_ms=device_ms,
+                idle_share=1 - device_ms / wall if device_ms else None,
+                device_ops=kernels,
+                top=[(k[:60], round(ms, 4), n) for k, ms, n in rows[:5]])
+
+
+def phase_serve(torch, np, dev, Z, rng, T, params=None) -> dict:
+    """Phase 6: the serving path — `ServeEngine` (paged, bucketed, device
+    recv ring with the fused poll) answering len(Z.prompts) requests of
+    Z.new tokens on Z.max_batch slots, against the port's unpaged
+    reference. `params` (the CPU test passes the reference's, carried
+    over) defaults to a seeded init on `dev`. On the card it also checks
+    the kernel launches per prefill and per step, and times prefill per
+    bucket, decode per step and the whole run."""
+    from repro_torch.configs.base import get_config, reduced
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.models.module import count_params
+    from repro_torch.models.registry import build_model
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.paged import bucket_len
+
+    cuda = dev.type == "cuda"
+    cfg = get_config(Z.arch)
+    if Z.reduce:
+        cfg = reduced(cfg)
+    model = build_model(cfg)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    if params is None:
+        params = model.init(torch.Generator(device=dev).manual_seed(Z.seed),
+                            device=dev)
+    T.sync()
+    n_params = count_params(model.param_specs())
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in Z.prompts]
+    log(f"phase 6: {Z.arch}{' (reduced)' if Z.reduce else ''}, "
+        f"{cfg.n_layers} layers, {n_params:,} parameters in {cfg.dtype}, "
+        f"built in {time.perf_counter() - t0:.1f} s")
+
+    eng = ServeEngine(model, params, max_batch=Z.max_batch,
+                      max_seq=Z.max_seq, page_tokens=Z.page,
+                      device_ring=True)
+    check(eng.paged and eng.bucketed and eng.ring.device,
+          "the engine is not paged, bucketed and on a device ring")
+    pool = eng.pool
+    # record each request's logits and each prefill's flash launches
+    logits_of: dict = {}
+    prefills: list = []
+    polled: list = []
+    cur: dict = {}
+    admit0, prefill0, step0 = eng._admit_local, eng._prefill, eng._paged_step
+    cq = eng.ep.peer.recv_cq
+    poll0 = cq.poll
+
+    def admit_local(slot, rid):
+        cur["rid"] = rid
+        admit0(slot, rid)
+
+    def prefill(p, tokens, **kw):
+        k0 = _build.LAUNCHES.get("flash_attention", 0)
+        logits, caches = prefill0(p, tokens, **kw)
+        prefills.append((tokens.shape[1],
+                         _build.LAUNCHES.get("flash_attention", 0) - k0))
+        logits_of[cur["rid"]] = [logits[0, -1].float()]
+        return logits, caches
+
+    def paged_step(p, tokens, table, pos, regions):
+        logits, regions = step0(p, tokens, table, pos, regions)
+        for i, rid in enumerate(eng.slots):
+            if rid is not None:
+                logits_of[rid].append(logits[i, 0].float())
+        return logits, regions
+
+    def poll(*a, **kw):
+        out = poll0(*a, **kw)
+        polled.append(len(out))
+        return out
+    eng._admit_local, eng._prefill, eng._paged_step = \
+        admit_local, prefill, paged_step
+    cq.poll = poll
+
+    # the main path: counts from zero, then the run, step by step
+    _build.reset_launches()
+    rids = [eng.submit(p.tolist(), max_new_tokens=Z.new) for p in prompts]
+    steps = []
+    t_run = time.perf_counter()
+    while True:
+        n_pre, n_poll = len(prefills), len(polled)
+        r0 = _build.LAUNCHES.get("ring_produce_consume", 0)
+        T.sync()
+        t1 = time.perf_counter()
+        active = eng.step()
+        T.sync()
+        steps.append(dict(ms=(time.perf_counter() - t1) * 1e3, active=active,
+                          prefills=len(prefills) - n_pre,
+                          cqes=sum(polled[n_poll:]),
+                          ring=_build.LAUNCHES.get("ring_produce_consume", 0)
+                          - r0))
+        if not active and not len(cq) and not eng.requests:
+            break
+        check(len(steps) < 100 * len(prompts) * Z.new, "the engine stalls")
+    run_s = time.perf_counter() - t_run
+    launches = dict(_build.LAUNCHES)
+    results = dict(eng._finished)
+
+    # what the run must show
+    check(sorted(results) == rids and all(len(results[r]) == Z.new
+                                          for r in rids),
+          f"requests did not all finish with {Z.new} tokens")
+    check(not eng.requests and not eng.pinned_prompts, "live dicts kept")
+    check(len(pool._free) == pool.n_pages - 1 and (pool.table == 0).all()
+          and pool.pages_allocated == pool.pages_freed > 0,
+          "pages not all back in the pool")
+    buckets = [bucket_len(n, Z.max_seq) for n in Z.prompts]
+    check(sorted(s for s, _ in prefills) == sorted(buckets),
+          f"prefill lengths {prefills} are not the buckets {buckets}")
+    check(eng.prefill_compiles == len(set(buckets)), "prefill_compiles")
+    check(max(s["active"] for s in steps) == Z.max_batch
+          and steps[0]["cqes"] == len(prompts)
+          and sum(s["prefills"] for s in steps) == len(prompts),
+          "the burst was not absorbed")
+    if cuda:
+        check(all(n == cfg.n_layers for _, n in prefills),
+              f"flash launches per prefill {prefills}")
+        check(all(s["ring"] == (1 if s["cqes"] else 0) for s in steps),
+              "produce_consume is not one launch per admitting step")
+        check(launches.get("flash_attention", 0) == cfg.n_layers
+              * len(prompts) and launches.get("ring_produce_consume", 0) > 0,
+              f"serve launches {launches}")
+        check(not launches.get("ring_produce") and not
+              launches.get("ring_consume"), f"serve launches {launches}")
+    log(f"phase 6: {len(rids)} requests x {Z.new} tokens on {Z.max_batch} "
+        f"slots in {len(steps)} steps, {run_s:.2f} s; prefills (length, "
+        f"flash launches) {prefills}; kernel launches {launches}")
+
+    # against the unpaged reference, teacher-forced on the engine's tokens
+    tol = LOGIT_TOL[cfg.dtype]
+    worst = agree = gated = gated_ok = n_tok = 0
+    worst_at = None
+    deltas, rel_by_step = [], []
+    for rid, prompt in zip(rids, prompts):
+        toks = results[rid]
+        ref = _serve_reference(torch, model, params, prompt, toks,
+                               Z.max_seq, dev)
+        got = torch.stack(logits_of[rid])
+        check(got.shape == ref.shape and bool(torch.isfinite(got).all()),
+              f"request {rid}: logits {tuple(got.shape)} vs "
+              f"{tuple(ref.shape)}, or not finite")
+        d = (got - ref).abs().amax(dim=-1)
+        rel = d / ref.abs().amax(dim=-1)
+        if float(rel.max()) > worst:
+            worst, worst_at = float(rel.max()), (rid, int(rel.argmax()))
+        rel_by_step.append(rel.tolist())
+        top2 = ref.topk(2, dim=-1).values
+        deltas.append((d, top2[:, 0] - top2[:, 1], ref.argmax(dim=-1),
+                       torch.tensor(toks, device=dev)))
+    max_d = max(float(d.max()) for d, *_ in deltas)
+    for d, gap, ref_tok, tok in deltas:
+        same = ref_tok == tok
+        agree += int(same.sum())
+        n_tok += same.numel()
+        sure = gap > 2 * max_d
+        gated += int(sure.sum())
+        gated_ok += int((same & sure).sum())
+    log(f"phase 6: logits vs the unpaged reference: max |dlogit| {max_d:.4g}"
+        f", worst step {worst:.4g} of its largest |logit| (tolerance "
+        f"{tol:g}); tokens agree {agree}/{n_tok}; {gated} tokens with a "
+        f"top-2 gap above {2 * max_d:.4g}, {gated_ok} of them equal")
+    check(worst <= tol, f"logits differ from the reference by {worst:.4g} "
+          f"of their scale at (request, step) {worst_at} (tolerance {tol:g})")
+    check(gated_ok == gated, "a token differs where the reference's top-2 "
+          "gap exceeds twice the largest logit difference")
+
+    # timings (the stand-in timer of the CPU test returns zeros)
+    prefill_ms, flash_share = {}, {}
+    spans: list = []
+    att0 = fa_ops.attention
+    fa_ops.attention = lambda *a, **kw: T.span(lambda: att0(*a, **kw), spans)
+    try:
+        for b in sorted(set(buckets)):
+            n = next(p.size for p, bb in zip(prompts, buckets) if bb == b)
+            padded = np.zeros((1, b), np.int32)
+            padded[0, :n] = prompts[buckets.index(b)]
+            tok = torch.from_numpy(padded).to(dev)
+            last = torch.tensor([n - 1], device=dev)
+            walls, shares = [], []
+            for _ in range(Z.reps):
+                spans.clear()
+                walls.append(T.wall(lambda: model.prefill(params, tok,
+                                                          last_pos=last)))
+                shares.append(T.spans_ms(spans) / walls[-1]
+                              if walls[-1] else 0.0)
+            prefill_ms[b] = statistics.median(walls)
+            flash_share[b] = statistics.median(shares)
+    finally:
+        fa_ops.attention = att0
+    decode = [s["ms"] for s in steps
+              if s["active"] == Z.max_batch and not s["prefills"]]
+    n_tokens = sum(len(v) for v in results.values())
+    timing = dict(prefill_ms=prefill_ms, flash_share_of_prefill=flash_share,
+                  decode_ms_per_step=statistics.median(decode) if decode
+                  else None, decode_steps_timed=len(decode),
+                  tokens_per_s=n_tokens / run_s, run_s=run_s,
+                  steps=len(steps))
+    peak = torch.cuda.max_memory_allocated() / 2**30 if cuda else None
+    if cuda:
+        timing["decode_profile"] = profile_decode_step(torch, eng, Z)
+    log(f"phase 6: prefill ms by bucket {prefill_ms} (median of {Z.reps}), "
+        f"flash kernels' share {flash_share}; decode "
+        f"{timing['decode_ms_per_step']} ms per step at {Z.max_batch} slots "
+        f"(median of {len(decode)}); {timing['tokens_per_s']:.1f} tokens/s "
+        f"over the run; peak device memory {peak} GiB; one profiled decode "
+        f"step {timing.get('decode_profile')}")
+    eng.close()
+    return dict(launches=launches, timing=timing, peak_gib=peak,
+                logit_rel_err=worst, max_dlogit=max_d,
+                token_agreement=agree / n_tok, gated_tokens=gated,
+                tokens=[results[r] for r in rids], rel_by_step=rel_by_step,
+                prompts=[p.tolist() for p in prompts], n_params=n_params)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1067,6 +1579,10 @@ def main() -> int:
     S = FULL
     dev = tdevice.resolve("cuda")
     tdevice.set_default(dev)
+    # full float32 products in the plain versions and the model's float32
+    # statistics: no TF32 anywhere
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     rng = np.random.default_rng(0)
     T = Timer(torch)
     t_start = time.perf_counter()
@@ -1087,23 +1603,31 @@ def main() -> int:
 
     rows = phase_kernels(torch, np, dev, S, rng, T)
     rows.update(phase_kv_kernels(torch, np, dev, KV, rng, T))
+    rows.update(phase_flash_kernels(torch, np, dev, SERVE, rng, T))
     vec, D, lpf, main_launches = phase_datapath(torch, np, dev, S, rng, T)
     timing = phase_timing(torch, np, dev, S, T, vec, D)
     del vec, D                  # the 12 GiB block MRs, before phase 5
     free_device_memory(torch)
     kv = phase_kv(torch, np, dev, KV, rng, T,
                   {k: rows[k]["ms"] for k in ("kv_ingest", "wr_gather.pages")})
+    free_device_memory(torch)           # phase 5's fabrics, before phase 6
+    serve = phase_serve(torch, np, dev, SERVE, rng, T)
+    free_device_memory(torch)
 
     # launches per C entry point on each main path's own run
-    paths = {"datapath": main_launches, "kv_leg": kv["launches"]}
+    paths = {"datapath": main_launches, "kv_leg": kv["launches"],
+             "serve": serve["launches"]}
     kernels = []
     for r in rows.values():
         entry = r.pop("entry")
         by_path = {p: n.get(entry, 0) for p, n in paths.items()}
         kernels.append(dict(r, launches=sum(by_path.values()),
                             launches_by_path=by_path))
+    for key in ("tokens", "prompts", "rel_by_step"):
+        serve.pop(key)
     log(json.dumps({"chains": timing, "launches_per_flush": lpf,
-                    "kv_leg": kv, "seconds": time.perf_counter() - t_start}))
+                    "kv_leg": kv, "serve": serve,
+                    "seconds": time.perf_counter() - t_start}))
     log(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -18,7 +18,10 @@ one side replay on the other.
 `tree_from_numpy` carries a tree of arrays (the reference's caches,
 taken out with `np.asarray`) into the port as the same structure of
 tensors. bf16 crosses as its uint16 bit pattern: numpy has no bf16 of
-its own, and the card machine has no `ml_dtypes`.
+its own, and the card machine has no `ml_dtypes`. `params_from_numpy`
+does the same for a model's parameters and, given the port's model,
+holds the tree to its parameter specs, so both packages run one set of
+weights.
 """
 from __future__ import annotations
 
@@ -27,6 +30,7 @@ import torch
 
 from repro_torch import tree
 from repro_torch.device import resolve
+from repro_torch.models.module import is_spec, torch_dtype
 
 _NP_DEMOTE = {np.dtype(np.float64): np.dtype(np.float32),
               np.dtype(np.int64): np.dtype(np.int32),
@@ -108,3 +112,28 @@ def tree_from_numpy(arrays, device=None, *, bf16_bits: bool = False):
         # the tensor must not alias the caller's numpy memory
         return t.clone() if dev.type == "cpu" else t.to(dev)
     return tree.map(one, arrays)
+
+
+def params_from_numpy(arrays, device=None, *, model=None,
+                      bf16_bits: bool = False):
+    """The reference's parameter tree (its leaves as numpy arrays, bf16
+    as `ml_dtypes.bfloat16` or, with ``bf16_bits=True``, as uint16
+    bits) as the port's tree of tensors on `device` (None: the package
+    default). With `model`, the leaves must match its `param_specs` in
+    order and shape, and a leaf whose spec names a dtype must have it
+    (the norms' float32 scales)."""
+    params = tree_from_numpy(arrays, device, bf16_bits=bf16_bits)
+    if model is None:
+        return params
+    specs = tree.leaves(model.param_specs(), is_leaf=is_spec)
+    leaves = tree.leaves(params)
+    if len(specs) != len(leaves):
+        raise ValueError(f"{len(leaves)} parameter leaves for "
+                         f"{len(specs)} specs")
+    for i, (spec, leaf) in enumerate(zip(specs, leaves)):
+        if tuple(leaf.shape) != tuple(spec.shape) or (
+                spec.dtype and leaf.dtype != torch_dtype(spec.dtype)):
+            raise ValueError(f"parameter leaf {i}: {tuple(leaf.shape)} "
+                             f"{leaf.dtype} does not match its spec "
+                             f"{spec.shape} {spec.dtype}")
+    return params

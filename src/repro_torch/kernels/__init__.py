@@ -1,2 +1,3 @@
-# Hand-written CUDA kernels of the datapath (sources in repro_torch/csrc),
+# Hand-written CUDA kernels (sources in repro_torch/csrc): the datapath's
+# row copies and CQ ring, the T2 page ingest and the prefill attention,
 # each with a plain PyTorch version in its ref.py.

@@ -1,1 +1,1 @@
-# Launch helpers of the torch port (the fabric device grid).
+# Launch helpers of the torch port: the fabric device grid and the serving CLI.

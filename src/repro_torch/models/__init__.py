@@ -1,1 +1,1 @@
-# Model layer of the torch port (this slice: configs -> cache specs).
+# Model layer of the torch port: specs, layers, attention and the decoder.

@@ -7,16 +7,22 @@ built from it. Trees flatten in `jax.tree` order (`repro_torch.tree`:
 dict keys sorted), so a leaf list of the port and one of the reference
 compare 1:1.
 
-This slice carries the spec layer and the constant initializers
-(``zeros`` / ``ones``, enough for decode caches). The random
-initializers (``normal`` with an explicit `torch.Generator`, and the
-ssm/rglru ones) come with the serving model (ROADMAP slice 4).
+Initializers: ``zeros``, ``ones`` and ``normal`` (std = the spec's
+scale, else 1/sqrt(shape[-2]), drawn in float32 and cast), the random
+one from an explicit `torch.Generator` that the caller passes: leaves
+draw in tree order from that one generator, so a seed fixes the whole
+tree. The same seed does not give the reference's numbers, and nothing
+tries to: tests carry parameters across as numpy
+(`convert.params_from_numpy`). The ssm/rglru initializers (``a_log``,
+``rglru_a``) come with the remaining model families (ROADMAP slice 6).
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional
 
+import numpy as np
 import torch
 
 from repro_torch import tree
@@ -61,19 +67,49 @@ def torch_dtype(name: str) -> torch.dtype:
     return dt
 
 
-def _init_leaf(spec: Spec, default_dtype: str, device: torch.device):
+def _fan_in(shape: tuple[int, ...]) -> int:
+    if len(shape) == 1:
+        return shape[0]
+    # weight layout convention: (..., in, out) or (in, heads, head_dim);
+    # the reference takes shape[-2] and callers set scale where it matters
+    return shape[-2]
+
+
+def _init_leaf(spec: Spec, default_dtype: str, device: torch.device,
+               generator: torch.Generator | None):
     dt = torch_dtype(spec.dtype or default_dtype)
     if spec.init == "zeros":
         return torch.zeros(spec.shape, dtype=dt, device=device)
     if spec.init == "ones":
         return torch.ones(spec.shape, dtype=dt, device=device)
-    raise NotImplementedError(
-        f"init {spec.init!r} comes with the serving model (ROADMAP "
-        "slice 4); this slice builds zeros/ones trees only")
+    if spec.init == "normal":
+        if generator is None:
+            raise ValueError("the normal initializer needs a torch.Generator")
+        std = spec.scale if spec.scale is not None else \
+            1.0 / math.sqrt(max(1, _fan_in(spec.shape)))
+        v = torch.randn(spec.shape, generator=generator, dtype=torch.float32,
+                        device=device)
+        return v.mul_(std).to(dt)
+    if spec.init in ("a_log", "rglru_a"):
+        raise NotImplementedError(
+            f"init {spec.init!r} comes with the remaining model families "
+            "(ROADMAP slice 6)")
+    raise ValueError(f"unknown init {spec.init!r}")
 
 
-def init_params(specs, default_dtype: str = "float32", *, device=None):
-    """Tensors for a spec tree of constant initializers, on `device`
-    (None: the package default, the card)."""
+def init_params(specs, default_dtype: str = "float32", *, device=None,
+                generator: torch.Generator | None = None):
+    """Tensors for a spec tree on `device` (None: the package default,
+    the card). Random leaves draw from `generator`, which must live on
+    that device."""
     dev = resolve(device)
-    return tree_map_specs(lambda s: _init_leaf(s, default_dtype, dev), specs)
+    return tree_map_specs(
+        lambda s: _init_leaf(s, default_dtype, dev, generator), specs)
+
+
+def count_params(specs, predicate=None) -> int:
+    total = 0
+    for leaf in tree.leaves(specs, is_leaf=is_spec):
+        if predicate is None or predicate(leaf):
+            total += int(np.prod(leaf.shape))
+    return total

@@ -1,18 +1,45 @@
-"""Decoder-only LM: the spec layer (layer plan, scan groups, cache specs).
+"""Decoder-only LM: layer plan -> groups -> step functions.
 
-The port of the reference's `repro.models.transformer` up to what the
-KV-cache transfer leg needs: `KVTransferEngine` reads only
-``model.cache_specs`` (its wire spec tree), and the decode caches are
-built from them. The forward (`prefill`, `decode_step`, the parameter
-specs and the attention math) comes with the serving model, ROADMAP
-slice 4; the cache specs of the mla, rec and ssm mixers with the other
-model families, slice 6.
+The port of the reference's `repro.models.transformer` for the dense
+attention decoder the serving model runs (gemma-2b and the other
+`attn` + dense-FFN configurations): the parameter and cache specs, the
+GQA attention block (train / prefill through the flash kernel, decode
+through the local flash-decode), `block_apply` for `attn` with a dense
+or no FFN, and `DecoderLM`'s `init` / `forward` / `prefill` /
+`decode_step`.
+
+Differences from the reference, on purpose:
+
+  * `_run_groups` is a Python loop over the stacked layer dimension
+    (each layer sees views of the stacked tensors) where the reference
+    scans with `lax.scan`; PyTorch runs eagerly. New caches are stacked
+    back per group, as the reference's scan stacks them.
+  * No remat, no `_residual_constrain` (one process has no mesh), no
+    multi-token-prediction head and no frontends: training, the
+    parallelism slice and the other families bring them. The step
+    functions run under `torch.no_grad()`; training brings gradients.
+  * The `mla`, `rec` and `ssm` mixers, the windowed attention of the
+    hybrids and the MoE FFNs (`moe`, and `dense_big` before them) raise
+    NotImplementedError naming the remaining model families (ROADMAP
+    slice 6), as their cache specs do.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 
-from repro_torch.models.module import Spec, init_params, stack_specs
+import torch
+
+from repro_torch import tree
+from repro_torch.models import ffn
+from repro_torch.models.layers import (apply_rope, embed, embedding_spec,
+                                       proj_spec, rmsnorm, rmsnorm_spec,
+                                       softcap, unembed)
+from repro_torch.models.module import (Spec, init_params, stack_specs,
+                                       torch_dtype)
+from repro_torch.parallel import collectives
+
+_LATER = "comes with the remaining model families (ROADMAP slice 6)"
 
 
 # --------------------------------------------------------------------------
@@ -71,6 +98,77 @@ def group_plan(cfg) -> list[tuple[tuple[LayerKind, ...], int]]:
 
 
 # --------------------------------------------------------------------------
+# GQA attention block
+# --------------------------------------------------------------------------
+def attn_spec(cfg) -> dict:
+    D, H, KVH = cfg.d_model, cfg.n_heads, cfg.n_kv_heads
+    hd = cfg.resolved_head_dim
+    bd = (1, 2) if cfg.qkv_bias else None
+    return {
+        "wq": proj_spec((D, H, hd), ("embed", "heads", "head_dim"),
+                        bias_dims=bd),
+        "wk": proj_spec((D, KVH, hd), ("embed", "kv_heads", "head_dim"),
+                        bias_dims=bd),
+        "wv": proj_spec((D, KVH, hd), ("embed", "kv_heads", "head_dim"),
+                        bias_dims=bd),
+        "wo": proj_spec((H, hd, D), ("heads", "head_dim", "embed")),
+    }
+
+
+def _proj(w, x):
+    """einsum("bsd,dhk->bshk", x, w["w"]) (+ bias) as one matrix product."""
+    D, H, K = w["w"].shape
+    y = (x @ w["w"].reshape(D, H * K)).unflatten(-1, (H, K))
+    if "b" in w:
+        y = y + w["b"].to(y.dtype)
+    return y
+
+
+def _qkv(params, x, positions, cfg):
+    q = _proj(params["wq"], x)
+    k = _proj(params["wk"], x)
+    v = _proj(params["wv"], x)
+    if cfg.rope_theta:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _out_proj(params, y):
+    """einsum("bshk,hkd->bsd", y, params["wo"]["w"])."""
+    H, K, D = params["wo"]["w"].shape
+    return y.flatten(-2) @ params["wo"]["w"].reshape(H * K, D)
+
+
+def attn_apply(params, x, positions, cfg, *, mode="train", cache=None,
+               pos=None):
+    """Returns (y, new_cache): the cache rows of a prefill, the updated
+    cache of a decode step, None in training. Global causal attention
+    only: the hybrids' windowed layers come with slice 6. The
+    reference's `q_chunk` / `kv_chunk` / `block_skip` (read from its
+    `repro.perf` flags) tile its chunked attention; the flash kernel's
+    tiles are fixed, so the port has neither the flags nor the knobs."""
+    B, S, D = x.shape
+    H, KVH = cfg.n_heads, cfg.n_kv_heads
+    G = H // KVH
+    hd = cfg.resolved_head_dim
+    q, k, v = _qkv(params, x, positions, cfg)
+
+    if mode in ("train", "prefill"):
+        qg = q.reshape(B, S, KVH, G, hd)
+        out = collectives.attend(qg, k, v, causal=True)
+        y = _out_proj(params, out.reshape(B, S, H, hd))
+        return y, ({"k": k, "v": v} if mode == "prefill" else None)
+
+    # decode
+    q1 = q[:, 0].reshape(B, KVH, G, hd)
+    out, kc, vc = collectives.seqparallel_decode_attention(
+        q1, cache["k"], cache["v"], k[:, 0], v[:, 0], pos)
+    y = _out_proj(params, out.reshape(B, 1, H, hd))
+    return y, {"k": kc, "v": vc}
+
+
+# --------------------------------------------------------------------------
 # Cache specs
 # --------------------------------------------------------------------------
 def decode_heads_layout(cfg) -> bool:
@@ -106,22 +204,84 @@ def block_cache_spec(cfg, kind: LayerKind, batch: int, seq_len: int) -> dict:
         return attn_cache_spec(cfg, batch, seq_len,
                                window=cfg.hybrid.window)
     if kind.mix in ("mla", "rec", "ssm"):
-        raise NotImplementedError(
-            f"the {kind.mix} cache comes with the remaining model "
-            "families (ROADMAP slice 6)")
+        raise NotImplementedError(f"the {kind.mix} cache {_LATER}")
     raise ValueError(kind)
+
+
+# --------------------------------------------------------------------------
+# Block = mixer + FFN
+# --------------------------------------------------------------------------
+def _check_kind(kind: LayerKind):
+    if kind.mix != "attn":
+        raise NotImplementedError(f"the {kind.mix} mixer {_LATER}")
+    if kind.ffn not in ("dense", "none"):
+        raise NotImplementedError(f"the {kind.ffn} FFN {_LATER}")
+
+
+def block_spec(cfg, kind: LayerKind) -> dict:
+    _check_kind(kind)
+    D = cfg.d_model
+    s: dict = {"ln1": rmsnorm_spec(D), "attn": attn_spec(cfg)}
+    if kind.ffn == "dense":
+        s["ln2"] = rmsnorm_spec(D)
+        s["ffn"] = ffn.ffn_spec(D, cfg.d_ff, cfg.act)
+    return s
+
+
+def block_apply(params, x, positions, cfg, kind: LayerKind, *, mode="train",
+                cache=None, pos=None):
+    """Returns (x, aux, new_cache)."""
+    _check_kind(kind)
+    zc = cfg.zero_centered_norm
+    eps = cfg.norm_eps
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    h = rmsnorm(params["ln1"], x, eps, zero_centered=zc)
+    a, new_cache = attn_apply(params["attn"], h, positions, cfg, mode=mode,
+                              cache=cache, pos=pos)
+    x = x + a
+    if kind.ffn == "dense":
+        h = rmsnorm(params["ln2"], x, eps, zero_centered=zc)
+        x = x + ffn.ffn_apply(params["ffn"], h, cfg.act)
+    return x, aux, new_cache
+
+
+def superblock_apply(params, x, positions, cfg, subplan, *, mode="train",
+                     cache=None, pos=None):
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    new_cache = {}
+    for i, kind in enumerate(subplan):
+        key = f"b{i}"
+        c = cache[key] if cache is not None else None
+        x, a, nc = block_apply(params[key], x, positions, cfg, kind,
+                               mode=mode, cache=c, pos=pos)
+        aux = aux + a
+        new_cache[key] = nc if nc is not None else {}
+    return x, aux, new_cache
 
 
 # --------------------------------------------------------------------------
 # The model
 # --------------------------------------------------------------------------
 class DecoderLM:
-    """The decoder's spec layer. The forward (`prefill`, `decode_step`)
-    and the parameters come with the serving model, ROADMAP slice 4."""
-
     def __init__(self, cfg):
         self.cfg = cfg
         self.groups = group_plan(cfg)
+
+    # -- specs ------------------------------------------------------------
+    def param_specs(self) -> dict:
+        cfg = self.cfg
+        s: dict = {"embed": embedding_spec(cfg.vocab_size, cfg.d_model),
+                   "final_norm": rmsnorm_spec(cfg.d_model),
+                   "groups": []}
+        for subplan, count in self.groups:
+            g = {f"b{i}": block_spec(cfg, k) for i, k in enumerate(subplan)}
+            s["groups"].append(stack_specs(g, count))
+        if not cfg.tie_embeddings:
+            s["out_embed"] = embedding_spec(cfg.vocab_size, cfg.d_model)
+        if cfg.mtp_depth:
+            raise NotImplementedError(f"the multi-token-prediction head "
+                                      f"{_LATER}")
+        return s
 
     def cache_specs(self, batch: int, seq_len: int) -> list:
         cfg = self.cfg
@@ -132,7 +292,110 @@ class DecoderLM:
             out.append(stack_specs(g, count))
         return out
 
+    def init(self, generator: torch.Generator, dtype=None, *, device=None):
+        """Parameters on `device` (None: the package default, the card),
+        the random leaves drawn in tree order from `generator`, which
+        must live on that device."""
+        return init_params(self.param_specs(), dtype or self.cfg.dtype,
+                           device=device, generator=generator)
+
     def init_cache(self, batch: int, seq_len: int, *, device=None):
         """Zero decode caches on `device` (None: the package default)."""
         return init_params(self.cache_specs(batch, seq_len),
                            self.cfg.dtype, device=device)
+
+    # -- shared trunk ------------------------------------------------------
+    def _embed_in(self, params, tokens, embeddings=None):
+        if embeddings is not None:
+            raise NotImplementedError(f"frontend embeddings {_LATER}")
+        cfg = self.cfg
+        x = embed(params["embed"], tokens).to(torch_dtype(cfg.dtype))
+        if cfg.scale_embeddings:
+            # the reference multiplies by a weakly typed scalar, which JAX
+            # rounds to the model dtype first: so does this
+            x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
+        return x
+
+    def _run_groups(self, params, x, positions, *, mode, caches=None,
+                    pos=None):
+        cfg = self.cfg
+        aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+        new_caches = []
+        for gi, (subplan, count) in enumerate(self.groups):
+            gp = params["groups"][gi]
+            gc = caches[gi] if caches is not None else None
+            ncs = []
+            for li in range(count):
+                p_l = tree.map(lambda a, li=li: a[li], gp)
+                c_l = (tree.map(lambda a, li=li: a[li], gc)
+                       if gc is not None else None)
+                x, a, nc = superblock_apply(p_l, x, positions, cfg, subplan,
+                                            mode=mode, cache=c_l, pos=pos)
+                aux_total = aux_total + a
+                ncs.append(nc)
+            if ncs and tree.leaves(ncs[0]):
+                new_caches.append(tree.map(lambda *xs: torch.stack(xs),
+                                           *ncs))
+            else:
+                new_caches.append(_empty_stack(subplan))
+        return x, aux_total, new_caches
+
+    def _logits(self, params, h):
+        cfg = self.cfg
+        h = rmsnorm(params["final_norm"], h, cfg.norm_eps,
+                    zero_centered=cfg.zero_centered_norm)
+        table = params["embed"] if cfg.tie_embeddings else params["out_embed"]
+        return softcap(unembed(table, h), cfg.logit_softcap)
+
+    @staticmethod
+    def _positions(B: int, S: int, device) -> torch.Tensor:
+        return torch.arange(S, dtype=torch.int32,
+                            device=device).broadcast_to((B, S))
+
+    # -- public step functions ---------------------------------------------
+    @torch.no_grad()
+    def forward(self, params, tokens, *, embeddings=None):
+        """Full-sequence logits. Returns (logits, extras)."""
+        B, S = tokens.shape
+        positions = self._positions(B, S, tokens.device)
+        x = self._embed_in(params, tokens, embeddings)
+        x, aux, _ = self._run_groups(params, x, positions, mode="train")
+        return self._logits(params, x), {"moe_aux": aux}
+
+    @torch.no_grad()
+    def prefill(self, params, tokens, *, embeddings=None, last_pos=None):
+        """Full-sequence forward that emits the decode cache.
+
+        Returns (last_token_logits (B,1,V), caches). `last_pos` (B,)
+        selects which row's logits are "last" — the real prompt end when
+        `tokens` is right-padded to a bucketed length. Rows at positions
+        <= last_pos never see the pad rows (causal masking adds exact
+        zeros), so the selected logits — and the cache rows a later
+        decode step attends to — match an unpadded prefill."""
+        B, S = tokens.shape
+        positions = self._positions(B, S, tokens.device)
+        x = self._embed_in(params, tokens, embeddings)
+        x, _, caches = self._run_groups(params, x, positions, mode="prefill")
+        if last_pos is None:
+            x_last = x[:, -1:]
+        else:
+            lp = torch.as_tensor(last_pos, device=x.device).long()
+            x_last = x[torch.arange(B, device=x.device), lp.reshape(B)][:, None]
+        return self._logits(params, x_last), caches
+
+    @torch.no_grad()
+    def decode_step(self, params, tokens, caches, pos):
+        """One decode step. tokens: (B,1); pos: scalar or (B,) int (write
+        index). Returns (logits (B,1,V), caches); the caches passed in
+        are left as they were."""
+        B = tokens.shape[0]
+        pos = torch.as_tensor(pos, dtype=torch.int32, device=tokens.device)
+        positions = pos.broadcast_to((B,))[:, None]
+        x = self._embed_in(params, tokens)
+        x, _, caches = self._run_groups(params, x, positions, mode="decode",
+                                        caches=caches, pos=pos)
+        return self._logits(params, x), caches
+
+
+def _empty_stack(subplan):
+    return {f"b{i}": {} for i in range(len(subplan))}

@@ -1,0 +1,57 @@
+"""Attention strategies, as one process runs them.
+
+The port of the reference's `repro.parallel.collectives` for the
+branches a single process takes: with no `model` mesh axis (M == 1)
+full-sequence attention is local chunked attention (the flash kernel),
+and decode is the local branch of the KV-sequence-parallel flash-decode
+— the per-request write of the new entry at `pos`, `decode_partials`
+over the whole cache, `finalize_partials`. `merge_partials` and the
+shard_map branches (head-TP, context parallelism, the sharded decode)
+come with the parallelism slice (ROADMAP slice 8);
+`window_decode_attention` with recurrentgemma (slice 6).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models.attention import (chunked_attention, decode_partials,
+                                          finalize_partials)
+
+
+def attend(q, k, v, *, causal=True, window=0, cap=0.0, sm_scale=None):
+    """q: (B,S,KVH,G,Dk); k/v: (B,S,KVH,D*) -> (B,S,KVH,G,Dv)."""
+    return chunked_attention(q, k, v, causal=causal, window=window, cap=cap,
+                             sm_scale=sm_scale)
+
+
+def _update(cache, new, p):
+    """Per-request write of `new` at index p (rows whose p lies outside
+    the cache keep their content). A new tensor: the caller's cache is
+    left as it was, as the reference's functional update leaves it."""
+    S = cache.shape[1]
+    in_range = (p >= 0) & (p < S)
+    rows = torch.arange(cache.shape[0], device=cache.device)
+    upd = cache.index_put((rows, p.clamp(0, S - 1)), new.to(cache.dtype))
+    # a where, not a boolean index: no host sync on the card
+    return torch.where(in_range[:, None, None, None], upd, cache)
+
+
+def seqparallel_decode_attention(q, k_cache, v_cache, k_new, v_new, pos, *,
+                                 cap=0.0, sm_scale=None):
+    """One-token decode against the whole KV cache (the local branch).
+
+    q: (B,KVH,G,Dk); caches: (B,S,KVH,D*); new entries: (B,KVH,D*);
+    pos: scalar or (B,) int (index where the new entry is written;
+    attention covers positions [0, pos]). Returns (out (B,KVH,G,Dv),
+    k_cache, v_cache). MLA's absorbed mode (`v_dims`) comes with the
+    remaining model families (ROADMAP slice 6).
+    """
+    B, S = k_cache.shape[:2]
+    pos = torch.as_tensor(pos, device=q.device).long().broadcast_to((B,))
+    k_cache = _update(k_cache, k_new, pos)
+    v_cache = _update(v_cache, v_new, pos)
+    acc, m, l = decode_partials(q, k_cache, v_cache,
+                                torch.arange(S, device=q.device), pos,
+                                cap=cap, sm_scale=sm_scale)
+    out = finalize_partials(acc, l).to(q.dtype)
+    return out, k_cache, v_cache

@@ -1,1 +1,1 @@
-# Serving layer of the torch port (this slice: the paged KV pool).
+# Serving layer of the torch port: the paged KV pools and the serving engine.

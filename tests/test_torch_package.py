@@ -18,6 +18,7 @@ from repro_torch.configs.base import get_config, reduced
 from repro_torch.convert import regions_from_numpy, tree_from_numpy
 from repro_torch.core.kvtransfer import KVTransferEngine
 from repro_torch.models.registry import build_model
+from repro_torch.serve.engine import ServeEngine
 from repro_torch.serve.kvcache import PagedKVPool
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -47,7 +48,13 @@ def test_the_scan_covers_every_subpackage():
     subs = {p.relative_to(ROOT / "src" / "repro_torch").parts[0]
             for p in PORT_FILES if "repro_torch" in p.parts}
     assert {"configs", "core", "kernels", "launch", "models", "obs",
-            "serve", "verbs"} <= subs
+            "parallel", "serve", "verbs"} <= subs
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for mod in ("parallel/collectives", "models/attention",
+                "models/ffn", "models/layers", "models/transformer",
+                "kernels/flash_attention/ops", "kernels/flash_attention/ref",
+                "serve/paged", "serve/engine", "launch/serve"):
+        assert f"src/repro_torch/{mod}.py" in names, mod
 
 
 def test_import_needs_no_card_no_triton_and_pulls_in_no_jax():
@@ -59,6 +66,10 @@ def test_import_needs_no_card_no_triton_and_pulls_in_no_jax():
             "import repro_torch.core.kvtransfer, repro_torch.core.rx_engine\n"
             "import repro_torch.serve.kvcache, repro_torch.launch.mesh\n"
             "import repro_torch.models.registry, repro_torch.configs.base\n"
+            "import repro_torch.kernels.flash_attention.ops\n"
+            "import repro_torch.models.transformer\n"
+            "import repro_torch.parallel.collectives\n"
+            "import repro_torch.serve.engine, repro_torch.launch.serve\n"
             "from repro_torch.configs.base import get_config\n"
             "get_config('gemma-2b')\n"
             "assert not torch.cuda.is_available()\n"
@@ -93,6 +104,10 @@ def test_default_device_is_the_card_and_never_falls_back():
             KVTransferEngine(model, 2, 8)
         with pytest.raises(RuntimeError, match="cuda"):
             model.init_cache(2, 8)
+        with pytest.raises(RuntimeError, match="cuda"):
+            model.init(torch.Generator())
+        with pytest.raises(RuntimeError, match="cuda"):
+            ServeEngine(model, {})
         assert tverbs.Fabric(pods=2, device="cpu").device.type == "cpu"
         assert PagedKVPool(4, 2, (3,), device="cpu").pages.device.type \
             == "cpu"
