@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Drive the torch port's verbs datapath, its KV-cache transfer leg and
-its serving path on one CUDA card and hold every kernel of those paths
-against its plain PyTorch version.
+"""Drive the torch port's verbs datapath, its KV-cache transfer leg, its
+serving path, the T3 notification pipe, the disaggregated serving
+cluster and Solar block storage on one CUDA card, and hold every kernel
+of those paths against its plain PyTorch version.
 
     python3 chip_smoke.py              # from the root of a checkout
 
@@ -9,8 +10,9 @@ It needs one CUDA card: without one it exits non-zero and reports
 nothing. The same main paths run on the CPU at a small size in
 `tests/test_torch_datapath.py::test_smoke_rig_matches_reference_and_oracle`,
 `tests/test_torch_kv.py` (transfer, page round trip, migration,
-failover) and `tests/test_torch_serve.py::
-test_chip_smoke_phase6_at_cpu_size_matches_reference_engine`.
+failover), `tests/test_torch_serve.py::
+test_chip_smoke_phase6_at_cpu_size_matches_reference_engine` and
+`tests/test_torch_{ring_pipe,cluster,storage}.py` (phases 7, 8, 9).
 
 Phases (any failure exits non-zero):
   1. the card (nvidia-smi name and power limit) and the kernel build;
@@ -47,11 +49,35 @@ Phases (any failure exits non-zero):
      held against the port's unpaged reference (unpadded prefill, dense
      decode at batch 1, teacher-forced on the engine's tokens); prefill
      per bucket, decode per step, tokens/s and peak memory are timed,
-     and one decode step is profiled. It peaks near 8 GiB.
+     and one decode step is profiled. It peaks near 8 GiB;
+  7. the T3 pipe (Fig. 10b): `core.notification.Ring`, host- and
+     device-resident, round trips of one descriptor and of drained
+     batches of 4096 OP_KV_WRITE descriptors naming payload slots of
+     4 KiB: one ring_pipe_consume launch per drained batch, payloads
+     equal to the slots in descriptor order, us per round trip;
+  8. the serving cluster at full gemma-2b width on one
+     `Fabric(pods=4)` (prefill pods pod0/pod1, paged decode engines
+     pod2/pod3, a Router, phase 6's parameters): (a) eight requests of
+     5-3900 tokens against the single-pod scalar-datapath oracle, (b)
+     the same through a seeded decode-pod kill, (c) the continuous-
+     batching sweep of `benchmarks/bench_serve_cluster.py` at 1, 8, 64
+     and 512 sessions (desc_dmas_per_token flat within 1.2x), (d) the
+     migration contract (one doorbell, one descriptor fetch, one gather
+     and one scatter launch per cache-leaf run), (e) `PDServer.serve`
+     against the unpaged greedy decode, and with int8 KV;
+  9. Solar block storage: a `SolarBlockStore` of 2^20 blocks of 4 KiB
+     (4 GiB) on the card, `read_flexins` (one gather launch per request)
+     and `read_rdma` at 1x32, 4x32 and 12x32 LBAs against `read_cpu`
+     (data exact, CRC within 1e-5 of the request's largest checksum),
+     kIOPS, and one list walk per request through OP_LIST_TRAVERSAL
+     (one list_traverse launch each).
 Phase 2 also holds flash_attention against its plain version at the
 prefill shapes of phase 6 (S = 512, 2048, 4096; in bf16 and in float32)
 and at 68 edge shapes: float32 within 2e-5, bf16 within 2e-2 and within
-half a bf16 ulp of the plain version's float32 result.
+half a bf16 ulp of the plain version's float32 result, ring_pipe_consume
+on a seeded permutation of 4096 slots of 4 KiB and its edge cases, and
+list_traverse on a 2^20-record list (hits, a miss stopped at max_hops,
+the -1 tail), all exact.
 The last three lines are the card's `nvidia-smi` line, one JSON object
 with a row per kernel, and `{"ok": true, "device": {...}}`.
 """
@@ -59,6 +85,7 @@ from __future__ import annotations
 
 import gc
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -230,6 +257,17 @@ def free_device_memory(torch):
     are freed only by a collection pass, not by `del`."""
     gc.collect()
     torch.cuda.empty_cache()
+
+
+def count_launches(_build, total: dict, fn):
+    """Run `fn` as part of a main path: zero the launch counts, run it,
+    and add what it launched on the card to `total`. Launches made
+    between such runs (oracles, references) are not counted."""
+    _build.reset_launches()
+    out = fn()
+    for k, v in _build.LAUNCHES.items():
+        total[k] = total.get(k, 0) + v
+    return out
 
 
 def bound_ms(nbytes: int) -> float:
@@ -1566,6 +1604,818 @@ def phase_serve(torch, np, dev, Z, rng, T, params=None) -> dict:
                 prompts=[p.tolist() for p in prompts], n_params=n_params)
 
 
+# -- phase 2, the T3 pipe's gather and the list walk ----------------------------
+@dataclass(frozen=True)
+class PipeSizes:
+    slots: int          # payload slots = ring depth (phase 3's device CQ)
+    width: int          # float32 words per payload slot (4 KiB)
+    reps: int           # timing repetitions
+
+
+PIPE = PipeSizes(slots=4096, width=1024, reps=20)
+
+
+@dataclass(frozen=True)
+class StoreSizes:
+    n_blocks: int       # 4 KiB float32 blocks in the Solar store
+    clients: tuple      # Fig. 17's client counts, each `depth` LBAs deep
+    depth: int          # LBAs per client per request
+    records: int        # records of the list the walk chases
+    value: int          # value words per record ([key, next, value...])
+    max_hops: int       # the list-walk opcode's bound
+    walks: int          # walks through the opcode over the verbs pair
+    reps: int           # timing repetitions
+    seed: int           # the store's block seed
+
+
+STORE = StoreSizes(n_blocks=1 << 20, clients=(1, 4, 12), depth=32,
+                   records=1 << 20, value=8, max_hops=64, walks=8, reps=5,
+                   seed=0)
+
+
+def linked_list(np, rng, n: int, value: int):
+    """(n, 2 + value) float32 records linked in a seeded random order:
+    keys are a seeded permutation of 0..n-1 (exact in float32), the walk
+    order is `order`, and its last record's next is -1."""
+    order = rng.permutation(n)
+    rec = np.empty((n, 2 + value), np.float32)
+    rec[:, 0] = rng.permutation(n)
+    rec[order[:-1], 1] = order[1:]
+    rec[order[-1], 1] = -1
+    rec[:, 2:] = rng.standard_normal((n, value))
+    return rec, order
+
+
+def walk_cases(rec, order, max_hops: int) -> list:
+    """(what, key, head, max_hops, expected (hops, record) or None) for
+    the list walk: hits, a miss that stops at max_hops, the -1 tail,
+    a negative head, max_hops 0 and a long hit."""
+    n = len(order)
+    key = lambda i: float(rec[order[i], 0])       # noqa: E731
+    d = min(37, max_hops - 1, n - 12)
+    far = min(n // 2, 4000)
+    return [
+        ("hit", key(10 + d), int(order[10]), max_hops,
+         (d, int(order[10 + d]))),
+        ("hit at the head", key(5), int(order[5]), max_hops,
+         (0, int(order[5]))),
+        ("miss stops at max_hops", -1.0, int(order[0]), max_hops,
+         (max_hops, int(order[max_hops]))),
+        ("-1 tail", -1.0, int(order[n - 5]), max_hops, (5, n - 1)),
+        ("head -1", -1.0, -1, max_hops, (0, n - 1)),
+        ("max_hops 0", -1.0, int(order[3]), 0, (0, int(order[3]))),
+        ("long hit", key(n // 8 + far), int(order[n // 8]), n,
+         (far, int(order[n // 8 + far]))),
+    ]
+
+
+def phase_pipe_kernels(torch, np, dev, P, Q, rng, T) -> dict:
+    """ring_pipe_consume against its plain version at the T3 pipe's
+    shape (a seeded permutation of all P.slots payload slots of 4 KiB)
+    and at edge shapes, exact; list_traverse against its plain version
+    on a Q.records-record list, exact, with its index edge cases."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.list_walk import ops as lw_ops
+    from repro_torch.kernels.list_walk import ref as lw_ref
+    from repro_torch.kernels.ring_pipe import ops as rp_ops
+    from repro_torch.kernels.ring_pipe import ref as rp_ref
+
+    rows = {}
+    gen = torch.Generator(device=dev).manual_seed(int(rng.integers(1 << 31)))
+    n, W = P.slots, P.width
+    slots = torch.randn((n, W), generator=gen, device=dev)
+    idx = rng.permutation(n)
+    idx_t = torch.from_numpy(idx).to(dev)
+    got = rp_ops.ring_consume(slots, idx)
+    exp = rp_ref.consume(slots, idx_t)
+    T.sync()
+    check(torch.equal(got, exp), "ring_pipe_consume != plain gather")
+    err = float((got - exp).abs().max())
+    out = torch.empty_like(got)
+    row_bytes = W * slots.element_size()
+    cuda = dev.type == "cuda"
+    # the bare launch on the card (the CPU rehearsal times nothing)
+    lib = _build.load("wr_rows", rp_ops._SIG) if cuda else None
+    stream = _build.stream_ptr(dev) if cuda else None
+
+    def k_pipe():
+        _build.check(lib, lib.ring_pipe_consume(
+            out.data_ptr(), slots.data_ptr(), idx_t.data_ptr(), n,
+            row_bytes, stream), "ring_pipe_consume")
+    rows["ring_pipe"] = dict(
+        name="ring_pipe.consume", route="cuda",
+        source="src/repro_torch/csrc/wr_rows.cu",
+        replaces="src/repro/kernels/ring_pipe/ring_pipe.py:23",
+        max_abs_err=err, ms=T.ms(k_pipe, cold=True) if cuda else None,
+        wrapper_ms=T.ms(lambda: rp_ops.ring_consume(slots, idx), cold=True),
+        plain_ms=T.ms(lambda: rp_ref.consume(slots, idx_t), cold=True),
+        bound_ms=bound_ms(2 * n * row_bytes + 8 * n), bound_by="bytes",
+        library_ms=T.ms(lambda: slots.index_select(0, idx_t), cold=True),
+        entry="ring_pipe_consume",
+        shape=f"{n} of {n} slots of {row_bytes} B")
+    del slots, got, exp, out
+
+    # edge shapes: dtypes, slot rows not a multiple of 16 B, bases off
+    # 16-byte alignment, repeated indices, n = 1 and n = 0
+    before = _build.LAUNCHES.get("ring_pipe_consume", 0)
+    cases = launched = 0
+    for dtype, w in ((torch.uint8, 5), (torch.int32, 3),
+                     (torch.bfloat16, 7), (torch.float32, 1023)):
+        for shift in (0, 1):
+            base = (torch.rand((40 * w + 1,), generator=gen, device=dev)
+                    * 200).to(dtype)
+            sl = base[shift:shift + 40 * w].view(40, w)
+            for ix in (rng.integers(0, 40, 13), rng.integers(0, 4, 9),
+                       rng.integers(0, 40, 1), np.zeros(0, np.int64)):
+                g = rp_ops.ring_consume(sl, ix)
+                e = rp_ref.consume(sl, torch.from_numpy(
+                    ix.astype(np.int64)).to(dev))
+                T.sync()
+                check(tuple(g.shape) == (ix.size, w) and torch.equal(g, e),
+                      f"ring_pipe_consume edge {dtype} w={w} shift {shift} "
+                      f"idx {ix}")
+                cases += 1
+                launched += ix.size > 0
+    if cuda:
+        check(_build.LAUNCHES.get("ring_pipe_consume", 0) - before
+              == launched, "an edge case launched no ring_pipe_consume")
+    for bad in ([40], [-1], [0, 41]):
+        b0 = dict(_build.LAUNCHES)
+        try:
+            rp_ops.ring_consume(sl, np.asarray(bad))
+            raised = False
+        except IndexError:
+            raised = True
+        check(raised and _build.LAUNCHES == b0,
+              f"slot index {bad} outside [0, 40) did not raise before a "
+              "launch")
+    log(f"phase 2: ring_pipe_consume edge shapes ({cases} cases: uint8/"
+        "int32/bfloat16/float32, slot rows of 5/12/14/4092 B, misaligned "
+        "bases, repeated indices, n=1, n=0): exact; out-of-range indices "
+        "raise before a launch")
+
+    # -- list_traverse on a seeded Q.records-record list -----------------
+    rec_np, order = linked_list(np, rng, Q.records, Q.value)
+    recs = torch.from_numpy(rec_np).to(dev)
+    for what, key, head, hops, want in walk_cases(rec_np, order,
+                                                  Q.max_hops):
+        k0 = _build.LAUNCHES.get("list_traverse", 0)
+        v, h, p = lw_ops.list_traverse(recs, key, head, hops)
+        ev, eh, ep = lw_ref.walk(recs, key, head, hops)
+        check(torch.equal(v, ev) and (h, p) == (eh, ep) == want,
+              f"list_traverse {what}: (hops, record) {(h, p)}, plain "
+              f"{(eh, ep)}, expected {want}")
+        if cuda:
+            check(_build.LAUNCHES.get("list_traverse", 0) - k0 == 1,
+                  f"list_traverse {what} was not one launch")
+    small = torch.tensor([[10, 1, 0], [20, 2, 1], [30, 3, 2], [40, -1, 3]],
+                         dtype=torch.float32, device=dev)
+    for what, nxt, head in (("next past the end", 4.0, 0),
+                            ("next before -n", -5.0, 0),
+                            ("next NaN", float("nan"), 0),
+                            ("head past the end", 3.0, 4),
+                            ("head before -n", 3.0, -5)):
+        bad = small.clone()
+        bad[2, 1] = nxt
+        try:
+            lw_ops.list_traverse(bad, 99.0, head, 8)
+            raised = False
+        except IndexError:
+            raised = True
+        check(raised, f"list_traverse did not raise on {what}")
+    log(f"phase 2: list_traverse on a {Q.records}-record list "
+        f"({Q.records * rec_np.shape[1] * 4 / 2**20:.0f} MiB): hits, a "
+        f"miss stopped at max_hops {Q.max_hops}, the -1 tail, head -1, "
+        "max_hops 0, a long hit: exact; out-of-range next/head raise")
+    miss_key, miss_head = -1.0, int(order[0])
+    meta = torch.empty((3,), dtype=torch.int64, device=dev)
+    vout = torch.empty((Q.value,), dtype=torch.float32, device=dev)
+    wlib = _build.load("list_walk", lw_ops._SIG) if cuda else None
+    R = rec_np.shape[1]
+
+    def k_walk():
+        _build.check(wlib, wlib.list_traverse(
+            vout.data_ptr(), meta.data_ptr(), recs.data_ptr(), Q.records,
+            R, Q.value, miss_key, miss_head, Q.max_hops, stream),
+            "list_traverse")
+    # this run's data: max_hops records' key and next words, the answer's
+    # value words read and written, and the three result words
+    walk_bytes = Q.max_hops * 8 + 2 * Q.value * 4 + 24
+    rows["list_walk"] = dict(
+        name="list_walk.traverse", route="cuda",
+        source="src/repro_torch/csrc/list_walk.cu",
+        replaces="src/repro/core/offload_engine.py:302",
+        max_abs_err=0.0,
+        ms=T.ms(k_walk, cold=True, median=True) if cuda else None,
+        wrapper_ms=T.ms(lambda: lw_ops.list_traverse(
+            recs, miss_key, miss_head, Q.max_hops), cold=True, median=True),
+        plain_ms=T.ms(lambda: lw_ref.walk(recs, miss_key, miss_head,
+                                          Q.max_hops), iters=3, warmup=1),
+        bound_ms=bound_ms(walk_bytes), bound_by="bytes", library_ms=None,
+        entry="list_traverse",
+        shape=f"{Q.max_hops}-hop miss on {Q.records} records of {R * 4} B")
+    for r in rows.values():
+        log(f"phase 2: {r['name']:<26} {r['shape']:<36} kernel "
+            f"{r['ms']} ms  plain {r['plain_ms']} ms  bound "
+            f"{r['bound_ms']:.6f} ms  library {r['library_ms']}")
+    return rows
+
+
+# -- phase 7 ----------------------------------------------------------------------
+def t3_round_trip(ring, slots, descs, ring_consume):
+    """The Fig. 10b round trip: publish descriptors on the T3 ring, drain
+    them, and gather each drained descriptor's payload slot (its `src`
+    word) in ONE launch. Returns the (n, W) payloads."""
+    ring.produce(descs)
+    return ring_consume(slots, ring.consume()[:, 1])
+
+
+def phase_t3(torch, np, dev, P, rng, T) -> dict:
+    """Phase 7: the T3 pipe through `core.notification.Ring`, host- and
+    device-resident: one descriptor, then drained batches of P.slots
+    OP_KV_WRITE descriptors naming a seeded permutation of the slots;
+    one ring_pipe_consume launch per drained batch, payloads equal to
+    the slots in descriptor order. Times each round trip."""
+    from repro_torch.core.descriptors import OP_KV_WRITE, make_descriptor
+    from repro_torch.core.notification import Ring
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.ring_pipe import ops as rp_ops
+
+    cuda = dev.type == "cuda"
+    gen = torch.Generator(device=dev).manual_seed(int(rng.integers(1 << 31)))
+    slots = torch.randn((P.slots, P.width), generator=gen, device=dev)
+    src = rng.permutation(P.slots)
+    batch = np.stack([make_descriptor(OP_KV_WRITE, src=int(s), dst=i)
+                      for i, s in enumerate(src)])
+    one = make_descriptor(OP_KV_WRITE, src=3)[None]
+    want = slots.index_select(0, torch.from_numpy(src).to(dev))
+    _build.reset_launches()
+    out = {}
+    for kind in ("host", "device"):
+        ring = Ring(P.slots, device=kind == "device", torch_device=dev)
+        # full batches first: each drains the ring and publishes the
+        # consumer counter, so the next batch finds its credit
+        k0 = _build.LAUNCHES.get("ring_pipe_consume", 0)
+        got = t3_round_trip(ring, slots, batch, rp_ops.ring_consume)
+        T.sync()
+        check(torch.equal(got, want), f"{kind} ring: drained batch payloads "
+              "differ from the slots in descriptor order")
+        batch_us = [1e3 * T.wall(lambda: t3_round_trip(
+            ring, slots, batch, rp_ops.ring_consume))
+            for _ in range(P.reps)]
+        if cuda:
+            check(_build.LAUNCHES.get("ring_pipe_consume", 0) - k0
+                  == 1 + P.reps, f"{kind} ring: not one ring_pipe_consume "
+                  "launch per drained batch")
+        got1 = t3_round_trip(ring, slots, one, rp_ops.ring_consume)
+        T.sync()
+        check(torch.equal(got1, slots[3:4]), f"{kind} ring: one-descriptor "
+              "payload differs from slot 3")
+        one_us = [1e3 * T.wall(lambda: t3_round_trip(
+            ring, slots, one, rp_ops.ring_consume)) for _ in range(P.reps)]
+        out[kind] = dict(one_us=statistics.median(one_us),
+                         batch_us=statistics.median(batch_us),
+                         dma_writes=ring.dma_writes, dma_reads=ring.dma_reads)
+        log(f"phase 7: {kind} ring of depth {P.slots}: one descriptor "
+            f"{out[kind]['one_us']:.1f} us per round trip, a drained batch "
+            f"of {P.slots} descriptors -> {P.slots} x {P.width * 4} B "
+            f"payloads {out[kind]['batch_us']:.1f} us (median of {P.reps}); "
+            f"ring DMAs: {ring.dma_writes} writes, {ring.dma_reads} reads")
+    launches = dict(_build.LAUNCHES)
+    if cuda:
+        check(launches.get("ring_pipe_consume", 0) == 2 * (2 + 2 * P.reps),
+              f"t3 pipe launches {launches}")
+    return dict(launches=launches, timing=out, payload=want)
+
+
+# -- phase 8 ----------------------------------------------------------------------
+@dataclass(frozen=True)
+class ClusterSizes:
+    arch: str           # model config
+    reduce: bool        # reduced() widths (the CPU test), else full width
+    max_batch: int      # (a)/(b): decode slots per decode pod
+    max_seq: int        # (a)/(b): cache length of every pod
+    page: int           # (a)/(b): tokens per KV page
+    prompts: tuple      # (a)/(b): prompt length of each request
+    new: int            # (a)/(b): tokens each request asks for
+    sweep_batch: int    # (c): decode slots per pod (the bench's MAX_BATCH)
+    sweep_seq: int      # (c): the bench's MAX_SEQ
+    sweep_page: int     # (c): the bench's PAGE_TOKENS
+    sessions: tuple     # (c): concurrent sessions per sweep point
+    sweep_new: int      # (c): tokens per session (the bench's MAX_NEW)
+    pd_batch: int       # (e): PDServer prompts
+    pd_prompt: int      # (e): tokens per PDServer prompt
+    pd_steps: int       # (e): PDServer decode steps
+    pd_seq: int         # (e): PDServer max_seq
+
+
+CLUSTER = ClusterSizes(arch="gemma-2b", reduce=False, max_batch=4,
+                       max_seq=4096, page=16,
+                       prompts=(5, 300, 1500, 2100, 3000, 3900, 7, 64),
+                       new=16, sweep_batch=8, sweep_seq=64, sweep_page=8,
+                       sessions=(1, 8, 64, 512), sweep_new=4, pd_batch=4,
+                       pd_prompt=1024, pd_steps=16, pd_seq=4096)
+DECODE_GIDS = ("pod2/dev0", "pod3/dev0")
+PREFILL_GIDS = ("pod0/dev0", "pod1/dev0")
+_SWEEP_PROMPTS = [[5, 3, 9, 1], [7, 7, 2], [1, 2, 3, 4, 5], [9, 8, 7],
+                  [4, 8, 15, 16], [23, 42, 3], [2, 4, 6, 8, 10, 12], [11, 13]]
+
+
+def sweep_prompt(i: int) -> list:
+    """Session i's prompt in `benchmarks/bench_serve_cluster.py`'s sweep
+    (its `_prompt`): the base set cycled with a shifting token offset."""
+    base = _SWEEP_PROMPTS[i % len(_SWEEP_PROMPTS)]
+    return [(t + i // len(_SWEEP_PROMPTS)) % 50 + 1 for t in base]
+
+
+def build_cluster(V, ServeEngine, PrefillPod, Router, model, params, *,
+                  max_batch, max_seq, page, faults=None, **engine_kw):
+    """The 4-pod cluster of the reference's tests and bench, from either
+    package: prefill pods on pod0/pod1, paged decode engines on
+    pod2/pod3 listening as `serve/<gid>`, one Router, one Fabric."""
+    fabric = V.Fabric(pods=4, faults=faults)
+    engines = [ServeEngine(model, params, max_batch=max_batch,
+                           max_seq=max_seq, fabric=fabric, gid=g,
+                           service=f"serve/{g}", page_tokens=page,
+                           **engine_kw) for g in DECODE_GIDS]
+    pods = [PrefillPod(model, params, fabric=fabric, gid=g,
+                       decode_gids=list(DECODE_GIDS), max_seq=max_seq,
+                       page_tokens=page) for g in PREFILL_GIDS]
+    router = Router(fabric)
+    for e in engines:
+        router.add_decode(e)
+    for p in pods:
+        router.add_prefill(p)
+    return fabric, router, engines, pods
+
+
+def _record_cluster_logits(engines, pods) -> dict:
+    """rid -> [float32 logits of each token]: the prefill's last row
+    (reset when a replay prefills again), then each decode step's."""
+    logits_of: dict = {}
+    cur: dict = {}
+    for pod in pods:
+        proc0, run0 = pod.process, pod._run_prefill
+
+        def process(rid, *a, _p=proc0, **kw):
+            cur["rid"] = rid
+            return _p(rid, *a, **kw)
+
+        def run_prefill(prompt, _r=run0):
+            logits, caches = _r(prompt)
+            logits_of[cur["rid"]] = [logits[0, -1].float()]
+            return logits, caches
+        pod.process, pod._run_prefill = process, run_prefill
+    for eng in engines:
+        _record_engine_steps(eng, logits_of)
+    return logits_of
+
+
+def _record_engine_steps(eng, logits_of: dict):
+    step0 = eng._paged_step
+
+    def paged_step(p, tokens, table, pos, regions):
+        logits, regions = step0(p, tokens, table, pos, regions)
+        for i, rid in enumerate(eng.slots):
+            if rid is not None:
+                logits_of[rid].append(logits[i, 0].float())
+        return logits, regions
+    eng._paged_step = paged_step
+
+
+def _record_oracle_logits(eng) -> dict:
+    logits_of: dict = {}
+    admit0, prefill0 = eng._admit_local, eng._prefill
+    cur: dict = {}
+
+    def admit_local(slot, rid):
+        cur["rid"] = rid
+        admit0(slot, rid)
+
+    def prefill(p, tokens, **kw):
+        logits, caches = prefill0(p, tokens, **kw)
+        logits_of[cur["rid"]] = [logits[0, -1].float()]
+        return logits, caches
+    eng._admit_local, eng._prefill = admit_local, prefill
+    _record_engine_steps(eng, logits_of)
+    return logits_of
+
+
+def compare_tokens(torch, got: dict, got_logits: dict, want: dict,
+                   want_logits: dict, tol: float) -> tuple:
+    """Per request, the tokens of a run against the oracle's. Where they
+    differ, the step that first differs was computed from the same
+    tokens in both runs, so its logits must agree to `tol` of their
+    scale (a near tie the card rounded the other way). Returns (the
+    worst relative logit difference over the comparable steps, the
+    differing steps as (rid, step, relative difference))."""
+    worst, diffs = 0.0, []
+    for rid, toks in want.items():
+        g = got[rid]
+        check(len(g) == len(toks), f"request {rid}: {len(g)} tokens, "
+              f"oracle {len(toks)}")
+        first = next((i for i, (a, b) in enumerate(zip(g, toks)) if a != b),
+                     len(toks))
+        upto = min(first + 1, len(toks))
+        a = torch.stack(got_logits[rid][:upto])
+        b = torch.stack(want_logits[rid][:upto])
+        check(bool(torch.isfinite(a).all()), f"request {rid}: logits not "
+              "finite")
+        rel = ((a - b).abs().amax(dim=-1) / b.abs().amax(dim=-1)).tolist()
+        worst = max(worst, max(rel))
+        if first < len(toks):
+            diffs.append((rid, first, rel[first]))
+    return worst, diffs
+
+
+def phase_cluster(torch, np, dev, C, rng, T, params=None) -> dict:
+    """Phase 8: the disaggregated serving cluster — `Router`, two
+    `PrefillPod`s and two paged `ServeEngine` decode pods (device recv
+    rings with the fused poll) on one `Fabric(pods=4)`, one parameter
+    tree. (a) C.prompts against the single-pod scalar-datapath oracle;
+    (b) the same with pod3 killed by a seeded FaultModel; (c) the
+    continuous-batching sweep of `bench_serve_cluster.py`; (d) its
+    migration contract; (e) `PDServer.serve` against the unpaged greedy
+    decode, and with int8 KV on the wire. `params` (the CPU test passes
+    the reference's, carried over) defaults to a seeded init on `dev`."""
+    from repro_torch import verbs as V
+    from repro_torch.configs.base import get_config, reduced
+    from repro_torch.kernels import _build
+    from repro_torch.models.registry import build_model
+    from repro_torch.obs import metrics
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.kvcache import pad_caches
+    from repro_torch.serve.pd_disagg import PDServer, PrefillPod
+    from repro_torch.serve.router import Router
+
+    cuda = dev.type == "cuda"
+    cfg = get_config(C.arch)
+    if C.reduce:
+        cfg = reduced(cfg)
+    model = build_model(cfg)
+    if params is None:
+        params = model.init(torch.Generator(device=dev).manual_seed(0),
+                            device=dev)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    launches: dict = {}
+
+    def counted(fn):
+        return count_launches(_build, launches, fn)
+
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32).tolist()
+               for n in C.prompts]
+    tol = LOGIT_TOL[cfg.dtype]
+
+    # the oracle: one pod, the scalar verbs datapath
+    oracle = ServeEngine(model, params, max_batch=C.max_batch,
+                         max_seq=C.max_seq, vectorized=False,
+                         page_tokens=C.page)
+    oracle_logits = _record_oracle_logits(oracle)
+    orids = [oracle.submit(p, max_new_tokens=C.new) for p in prompts]
+    ores = oracle.run_until_done()
+    want = {i: ores[r] for i, r in enumerate(orids)}
+    want_logits = {i: oracle_logits[r] for i, r in enumerate(orids)}
+    oracle.close()
+    del oracle, oracle_logits
+
+    def cluster_run(faults=None):
+        fabric, router, engines, pods = build_cluster(
+            V, ServeEngine, PrefillPod, Router, model, params,
+            max_batch=C.max_batch, max_seq=C.max_seq, page=C.page,
+            faults=faults, device_ring=True)
+        logits_of = _record_cluster_logits(engines, pods)
+        t0 = time.perf_counter()
+        rids = [router.submit(p, max_new_tokens=C.new) for p in prompts]
+        res = counted(router.run_until_done)
+        T.sync()
+        wall = time.perf_counter() - t0
+        got = {i: res[r] for i, r in enumerate(rids)}
+        got_logits = {i: logits_of[r] for i, r in enumerate(rids)}
+        info = dict(
+            wall_s=wall, failovers=router.failovers,
+            alive=[fabric.alive(g) for g in DECODE_GIDS],
+            migrated=sum(p.kv.pages_migrated for p in pods),
+            compiles=[p.prefill_compiles for p in pods],
+            counters={k: v for k, v in metrics.get_registry().snapshot()
+                      .items() if k.startswith(("router", "prefillpod"))})
+        router.close()
+        check(not fabric.qps and not fabric.routes and not fabric._listeners,
+              "Router.close left fabric state behind")
+        free_device_memory(torch)
+        return got, got_logits, info
+
+    # (a) correctness
+    got_a, logits_a, info_a = cluster_run()
+    worst_a, diffs_a = compare_tokens(torch, got_a, logits_a, want,
+                                      want_logits, tol)
+    del logits_a
+    n_tok = sum(len(v) for v in got_a.values())
+    log(f"phase 8 (a): {len(prompts)} requests of {list(C.prompts)} tokens "
+        f"x {C.new} on 2 prefill + 2 decode pods (max_batch "
+        f"{C.max_batch}, max_seq {C.max_seq}) in {info_a['wall_s']:.2f} s, "
+        f"{n_tok / info_a['wall_s']:.1f} tokens/s; {info_a['migrated']} "
+        f"pages migrated; tokens equal the single-pod oracle's for "
+        f"{len(prompts) - len(diffs_a)}/{len(prompts)} requests; worst "
+        f"comparable step {worst_a:.4g} of its largest |logit| "
+        f"(tolerance {tol:g}); differing steps (request, step, rel) "
+        f"{diffs_a}")
+    check(worst_a <= tol, f"cluster logits differ from the oracle's by "
+          f"{worst_a:.4g} of their scale")
+    check(info_a["failovers"] == 0 and info_a["migrated"] > 0,
+          f"cluster run (a): {info_a}")
+
+    # (b) failover
+    faults = V.FaultModel(seed=7).kill_after("pod3/dev0", 2)
+    got_b, logits_b, info_b = cluster_run(faults)
+    worst_b, diffs_b = compare_tokens(torch, got_b, logits_b, want,
+                                      want_logits, tol)
+    del logits_b, want_logits
+    log(f"phase 8 (b): pod3 killed by FaultModel(seed=7).kill_after "
+        f"(alive {info_b['alive']}, kills {faults.kills_triggered}), "
+        f"{info_b['failovers']} failovers in {info_b['wall_s']:.2f} s; "
+        f"tokens equal (a)'s: {got_b == got_a}; worst comparable step vs "
+        f"the oracle {worst_b:.4g}; differing steps {diffs_b}")
+    check(not info_b["alive"][1] and faults.kills_triggered == 1
+          and info_b["failovers"] >= 1, f"failover run (b): {info_b}")
+    check(worst_b <= tol, f"failover logits differ from the oracle's by "
+          f"{worst_b:.4g} of their scale")
+
+    # (c) the continuous-batching sweep
+    sweep = []
+    for n in C.sessions:
+        fabric, router, engines, pods = build_cluster(
+            V, ServeEngine, PrefillPod, Router, model, params,
+            max_batch=C.sweep_batch, max_seq=C.sweep_seq, page=C.sweep_page,
+            device_ring=True)
+        d0 = sum(qp.desc_fetch_dmas for qp in fabric.qps.values())
+        T.sync()
+        t0 = time.perf_counter()
+        rids = [router.submit(sweep_prompt(i), max_new_tokens=C.sweep_new)
+                for i in range(n)]
+        res = counted(lambda: router.run_until_done(max_iters=64 * n + 256))
+        T.sync()
+        s = time.perf_counter() - t0
+        toks = sum(len(res[r]) for r in rids)
+        check(toks == n * C.sweep_new, f"sweep {n}: {toks} tokens")
+        dmas = sum(qp.desc_fetch_dmas for qp in fabric.qps.values()) - d0
+        compiles = max(p.prefill_compiles for p in pods)
+        check(compiles <= math.ceil(math.log2(C.sweep_seq)) + 1,
+              f"sweep {n}: {compiles} prefill lengths")
+        check(sum(p.kv.pages_migrated for p in pods) > 0
+              and router.failovers == 0, f"sweep {n}: no migration")
+        concurrent = min(n, len(DECODE_GIDS) * C.sweep_batch)
+        row = dict(sessions=n, tokens=toks, s=s,
+                   tokens_per_s=toks / s if s else None,
+                   per_session_tokens_per_s=toks / s / concurrent if s
+                   else None, desc_dmas_per_token=dmas / toks,
+                   prefill_compiles=compiles,
+                   tokens_out=[res[r] for r in rids])
+        sweep.append(row)
+        router.close()
+        free_device_memory(torch)
+        log(f"phase 8 (c): {n} sessions x {C.sweep_new} tokens in {s:.2f} s"
+            f": {row['tokens_per_s']} tokens/s, "
+            f"{row['per_session_tokens_per_s']} per concurrent session, "
+            f"desc_dmas_per_token {row['desc_dmas_per_token']:.4f}, "
+            f"{compiles} prefill lengths")
+    check(sweep[-1]["desc_dmas_per_token"]
+          <= sweep[0]["desc_dmas_per_token"] * 1.20 + 1e-9,
+          f"desc_dmas_per_token not flat: "
+          f"{[r['desc_dmas_per_token'] for r in sweep]}")
+
+    # (d) the migration contract: a 17-token prompt, 3 pages
+    fabric = V.Fabric(pods=2)
+    eng = ServeEngine(model, params, max_batch=2, max_seq=C.sweep_seq,
+                      fabric=fabric, gid="pod1/dev0",
+                      service="serve/pod1/dev0", page_tokens=C.sweep_page)
+    pod = PrefillPod(model, params, fabric=fabric, gid="pod0/dev0",
+                     decode_gids=["pod1/dev0"], max_seq=C.sweep_seq,
+                     page_tokens=C.sweep_page)
+    prompt = np.arange(1, 18, dtype=np.int32)
+    _, caches = pod._run_prefill(prompt)
+    k = pod.pool.pages_for(prompt.size)
+    check(k == 3, f"17 tokens took {k} pages")
+    src_ids = pod.pool.alloc(k)
+    pod.pool.fill(src_ids, caches)
+    lease = eng.reserve(0, int(prompt.size), C.sweep_new, 0)
+    runs = [(mr, src_ids, rkey, dst)
+            for mr, (rkey, dst) in zip(pod.pool.mrs, lease)]
+    reg = metrics.get_registry()
+    f0 = reg.snapshot().get("fused/launches", 0)
+    d0, q0 = pod.kv.ep.qp.doorbell_writes, pod.kv.ep.qp.desc_fetch_dmas
+    t0 = time.perf_counter()
+    counted(lambda: pod.kv.migrate_pages(runs))
+    T.sync()
+    mig_ms = (time.perf_counter() - t0) * 1e3
+    n_runs = len(pod.pool.mrs)
+    mig = dict(pages=k, leaf_runs=n_runs, ms=mig_ms,
+               fused_launches=reg.snapshot().get("fused/launches", 0) - f0,
+               doorbells=pod.kv.ep.qp.doorbell_writes - d0,
+               desc_dmas=pod.kv.ep.qp.desc_fetch_dmas - q0,
+               kernel_launches=dict(_build.LAUNCHES))
+    check(mig["fused_launches"] == 2 * n_runs and mig["doorbells"] == 1
+          and mig["desc_dmas"] == 1, f"migration contract {mig}")
+    if cuda:
+        check(mig["kernel_launches"].get("gather_rows", 0) == n_runs
+              and mig["kernel_launches"].get("scatter_rows", 0) == n_runs,
+              f"migration kernel launches {mig}")
+    for i, (src_r, dst_r) in enumerate(zip(pod.pool.regions(),
+                                           eng.pool.regions())):
+        check(torch.equal(src_r[torch.from_numpy(src_ids).to(dev)],
+                          dst_r[torch.from_numpy(
+                              np.asarray(lease[i][1])).to(dev)]),
+              f"leaf {i}: migrated pages differ")
+    pod.close()
+    eng.close()
+    log(f"phase 8 (d): a {k}-page migration: {mig}")
+
+    # (e) PDServer.serve against the unpaged greedy decode
+    pd_prompts = rng.integers(0, cfg.vocab_size,
+                              (C.pd_batch, C.pd_prompt)).astype(np.int32)
+    pd = {}
+    for bits in (0, 8):
+        server = PDServer(model, params, max_seq=C.pd_seq,
+                          page_tokens=C.page, quantize_bits=bits)
+        T.sync()
+        t0 = time.perf_counter()
+        toks, stats = counted(lambda: server.serve(pd_prompts,
+                                                   n_steps=C.pd_steps))
+        T.sync()
+        pd[bits] = dict(tokens=toks, s=time.perf_counter() - t0,
+                        payload_bytes=stats.payload_bytes,
+                        header_bytes=stats.header_bytes)
+        check(toks.shape == (C.pd_batch, C.pd_steps + 1),
+              f"PDServer tokens {toks.shape}")
+        free_device_memory(torch)
+    tok = torch.from_numpy(pd_prompts).to(dev)
+    logits, caches = model.prefill(params, tok)
+    caches = pad_caches(caches, C.pd_prompt, C.pd_seq)
+    cur = torch.argmax(logits[:, -1], dim=-1).reshape(-1, 1).to(torch.int32)
+    ref = [cur[:, 0].cpu().numpy()]
+    pos = torch.full((C.pd_batch,), C.pd_prompt, dtype=torch.int32,
+                     device=dev)
+    for _ in range(C.pd_steps):
+        logits, caches = model.decode_step(params, cur, caches, pos)
+        cur = torch.argmax(logits[:, :1], dim=-1).to(torch.int32)
+        ref.append(cur[:, 0].cpu().numpy())
+        pos = pos + 1
+    ref = np.stack(ref, 1)
+    del caches, logits
+    check(np.array_equal(pd[0]["tokens"], ref),
+          "PDServer tokens differ from the unpaged greedy decode")
+    log(f"phase 8 (e): PDServer.serve of {C.pd_batch} x {C.pd_prompt} "
+        f"tokens, {C.pd_steps} steps, max_seq {C.pd_seq}: quantize_bits=0 "
+        f"{pd[0]['s']:.2f} s, tokens equal the unpaged greedy decode; "
+        f"quantize_bits=8 {pd[8]['s']:.2f} s, tokens equal bits=0's for "
+        f"{int((pd[8]['tokens'] == pd[0]['tokens']).all(1).sum())}/"
+        f"{C.pd_batch} prompts; payload/header bytes "
+        f"{pd[0]['payload_bytes']}/{pd[0]['header_bytes']} (bits 0), "
+        f"{pd[8]['payload_bytes']}/{pd[8]['header_bytes']} (bits 8)")
+    peak = torch.cuda.max_memory_allocated() / 2**30 if cuda else None
+    if cuda:
+        for fn in ("flash_attention", "gather_rows", "scatter_rows",
+                   "ingest_pages", "ring_produce_consume"):
+            check(launches.get(fn, 0) > 0, f"{fn} never launched on the "
+                  f"cluster path: {launches}")
+    log(f"phase 8: kernel launches {launches}; peak device memory {peak} "
+        "GiB")
+    return dict(launches=launches, peak_gib=peak,
+                tokens_a=got_a, tokens_b=got_b, oracle=want,
+                diffs=dict(a=diffs_a, b=diffs_b),
+                worst_rel=dict(a=worst_a, b=worst_b),
+                info=dict(a=info_a, b=info_b), prompts=prompts,
+                sweep=sweep, migration=mig,
+                pd={b: dict(v, tokens=v["tokens"].tolist())
+                    for b, v in pd.items()},
+                pd_prompts=pd_prompts)
+
+
+# -- phase 9 ----------------------------------------------------------------------
+# The checksum's tolerance: 1e-5 (the reference test's rtol) of the
+# largest |checksum| of the request. A checksum is a float32 sum of 1024
+# words of either sign, so two summation orders differ by an ulp or so of
+# the partial sums' scale, not of the result: a block whose sum nears 0
+# fails an elementwise rtol of 1e-5 in any order, and the reference's
+# own jitted sum fails it against its own `read_cpu` on 128 or 384 LBAs
+# (`tests/test_torch_storage.py::
+# test_reference_checksum_fails_an_elementwise_rtol_against_its_own_cpu_loop`).
+CRC_RTOL = 1e-5
+
+
+def crc_error(np, got, want) -> float:
+    """The largest checksum difference over the largest |checksum|."""
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+def phase_storage(torch, np, dev, Q, rng, T) -> dict:
+    """Phase 9: Solar block storage — `SolarBlockStore` of Q.n_blocks
+    4 KiB blocks on the card; `read_flexins` (one gather launch + fused
+    checksum per request) and `read_rdma` at Fig. 17's clients x depth,
+    data equal to `read_cpu` and checksums within CRC_RTOL; then one
+    list walk per request through OP_LIST_TRAVERSAL over the same verbs
+    pair, one list_traverse launch each."""
+    from repro_torch.core.descriptors import OP_LIST_TRAVERSAL
+    from repro_torch.core.offload_engine import install_list_traversal
+    from repro_torch.core.solar import BLOCK_WORDS, SolarBlockStore
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.list_walk import ref as lw_ref
+
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    store = SolarBlockStore(Q.n_blocks, seed=Q.seed, device=dev)
+    T.sync()
+    build_s = time.perf_counter() - t0
+    ctx = store.engine._qps[store.pair.server.qp_num]
+    log(f"phase 9: SolarBlockStore of {Q.n_blocks} blocks "
+        f"({Q.n_blocks * BLOCK_WORDS * 4 / 2**30:.2f} GiB) drawn and "
+        f"registered in {build_s:.1f} s")
+    launches: dict = {}
+
+    def counted(fn):
+        return count_launches(_build, launches, fn)
+
+    reads = []
+    for clients in Q.clients:
+        n = clients * Q.depth
+        lbas = np.random.default_rng(n).integers(0, Q.n_blocks, n) \
+            .astype(np.int32)
+        l0 = ctx.dma_launches
+        data, crc = counted(lambda: store.read_flexins(lbas))
+        if cuda:
+            check(_build.LAUNCHES.get("gather_rows", 0) == 1,
+                  f"read_flexins of {n} LBAs: {_build.LAUNCHES}")
+        check(ctx.dma_launches - l0 == 1, "read_flexins counted "
+              f"{ctx.dma_launches - l0} fused launches")
+        rdma = counted(lambda: store.read_rdma(lbas))
+        data_c, crc_c = store.read_cpu(lbas)
+        check(np.array_equal(data.cpu().numpy(), data_c)
+              and np.array_equal(rdma.cpu().numpy(), data_c),
+              f"{n} LBAs: block data differs from read_cpu")
+        crc_rel = crc_error(np, crc.cpu().numpy(), crc_c)
+        check(crc_rel <= CRC_RTOL, f"{n} LBAs: checksums differ from "
+              f"read_cpu by {crc_rel:.3g} of their scale")
+        f_us = statistics.median(
+            1e3 * T.wall(lambda: store.read_flexins(lbas))
+            for _ in range(Q.reps))
+        r_us = statistics.median(
+            1e3 * T.wall(lambda: store.read_rdma(lbas))
+            for _ in range(Q.reps))
+        t1 = time.perf_counter()
+        for _ in range(Q.reps):
+            store.read_cpu(lbas)
+        c_us = (time.perf_counter() - t1) / Q.reps * 1e6
+        row = dict(clients=clients, lbas=n, flexins_us=f_us, rdma_us=r_us,
+                   cpu_us=c_us, crc_rel=crc_rel,
+                   flexins_kiops=n / f_us * 1e3 if f_us else None,
+                   rdma_kiops=n / r_us * 1e3 if r_us else None,
+                   cpu_kiops=n / c_us * 1e3)
+        reads.append(row)
+        log(f"phase 9: {clients} x {Q.depth} LBAs: data equal to read_cpu, "
+            f"CRC within {crc_rel:.3g}; FlexiNS {f_us:.1f} us "
+            f"({row['flexins_kiops']} kIOPS), RDMA_READ {r_us:.1f} us "
+            f"({row['rdma_kiops']} kIOPS), CPU {c_us:.1f} us "
+            f"({row['cpu_kiops']:.1f} kIOPS, host clock)")
+
+    # one list walk per request through OP_LIST_TRAVERSAL
+    rec_np, order = linked_list(np, rng, Q.records, Q.value)
+    mr = store.pd.reg_mr("list", rec_np.reshape(-1))
+    install_list_traversal(store.engine, "list", value_size=Q.value,
+                           max_hops=Q.max_hops)
+    recs = store.pd.mr_array(mr).reshape(-1, 2 + Q.value)
+    walks = []
+    starts = rng.integers(0, Q.records, Q.walks)
+    for w, s in enumerate(starts):
+        s = int(s)
+        dist = int(rng.integers(0, Q.max_hops))
+        hit = w % 2 == 0 and s + dist < Q.records
+        key = float(rec_np[order[s + dist], 0]) if hit else -1.0
+        head = int(order[s])
+        wc = counted(lambda: store.pair.rpc(OP_LIST_TRAVERSAL, (key, head)))
+        check(wc.ok, f"walk {w}: completion status {wc.status}")
+        ev, eh, ep = lw_ref.walk(recs, key, head, Q.max_hops)
+        check(torch.equal(wc.data, ev), f"walk {w} differs from the plain "
+              "walk")
+        if cuda:
+            check(_build.LAUNCHES.get("list_traverse", 0) == 1,
+                  f"walk {w}: {_build.LAUNCHES}")
+        walks.append((hit, eh))
+    walk_us = statistics.median(
+        1e3 * T.wall(lambda: store.pair.rpc(
+            OP_LIST_TRAVERSAL, (-1.0, int(order[0])))) for _ in range(Q.reps))
+    log(f"phase 9: {Q.walks} list walks through OP_LIST_TRAVERSAL on a "
+        f"{Q.records}-record list, one list_traverse launch each, equal "
+        f"to the plain walk ((hit, hops) {walks}); a {Q.max_hops}-hop miss "
+        f"{walk_us:.1f} us per request (median of {Q.reps})")
+    peak = torch.cuda.max_memory_allocated() / 2**30 if cuda else None
+    log(f"phase 9: kernel launches {launches}; peak device memory {peak} "
+        "GiB")
+    return dict(launches=launches, reads=reads, walk_us=walk_us,
+                walks=walks, build_s=build_s, peak_gib=peak)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1604,6 +2454,8 @@ def main() -> int:
     rows = phase_kernels(torch, np, dev, S, rng, T)
     rows.update(phase_kv_kernels(torch, np, dev, KV, rng, T))
     rows.update(phase_flash_kernels(torch, np, dev, SERVE, rng, T))
+    rows.update(phase_pipe_kernels(torch, np, dev, PIPE, STORE, rng, T))
+    free_device_memory(torch)
     vec, D, lpf, main_launches = phase_datapath(torch, np, dev, S, rng, T)
     timing = phase_timing(torch, np, dev, S, T, vec, D)
     del vec, D                  # the 12 GiB block MRs, before phase 5
@@ -1611,12 +2463,26 @@ def main() -> int:
     kv = phase_kv(torch, np, dev, KV, rng, T,
                   {k: rows[k]["ms"] for k in ("kv_ingest", "wr_gather.pages")})
     free_device_memory(torch)           # phase 5's fabrics, before phase 6
-    serve = phase_serve(torch, np, dev, SERVE, rng, T)
+    # one seeded bf16 parameter tree for the serving path and the cluster
+    from repro_torch.models.registry import build_model
+    from repro_torch.configs.base import get_config
+    params = build_model(get_config(SERVE.arch)).init(
+        torch.Generator(device=dev).manual_seed(SERVE.seed), device=dev)
+    serve = phase_serve(torch, np, dev, SERVE, rng, T, params=params)
+    free_device_memory(torch)
+    t3 = phase_t3(torch, np, dev, PIPE, rng, T)
+    t3.pop("payload")
+    free_device_memory(torch)
+    cluster = phase_cluster(torch, np, dev, CLUSTER, rng, T, params=params)
+    del params
+    free_device_memory(torch)
+    storage = phase_storage(torch, np, dev, STORE, rng, T)
     free_device_memory(torch)
 
     # launches per C entry point on each main path's own run
     paths = {"datapath": main_launches, "kv_leg": kv["launches"],
-             "serve": serve["launches"]}
+             "serve": serve["launches"], "t3_pipe": t3["launches"],
+             "cluster": cluster["launches"], "storage": storage["launches"]}
     kernels = []
     for r in rows.values():
         entry = r.pop("entry")
@@ -1625,8 +2491,16 @@ def main() -> int:
                             launches_by_path=by_path))
     for key in ("tokens", "prompts", "rel_by_step"):
         serve.pop(key)
+    for key in ("tokens_a", "tokens_b", "oracle", "prompts", "pd",
+                "pd_prompts"):
+        cluster.pop(key)
+    for row in cluster["sweep"]:
+        row.pop("tokens_out")
+    check(kernels and all(k["launches"] > 0 for k in kernels),
+          f"a kernel never launched on a main path: {kernels}")
     log(json.dumps({"chains": timing, "launches_per_flush": lpf,
-                    "kv_leg": kv, "serve": serve,
+                    "kv_leg": kv, "serve": serve, "t3_pipe": t3,
+                    "cluster": cluster, "storage": storage,
                     "seconds": time.perf_counter() - t_start}))
     log(smi)
     print(json.dumps({"kernels": kernels}))

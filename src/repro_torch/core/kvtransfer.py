@@ -188,7 +188,13 @@ class KVTransferEngine:
         one WR *per page* so a run of pages from the same local MR is a
         maximal same-MR segment for `_fused_mr_rows` — ONE
         `gather_records` launch per leaf run on the source, and one
-        stacked scatter per leaf region at the peer context flush."""
+        stacked scatter per leaf region at the peer context flush.
+
+        A run list of more WRs than the send queue holds posts as
+        consecutive chains of at most `max_send_wr` WRs, each flushed
+        and polled before the next (ROADMAP Queue 3): the reference posts
+        it whole, gets "send queue full", reads that as a dead peer and
+        fails over until its replays run out."""
         if self._peer_lost:
             return False
         wrs = []
@@ -203,16 +209,21 @@ class KVTransferEngine:
                     remote_key=int(rkey),
                     remote_offsets=np.asarray([t], np.int64),
                     signaled=True))
-        try:
-            self.ep.post_send(wrs)
-            self.ep.flush()
-        except verbs.QPStateError:
-            return False                    # peer (or connection) gone
-        if self._peer_lost:
-            self.ep.poll()                  # drain WR_FLUSH_ERR
-            return False
-        wcs = self.ep.poll()
-        return bool(wcs) and all(wc.ok for wc in wcs)
+        step = self.ep.qp.max_send_wr
+        # an empty run list still posts one (empty) chain, as before
+        for i in range(0, max(len(wrs), 1), step):
+            try:
+                self.ep.post_send(wrs[i:i + step])
+                self.ep.flush()
+            except verbs.QPStateError:
+                return False                # peer (or connection) gone
+            if self._peer_lost:
+                self.ep.poll()              # drain WR_FLUSH_ERR
+                return False
+            wcs = self.ep.poll()
+            if not wcs or not all(wc.ok for wc in wcs):
+                return False
+        return True
 
     def migrate_pages(self, runs, *, retarget=None):
         """Move KV pages pod->pod as one-sided RDMA_WRITEs.

@@ -28,8 +28,9 @@ import numpy as np
 import torch
 
 from repro_torch.convert import to_host, to_tensor
-from repro_torch.core.descriptors import OP_BATCH_READ
+from repro_torch.core.descriptors import OP_BATCH_READ, OP_LIST_TRAVERSAL
 from repro_torch.device import resolve
+from repro_torch.kernels.list_walk import ops as list_walk_ops
 from repro_torch.kernels.wr_scatter import ops as wr_scatter_ops
 
 
@@ -315,3 +316,24 @@ def install_batched_read(engine: OffloadEngine, region: str, value_size: int,
 
     engine.register_opcode(OP_BATCH_READ, qp_id, handle_batch_read)
     return OP_BATCH_READ
+
+
+def install_list_traversal(engine: OffloadEngine, region: str, qp_id: int = 0,
+                           value_size: int = 8, max_hops: int = 64) -> int:
+    """Paper §5.6: server-side linked-list walk. The region holds records
+    [key, next_ptr, value...]; the handler chases pointers on the device
+    in ONE launch (`kernels/list_walk`) instead of N network round
+    trips. The packet is (key, head); the answer is the value words of
+    the record the walk rests on. A `head` or `next` outside the
+    region's [-n, n) records raises IndexError (the reference clamps)."""
+    rec = 2 + value_size
+
+    def handle_traverse(packet, ctx: QPContext):
+        arr = engine.regions[region].reshape(-1, rec)
+        values, _, _ = list_walk_ops.list_traverse(
+            arr, np.float32(packet[0]), int(packet[1]), max_hops)
+        ctx.dma_launches += 1        # one fused on-device walk
+        ctx.submit_resp(values)
+
+    engine.register_opcode(OP_LIST_TRAVERSAL, qp_id, handle_traverse)
+    return OP_LIST_TRAVERSAL

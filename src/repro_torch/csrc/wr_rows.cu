@@ -2,7 +2,9 @@
 //   scatter_rows: region[offs[r]] = vals[r], in place (the fused T4 flush);
 //   gather_rows:  out[r] = region[offs[r]], a record of the flattened region
 //                 (the fused T4 gather, and the T2 page gather);
-//   ingest_pages: pages[ids[i]] = payload[i], in place (the T2 paged ingest).
+//   ingest_pages: pages[ids[i]] = payload[i], in place (the T2 paged ingest);
+//   ring_pipe_consume: out[i] = slots[src[i]] (the T3 descriptor->payload
+//                 pipe: a drained batch gathers its payload slots).
 //
 // Replaces: src/repro/kernels/wr_scatter/wr_scatter.py::wr_scatter (the
 // Pallas scatter: one grid step per record, the offsets scalar-prefetched,
@@ -25,12 +27,24 @@
 // the wrapper keeps only the last occurrence of each id (the Pallas
 // grid's in-order last-wins) before the launch, and range-checks them.
 //
+// ring_pipe_consume replaces src/repro/kernels/ring_pipe/ring_pipe.py::
+// ring_consume (line 23): a Pallas gather whose grid runs one step per
+// drained descriptor, scalar-prefetching the descriptors' slot indices so
+// that each step's BlockSpec DMAs one (1, W) payload slot into the output
+// row. Here it is the gather entry's row copy under its own name, so that
+// its launches are counted apart from the datapath's gathers: one block per
+// descriptor, the slot row streamed through registers. Bound: bytes,
+// 2 * n * W * itemsize (plus 8 bytes of index per row); 10 us for the main
+// path's drained batch of 4096 slots of 4 KiB. Indices may repeat (it is a
+// gather); the wrapper range-checks them before the launch, where the
+// Pallas BlockSpec would clamp them.
+//
 // Bound on the card: device-memory bytes. Each record is read once and
 // written once (2 * m * row_bytes, plus 8 bytes of offset per record);
 // there is no arithmetic. For 4096 records of 4 KiB that is 32 MiB, about
 // 10 us at 3.35 TB/s.
 //
-// Design: all three entry points are one row-copy kernel that differs
+// Design: all four entry points are one row-copy kernel that differs
 // only in which side the record offset addresses (ingest_pages is the
 // scatter with a page as the row). One block per record, in a
 // grid-stride loop over records. The block's threads copy the row in the
@@ -106,6 +120,12 @@ extern "C" int ingest_pages(void* pages, const void* payload,
                             const void* ids, int64_t n, int64_t page_bytes,
                             void* stream) {
   return copy_rows<true>(pages, payload, ids, n, page_bytes, stream);
+}
+
+extern "C" int ring_pipe_consume(void* out, const void* slots,
+                                 const void* src, int64_t n,
+                                 int64_t slot_bytes, void* stream) {
+  return copy_rows<false>(out, slots, src, n, slot_bytes, stream);
 }
 
 extern "C" const char* kernel_error_string(int code) {

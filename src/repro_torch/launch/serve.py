@@ -9,8 +9,12 @@ decode — on the torch port.
 
 The parameters are random, drawn from a `torch.Generator` seeded with
 `--seed` on the run's device; the prompts come from a numpy generator
-with the same seed. Prefill/decode disaggregation (`--pd`) comes with
-the serving cluster, the next slice of the port.
+with the same seed. `--pd` routes the requests through `PDServer`:
+prefill, the KV transfer as one verbs SEND, the paged ingest round
+trip and greedy decode (`--quantize-kv`: int8 KV on the wire).
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma-2b \\
+        --reduced --pd [--quantize-kv] --device cpu
 """
 from __future__ import annotations
 
@@ -24,6 +28,7 @@ from repro_torch import device as tdevice
 from repro_torch.configs.base import get_config, reduced as reduce_cfg
 from repro_torch.models.registry import build_model
 from repro_torch.serve.engine import ServeEngine
+from repro_torch.serve.pd_disagg import PDServer
 
 
 def main(argv=None):
@@ -40,10 +45,6 @@ def main(argv=None):
                    help="prefill/decode disaggregation path")
     p.add_argument("--quantize-kv", action="store_true")
     args = p.parse_args(argv)
-    if args.pd or args.quantize_kv:
-        raise NotImplementedError(
-            "--pd and --quantize-kv (PDServer) come with the serving "
-            "cluster, the next slice of the port")
 
     dev = tdevice.resolve(args.device)
     tdevice.set_default(dev)
@@ -53,6 +54,23 @@ def main(argv=None):
     model = build_model(cfg)
     params = model.init(torch.Generator(device=dev).manual_seed(args.seed))
     rng = np.random.default_rng(args.seed)
+
+    if args.pd:
+        server = PDServer(model, params, max_seq=args.max_seq,
+                          page_tokens=8,
+                          quantize_bits=8 if args.quantize_kv else 0)
+        prompts = rng.integers(0, cfg.vocab_size,
+                               (args.requests, 8)).astype(np.int32)
+        t0 = time.monotonic()
+        toks, stats = server.serve(prompts, n_steps=args.max_new)
+        dt = time.monotonic() - t0
+        print(f"P/D served {args.requests} requests in {dt:.2f}s on {dev}; "
+              f"KV payload {stats.payload_bytes/1e6:.2f}MB, "
+              f"headers {stats.header_bytes}B "
+              f"({stats.header_bytes/stats.payload_bytes:.2e} of payload)")
+        for i, row in enumerate(toks):
+            print(f"req {i}: {row.tolist()}")
+        return toks, stats
 
     eng = ServeEngine(model, params, max_batch=args.max_batch,
                       max_seq=args.max_seq)

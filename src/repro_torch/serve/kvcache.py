@@ -100,8 +100,8 @@ def page_roundtrip(caches, max_seq: int, page_tokens: int):
     ingest and gather, row by row: one `PagedKVPool` per (layer, batch)
     row, on the leaf's device. The body of the reference's
     `PDServer._page_roundtrip` (`serve/pd_disagg.py`), which the port's
-    PDServer calls when it comes with the serving cluster; the result
-    equals `caches` exactly."""
+    `PDServer.ingest_and_decode` calls; the result equals `caches`
+    exactly."""
     def one(a):
         if a.ndim < 3 or a.shape[2] != max_seq:
             return a                    # state/window caches pass through

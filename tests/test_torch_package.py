@@ -17,9 +17,11 @@ from repro_torch import verbs as tverbs
 from repro_torch.configs.base import get_config, reduced
 from repro_torch.convert import regions_from_numpy, tree_from_numpy
 from repro_torch.core.kvtransfer import KVTransferEngine
+from repro_torch.core.solar import SolarBlockStore
 from repro_torch.models.registry import build_model
 from repro_torch.serve.engine import ServeEngine
 from repro_torch.serve.kvcache import PagedKVPool
+from repro_torch.serve.pd_disagg import PDServer
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
@@ -53,7 +55,10 @@ def test_the_scan_covers_every_subpackage():
     for mod in ("parallel/collectives", "models/attention",
                 "models/ffn", "models/layers", "models/transformer",
                 "kernels/flash_attention/ops", "kernels/flash_attention/ref",
-                "serve/paged", "serve/engine", "launch/serve"):
+                "serve/paged", "serve/engine", "launch/serve",
+                "kernels/ring_pipe/ops", "kernels/ring_pipe/ref",
+                "kernels/list_walk/ops", "kernels/list_walk/ref",
+                "core/solar", "serve/pd_disagg", "serve/router"):
         assert f"src/repro_torch/{mod}.py" in names, mod
 
 
@@ -70,6 +75,10 @@ def test_import_needs_no_card_no_triton_and_pulls_in_no_jax():
             "import repro_torch.models.transformer\n"
             "import repro_torch.parallel.collectives\n"
             "import repro_torch.serve.engine, repro_torch.launch.serve\n"
+            "import repro_torch.kernels.ring_pipe.ops\n"
+            "import repro_torch.kernels.list_walk.ops\n"
+            "import repro_torch.core.solar, repro_torch.serve.pd_disagg\n"
+            "import repro_torch.serve.router\n"
             "from repro_torch.configs.base import get_config\n"
             "get_config('gemma-2b')\n"
             "assert not torch.cuda.is_available()\n"
@@ -108,6 +117,10 @@ def test_default_device_is_the_card_and_never_falls_back():
             model.init(torch.Generator())
         with pytest.raises(RuntimeError, match="cuda"):
             ServeEngine(model, {})
+        with pytest.raises(RuntimeError, match="cuda"):
+            PDServer(model, {})
+        with pytest.raises(RuntimeError, match="cuda"):
+            SolarBlockStore(4)
         assert tverbs.Fabric(pods=2, device="cpu").device.type == "cpu"
         assert PagedKVPool(4, 2, (3,), device="cpu").pages.device.type \
             == "cpu"

@@ -274,5 +274,6 @@ def test_serve_cli_on_the_cpu():
     res = tlaunch.main(["--arch", "gemma-2b", "--reduced", "--device", "cpu",
                         "--requests", "3", "--max-new", "4"])
     assert sorted(res) == [0, 1, 2] and all(len(v) == 4 for v in res.values())
-    with pytest.raises(NotImplementedError, match="serving cluster"):
-        tlaunch.main(["--reduced", "--device", "cpu", "--pd"])
+    toks, stats = tlaunch.main(["--reduced", "--device", "cpu", "--pd",
+                                "--requests", "2", "--max-new", "3"])
+    assert toks.shape == (2, 4) and stats.payload_bytes > 0
