@@ -71,9 +71,13 @@ Phases (any failure exits non-zero):
      (data exact, CRC within 1e-5 of the request's largest checksum),
      kIOPS, and one list walk per request through OP_LIST_TRAVERSAL
      (one list_traverse launch each).
-Phase 2 also holds flash_attention against its plain version at the
-prefill shapes of phase 6 (S = 512, 2048, 4096; in bf16 and in float32)
-and at 68 edge shapes: float32 within 2e-5, bf16 within 2e-2 and within
+Phase 2 also holds flash_attention (its TMA/wgmma entry) and
+flash_attention_generic (its mma.sync entry) against their plain version
+at every prefill shape phases 6 and 8 launch (B x S = 1 x 2 ... 1 x 4096
+and PDServer's 4 x 1024; in bf16 and in float32), prints ptxas's
+registers and spills of each instance (none may spill at Dv = 256), and
+holds them at edge shapes, each naming the entry it took:
+float32 within 2e-5, bf16 within 2e-2 and within
 half a bf16 ulp of the plain version's float32 result, ring_pipe_consume
 on a seeded permutation of 4096 slots of 4 KiB and its edge cases, and
 list_traverse on a 2^20-record list (hits, a miss stopped at max_hops,
@@ -143,8 +147,12 @@ class ServeSizes:
 SERVE = ServeSizes(arch="gemma-2b", reduce=False, max_batch=4, max_seq=4096,
                    page=16, prompts=(5, 300, 1500, 2100, 3000, 3900),
                    new=32, reps=3, seed=0)
-# the prefill attention shapes phase 2 times: phase 6's buckets >= 512
-FLASH_SEQS = (512, 2048, 4096)
+# the prefill attention shapes (batch, bucket) phase 2 times: every one
+# phases 6 and 8 launch (the sweep's buckets 2 to 8, 64, phase 6's 8 to
+# 4096, PDServer's batch of 4 x 1024; main() fails on one left out) and
+# the powers of two between; the last is the kernel row's main shape
+FLASH_SHAPES = ((1, 2), (1, 4), (1, 8), (1, 16), (1, 32), (1, 64),
+                (1, 512), (1, 1024), (4, 1024), (1, 2048), (1, 4096))
 # The largest |logit difference| a step of phase 6 may show against the
 # unpaged reference, as a fraction of that step's largest |logit|. The
 # engine and the reference do the same arithmetic but for the page
@@ -259,14 +267,20 @@ def free_device_memory(torch):
     torch.cuda.empty_cache()
 
 
-def count_launches(_build, total: dict, fn):
+def count_launches(_build, total: dict, fn, shapes: dict | None = None):
     """Run `fn` as part of a main path: zero the launch counts, run it,
-    and add what it launched on the card to `total`. Launches made
-    between such runs (oracles, references) are not counted."""
+    and add what it launched on the card to `total` (and, per entry and
+    call shape, to `shapes`). Launches made between such runs (oracles,
+    references) are not counted."""
     _build.reset_launches()
     out = fn()
     for k, v in _build.LAUNCHES.items():
         total[k] = total.get(k, 0) + v
+    if shapes is not None:
+        for k, by in _build.BY_SHAPE.items():
+            mine = shapes.setdefault(k, {})
+            for shape, n in by.items():
+                mine[shape] = mine.get(shape, 0) + n
     return out
 
 
@@ -1181,20 +1195,57 @@ def bf16_half_ulps(torch, got, r32):
     return (got.float() - r32).abs() / (half + FLASH_EPS * (1 + r32.abs()))
 
 
+def ptxas_report(text: str) -> dict:
+    """{kernel (its name and template arguments): (registers, spill
+    store bytes, spill load bytes)} from nvcc -Xptxas -v output."""
+    import re
+    out, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            # the mangled name's parts are length-prefixed: take the
+            # shortest that ends in _kernel (a longer one is a digit run
+            # of the namespace's hash read as a length), and its first
+            # template argument
+            mangled, found = m.group(1), []
+            for p in re.finditer(r"(?=(\d+)([A-Za-z_]))", mangled):
+                part = mangled[p.start(2):p.start(2) + int(p.group(1))]
+                if part.endswith("_kernel"):
+                    arg = re.match(r"ILi(\d+)E",
+                                   mangled[p.start(2) + len(part):])
+                    found.append(part + (f"<{arg.group(1)}>" if arg
+                                         else ""))
+            name = min(found, key=len) if found else "?"
+            out[name] = [None, None, None]
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            out[name][1:] = [int(m.group(1)), int(m.group(2))]
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out[name][0] = int(m.group(1))
+    return {k: tuple(v) for k, v in out.items()}
+
+
 def phase_flash_kernels(torch, np, dev, Z, rng, T) -> dict:
-    """flash_attention against its plain version at the serving path's
-    shapes (gemma-2b's prefill attention at the buckets phase 6
-    prefills: B=1, H=8, KVH=1, D=256, causal) and at edge shapes: head
-    dims, grouping, ragged lengths, Sq < Sk, no mask, windows, softcap
-    and scale, a strided layout, head dims off the 16-byte staging.
+    """flash_attention (the TMA/wgmma entry) and flash_attention_generic
+    (the mma.sync entry) against their plain version at the serving
+    path's shapes (gemma-2b's prefill attention at every (batch, bucket)
+    phases 6 and 8 launch: H=8, KVH=1, D=256, causal) and at edge
+    shapes: head dims, grouping, ragged lengths, Sq < Sk, no mask,
+    windows (one across the K/V ring's stages), softcap and scale,
+    strided layouts, split key ranges with their merge, and shapes only
+    the generic entry takes (head dims off 16, rows or bases off 16
+    bytes). Each case names the entry it took.
 
     Tolerances. float32: 2e-5 (summation order), as the reference's own
     kernel tests (`tests/test_kernels.py`), at the main shapes too, so
     the multi-tile walk of S = 4096 is held tightly. bf16: the reference
     tests' 2e-2 against the plain bf16 result, and, tighter, within half
     a bf16 ulp of the plain version's float32 result (plus FLASH_EPS of
-    float32 noise) at every element: the kernel keeps both products in
-    float32, so its only rounding is the output's. At S = 4096 a late
+    float32 noise) at every element: the kernels keep both products in
+    float32, so their only rounding is the output's. At S = 4096 a late
     row's values are ~0.03, where a 2e-2 bound alone would pass a
     skipped k-tile."""
     import torch.nn.functional as F
@@ -1207,6 +1258,21 @@ def phase_flash_kernels(torch, np, dev, Z, rng, T) -> dict:
     H, KVH, D = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     gen = torch.Generator(device=dev).manual_seed(int(rng.integers(1 << 31)))
     bf16 = torch.bfloat16
+    TMA, GENERIC = "flash_attention", "flash_attention_generic"
+
+    # ptxas's registers and spills of each instance of the source
+    text = _build.LOGS.get("flash_attention", "")
+    report = ptxas_report(text)
+    for name, (regs, st, ld) in report.items():
+        log(f"phase 2: ptxas {name}: {regs} registers, {st} bytes spill "
+            f"stores, {ld} bytes spill loads")
+    notes = sorted({line.split(")")[0].split("(")[-1] for line in
+                    text.splitlines() if "(C75" in line})
+    log(f"phase 2: ptxas performance notes (C75xx) on flash_attention.cu: "
+        f"{notes or 'none'}")
+    if report:
+        check(report.get("flash_fwd_sm90_kernel<4>", (0, 1, 1))[1:] == (0, 0),
+              f"the Dv = 256 TMA/wgmma instance spills: {report}")
 
     def rand(*shape, dtype=bf16):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
@@ -1233,48 +1299,48 @@ def phase_flash_kernels(torch, np, dev, Z, rng, T) -> dict:
             f"flash_attention != plain, {what}: max |err| {err}")
         return err
 
-    lib = _build.load("flash_attention", fa_ops._SIG)
-    stream = _build.stream_ptr(dev)
-    by_seq = {}
-    for S in FLASH_SEQS:
-        q, k, v = rand(1, H, S, D), rand(1, KVH, S, D), rand(1, KVH, S, D)
-        got = fa_ops.attention(q, k, v)
-        err, ulps = hold_bf16(got, q, k, v, f"bf16 S={S}")
-        f32 = [t.float() for t in (q, k, v)]
-        err32 = hold_f32(fa_ops.attention(*f32), *f32, f"float32 S={S}")
-        del f32
-        out = torch.empty((1, S, H, D), dtype=bf16, device=dev).transpose(1, 2)
-        strides = np.asarray([*q.stride(), *k.stride(), *v.stride(),
-                              *out.stride()], np.int64)
+    def cold(fn) -> float:
+        return T.ms(fn, iters=10, cold=True, median=True)
 
-        def k_call():
-            _build.check(lib, lib.flash_attention(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                strides.ctypes.data, 1, 1, H, KVH, S, S, D, D,
-                1.0 / D ** 0.5, 0.0, 1, 0, stream), "flash_attention")
-        # causal: the (q, k) pairs with k <= q, two products of D each
-        flops = 4 * H * D * S * (S + 1) // 2
-        nbytes = (2 * H * S * D + 2 * KVH * S * D) * 2
-        by_seq[S] = dict(
+    by_shape, errs = {}, {TMA: [], GENERIC: []}
+    for B, S in FLASH_SHAPES:
+        q, k, v = rand(B, H, S, D), rand(B, KVH, S, D), rand(B, KVH, S, D)
+        check(fa_ops.route(q, k, v) == TMA, f"{B}x{S} does not take {TMA}")
+        got = fa_ops.attention(q, k, v)
+        err, ulps = hold_bf16(got, q, k, v, f"bf16 {B}x{S}")
+        call = fa_ops.prepare(q, k, v)
+        generic = fa_ops.prepare(q, k, v, entry=GENERIC)
+        generic.run()
+        err_g = hold_bf16(generic.out, q, k, v, f"generic bf16 {B}x{S}")[0]
+        errs[TMA].append(err)
+        errs[GENERIC].append(err_g)
+        f32 = [t.float() for t in (q, k, v)]
+        err32 = hold_f32(fa_ops.attention(*f32), *f32, f"float32 {B}x{S}")
+        del f32
+        # causal: the (q, k) pairs with k <= q, two products of D each;
+        # the kernels' own work is twice that (P V as three bf16 terms)
+        flops = 4 * B * H * D * S * (S + 1) // 2
+        nbytes = (2 * H * S * D + 2 * KVH * S * D) * 2 * B
+        t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / HBM_BYTES_PER_S
+        by_shape[f"{B}x{S}"] = dict(
             max_abs_err=err, max_half_ulps=ulps, max_abs_err_f32=err32,
-            ms=T.ms(k_call, iters=10, cold=True, median=True),
-            plain_ms=T.ms(lambda: fa_ref.reference(q, k, v), iters=10,
-                          cold=True, median=True),
-            library_ms=T.ms(lambda: F.scaled_dot_product_attention(
-                q, k, v, is_causal=True, enable_gqa=True), iters=10,
-                cold=True, median=True),
-            bound_ms=max(flops / PEAK_BF16_FLOPS, nbytes / HBM_BYTES_PER_S)
-            * 1e3,
-            bound_by="operations" if flops / PEAK_BF16_FLOPS
-            > nbytes / HBM_BYTES_PER_S else "bytes",
+            split=fa_ops.plan(B, H, S, S, causal=True, window=0,
+                              sms=fa_ops.sm_count(q.device))[1],
+            ms=cold(call.run), generic_ms=cold(generic.run),
+            plain_ms=cold(lambda: fa_ref.reference(q, k, v)),
+            library_ms=cold(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True)),
+            bound_ms=max(t_ops, t_bytes) * 1e3,
+            bound_by="operations" if t_ops > t_bytes else "bytes",
+            three_term_bound_ms=max(2 * t_ops, t_bytes) * 1e3,
             gflop=flops / 1e9)
-        log(f"phase 2: flash_attention S={S}: {by_seq[S]}")
-        del q, k, v, got, out
+        log(f"phase 2: flash_attention {B}x{S}: {by_shape[f'{B}x{S}']}")
+        del q, k, v, got, call, generic
     free_device_memory(torch)
 
-    # edge shapes, in float32 and bf16
-    before = _build.LAUNCHES.get("flash_attention", 0)
-    cases, worst_ulps = 0, 0.0
+    # edge shapes, in float32 and bf16, each through the entry it routes to
+    taken = {TMA: 0, GENERIC: 0}
+    cases, worst_ulps, splits, generic_cases = 0, 0.0, 0, []
     for dtype in (torch.float32, bf16):
         grid = [dict(B=1, H=8, KVH=8 // g, Sq=129, Sk=129, Dk=d, Dv=d)
                 for d in (16, 64, 128, 256) for g in (1, 2, 4, 8)]
@@ -1291,6 +1357,23 @@ def phase_flash_kernels(torch, np, dev, Z, rng, T) -> dict:
                       strided=True),
                  # rows off the 16-byte staging: element by element
                  dict(B=1, H=2, KVH=1, Sq=90, Sk=90, Dk=20, Dv=20)]
+        # the TMA/wgmma design's seams at the serving path's head dim:
+        # Sq off the 128-row q-tile, Sq < Sk, a window across the ring's
+        # stages, G = 8 at S = 8, split key ranges and their merge (a
+        # strided view among them), and what only the generic entry takes
+        grid += [dict(B=1, H=8, KVH=1, Sq=200, Sk=200, Dk=256, Dv=256),
+                 dict(B=1, H=8, KVH=1, Sq=100, Sk=300, Dk=256, Dv=256),
+                 dict(B=1, H=8, KVH=1, Sq=100, Sk=300, Dk=256, Dv=256,
+                      causal=False),
+                 dict(B=1, H=8, KVH=1, Sq=512, Sk=512, Dk=256, Dv=256,
+                      window=100),
+                 dict(B=1, H=8, KVH=1, Sq=8, Sk=8, Dk=256, Dv=256),
+                 dict(B=1, H=2, KVH=1, Sq=600, Sk=600, Dk=128, Dv=128),
+                 dict(B=1, H=8, KVH=1, Sq=600, Sk=600, Dk=256, Dv=256,
+                      strided=True),
+                 dict(B=1, H=4, KVH=1, Sq=100, Sk=100, Dk=64, Dv=24),
+                 dict(B=1, H=2, KVH=1, Sq=90, Sk=90, Dk=64, Dv=64,
+                      offset=True)]
         for c in grid:
             kw = {key: c[key] for key in ("causal", "window", "cap",
                                           "sm_scale") if key in c}
@@ -1301,40 +1384,88 @@ def phase_flash_kernels(torch, np, dev, Z, rng, T) -> dict:
                          dtype=dtype).transpose(1, 2)
                 v = rand(c["B"], c["Sk"], c["KVH"], c["Dv"],
                          dtype=dtype).transpose(1, 2)
+            elif c.get("offset"):       # q starts 8 bytes into a row
+                q = rand(c["B"], c["H"], c["Sq"], c["Dk"] + 8,
+                         dtype=dtype)[..., 4:4 + c["Dk"]]
+                k = rand(c["B"], c["KVH"], c["Sk"], c["Dk"], dtype=dtype)
+                v = rand(c["B"], c["KVH"], c["Sk"], c["Dv"], dtype=dtype)
             else:
                 q = rand(c["B"], c["H"], c["Sq"], c["Dk"], dtype=dtype)
                 k = rand(c["B"], c["KVH"], c["Sk"], c["Dk"], dtype=dtype)
                 v = rand(c["B"], c["KVH"], c["Sk"], c["Dv"], dtype=dtype)
+            entry = fa_ops.route(q, k, v)
+            before = dict(_build.LAUNCHES)
             got = fa_ops.attention(q, k, v, **kw)
+            check({e: _build.LAUNCHES.get(e, 0) - before.get(e, 0)
+                   for e in taken} == {e: int(e == entry) for e in taken},
+                  f"edge case {c} did not launch {entry} once")
+            taken[entry] += 1
+            if entry == GENERIC and dtype == bf16:
+                generic_cases.append({key: c[key] for key in c
+                                      if key in ("Dk", "Dv", "offset")})
             if dtype == bf16:
-                worst_ulps = max(worst_ulps, hold_bf16(
-                    got, q, k, v, f"edge case {c}", **kw)[1])
+                err, ulps = hold_bf16(got, q, k, v, f"edge case {c}", **kw)
+                worst_ulps = max(worst_ulps, ulps)
+                errs[entry].append(err)
+                if entry == TMA:
+                    splits += fa_ops.plan(
+                        c["B"], c["H"], c["Sq"], c["Sk"],
+                        causal=kw.get("causal", True),
+                        window=kw.get("window", 0),
+                        sms=fa_ops.sm_count(q.device))[1] > 1
             else:
                 hold_f32(got, q, k, v, f"edge case float32 {c}", **kw)
             cases += 1
-    check(_build.LAUNCHES.get("flash_attention", 0) - before == cases,
-          "a flash edge case launched no kernel")
-    log(f"phase 2: flash_attention edge shapes ({cases} cases: float32 at "
-        "2e-5; bf16 at 2e-2 and within half a bf16 ulp of the float32 "
-        f"plain result (worst {worst_ulps:.3f} of that bound); D 16/64/128/"
-        "256 x G 1/2/4/8, S 1/3/100/129/256 causal and not, Sq < Sk, "
-        "windows 32/128, cap 20 with scale 0.2, Dv != Dk, strided (B,S,H,D) "
-        "views, D 20): match")
-    main = by_seq[FLASH_SEQS[-1]]
+    check(taken[GENERIC] == 3 and splits >= 3,
+          f"edge cases took {taken}, {splits} split the keys")
+    log(f"phase 2: flash_attention edge shapes ({cases} cases: {taken} by "
+        f"entry, bf16 through {GENERIC}: {generic_cases}; float32 at 2e-5; bf16 at 2e-2 and within half a bf16 ulp of "
+        f"the float32 plain result (worst {worst_ulps:.3f} of that bound); "
+        "D 16/64/128/256 x G 1/2/4/8, S 1/3/100/129/256 causal and not, "
+        "Sq < Sk, windows 32/128/100, cap 20 with scale 0.2, Dv != Dk, "
+        "strided (B,S,H,D) views, G 8 at S 8, Sq off 128, "
+        f"{splits} with split keys, D 20, Dv 24, a base off 16 bytes): "
+        "match")
+
+    # the generic entry's own shape: head dim 20, rows off 16 bytes
+    q, k, v = rand(1, 2, 90, 20), rand(1, 1, 90, 20), rand(1, 1, 90, 20)
+    g20 = fa_ops.prepare(q, k, v)
+    check(g20.entry == GENERIC, "D = 20 does not take the generic entry")
+    flops20 = 4 * 2 * 20 * 90 * 91 // 2
+    bytes20 = (2 * 2 * 90 * 20 + 2 * 90 * 20) * 2
+    gen_row = dict(
+        name=GENERIC, route="cuda",
+        source="src/repro_torch/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention/flash_attention.py:84",
+        max_abs_err=max(errs[GENERIC]), ms=cold(g20.run),
+        plain_ms=cold(lambda: fa_ref.reference(q, k, v)),
+        bound_ms=max(flops20 / PEAK_BF16_FLOPS,
+                     bytes20 / HBM_BYTES_PER_S) * 1e3,
+        bound_by="operations" if flops20 / PEAK_BF16_FLOPS
+        > bytes20 / HBM_BYTES_PER_S else "bytes",
+        library_ms=cold(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True)),
+        entry=GENERIC, main_path=False,
+        shape="B=1 H=2 KVH=1 S=90 D=20 bf16 causal",
+        ms_by_shape={s: r["generic_ms"] for s, r in by_shape.items()})
+    main_shape = "x".join(map(str, FLASH_SHAPES[-1]))
+    main = by_shape[main_shape]
     row = dict(name="flash_attention", route="cuda",
                source="src/repro_torch/csrc/flash_attention.cu",
                replaces="src/repro/kernels/flash_attention/"
                         "flash_attention.py:84",
-               max_abs_err=max(r["max_abs_err"] for r in by_seq.values()),
+               max_abs_err=max(errs[TMA]),
                ms=main["ms"], plain_ms=main["plain_ms"],
                bound_ms=main["bound_ms"], bound_by=main["bound_by"],
                library_ms=main["library_ms"], entry="flash_attention",
-               shape=f"B=1 H={H} KVH={KVH} S={FLASH_SEQS[-1]} D={D} bf16 "
-                     "causal", by_seq=by_seq)
-    log(f"phase 2: {row['name']:<26} {row['shape']:<36} kernel "
-        f"{row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ms  bound "
-        f"{row['bound_ms']:.4f} ms  library {row['library_ms']:.4f} ms")
-    return {"flash_attention": row}
+               shape=f"B=1 H={H} KVH={KVH} S={FLASH_SHAPES[-1][1]} D={D} "
+                     "bf16 causal", by_shape=by_shape,
+               ptxas={k: v for k, v in report.items() if "sm90" in k})
+    for r in (row, gen_row):
+        log(f"phase 2: {r['name']:<26} {r['shape']:<36} kernel "
+            f"{r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  bound "
+            f"{r['bound_ms']:.4f} ms  library {r['library_ms']:.4f} ms")
+    return {"flash_attention": row, GENERIC: gen_row}
 
 
 # -- phase 6 ----------------------------------------------------------------------
@@ -1486,6 +1617,7 @@ def phase_serve(torch, np, dev, Z, rng, T, params=None) -> dict:
         check(len(steps) < 100 * len(prompts) * Z.new, "the engine stalls")
     run_s = time.perf_counter() - t_run
     launches = dict(_build.LAUNCHES)
+    flash_by_shape = dict(_build.BY_SHAPE.get("flash_attention", {}))
     results = dict(eng._finished)
 
     # what the run must show
@@ -1513,10 +1645,13 @@ def phase_serve(torch, np, dev, Z, rng, T, params=None) -> dict:
               * len(prompts) and launches.get("ring_produce_consume", 0) > 0,
               f"serve launches {launches}")
         check(not launches.get("ring_produce") and not
-              launches.get("ring_consume"), f"serve launches {launches}")
+              launches.get("ring_consume") and not
+              launches.get("flash_attention_generic"),
+              f"serve launches {launches}")
     log(f"phase 6: {len(rids)} requests x {Z.new} tokens on {Z.max_batch} "
         f"slots in {len(steps)} steps, {run_s:.2f} s; prefills (length, "
-        f"flash launches) {prefills}; kernel launches {launches}")
+        f"flash launches) {prefills}; kernel launches {launches}; flash "
+        f"launches by B x S {flash_by_shape}")
 
     # against the unpaged reference, teacher-forced on the engine's tokens
     tol = LOGIT_TOL[cfg.dtype]
@@ -1597,7 +1732,8 @@ def phase_serve(torch, np, dev, Z, rng, T, params=None) -> dict:
         f"over the run; peak device memory {peak} GiB; one profiled decode "
         f"step {timing.get('decode_profile')}")
     eng.close()
-    return dict(launches=launches, timing=timing, peak_gib=peak,
+    return dict(launches=launches, flash_by_shape=flash_by_shape,
+                timing=timing, peak_gib=peak,
                 logit_rel_err=worst, max_dlogit=max_d,
                 token_agreement=agree / n_tok, gated_tokens=gated,
                 tokens=[results[r] for r in rids], rel_by_step=rel_by_step,
@@ -2059,9 +2195,10 @@ def phase_cluster(torch, np, dev, C, rng, T, params=None) -> dict:
     if cuda:
         torch.cuda.reset_peak_memory_stats()
     launches: dict = {}
+    shapes: dict = {}
 
     def counted(fn):
-        return count_launches(_build, launches, fn)
+        return count_launches(_build, launches, fn, shapes)
 
     prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32).tolist()
                for n in C.prompts]
@@ -2278,9 +2415,13 @@ def phase_cluster(torch, np, dev, C, rng, T, params=None) -> dict:
                    "ingest_pages", "ring_produce_consume"):
             check(launches.get(fn, 0) > 0, f"{fn} never launched on the "
                   f"cluster path: {launches}")
-    log(f"phase 8: kernel launches {launches}; peak device memory {peak} "
-        "GiB")
-    return dict(launches=launches, peak_gib=peak,
+        check(not launches.get("flash_attention_generic"),
+              f"the cluster's prefills left the TMA entry: {launches}")
+    flash_by_shape = shapes.get("flash_attention", {})
+    log(f"phase 8: kernel launches {launches}; flash launches by B x S "
+        f"{flash_by_shape}; peak device memory {peak} GiB")
+    return dict(launches=launches, flash_by_shape=flash_by_shape,
+                peak_gib=peak,
                 tokens_a=got_a, tokens_b=got_b, oracle=want,
                 diffs=dict(a=diffs_a, b=diffs_b),
                 worst_rel=dict(a=worst_a, b=worst_b),
@@ -2333,9 +2474,10 @@ def phase_storage(torch, np, dev, Q, rng, T) -> dict:
         f"({Q.n_blocks * BLOCK_WORDS * 4 / 2**30:.2f} GiB) drawn and "
         f"registered in {build_s:.1f} s")
     launches: dict = {}
+    shapes: dict = {}
 
     def counted(fn):
-        return count_launches(_build, launches, fn)
+        return count_launches(_build, launches, fn, shapes)
 
     reads = []
     for clients in Q.clients:
@@ -2489,6 +2631,23 @@ def main() -> int:
         by_path = {p: n.get(entry, 0) for p, n in paths.items()}
         kernels.append(dict(r, launches=sum(by_path.values()),
                             launches_by_path=by_path))
+    # flash's launches by (batch, bucket) on the serving paths, and what
+    # each shape costs above its bound: launches x (time - bound)
+    flash = next(k for k in kernels if k["name"] == "flash_attention")
+    flash["launches_by_shape"] = {
+        p: dict(sorted(r["flash_by_shape"].items()))
+        for p, r in (("serve", serve), ("cluster", cluster))}
+    excess, untimed = {}, set()
+    for by in flash["launches_by_shape"].values():
+        for shape, n in by.items():
+            t = flash["by_shape"].get(shape)
+            if t is None:
+                untimed.add(shape)
+                continue
+            excess[shape] = excess.get(shape, 0.0) + n * (t["ms"]
+                                                          - t["bound_ms"])
+    flash["excess_ms_by_shape"] = excess
+    check(not untimed, f"flash shapes launched but not timed: {untimed}")
     for key in ("tokens", "prompts", "rel_by_step"):
         serve.pop(key)
     for key in ("tokens_a", "tokens_b", "oracle", "prompts", "pd",
@@ -2496,7 +2655,8 @@ def main() -> int:
         cluster.pop(key)
     for row in cluster["sweep"]:
         row.pop("tokens_out")
-    check(kernels and all(k["launches"] > 0 for k in kernels),
+    check(kernels and all(k["launches"] > 0 for k in kernels
+                          if k.get("main_path", True)),
           f"a kernel never launched on a main path: {kernels}")
     log(json.dumps({"chains": timing, "launches_per_flush": lpf,
                     "kv_leg": kv, "serve": serve, "t3_pipe": t3,

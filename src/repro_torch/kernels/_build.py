@@ -14,7 +14,8 @@ failure.
 
 `LAUNCHES` counts, per C entry point, the launches the wrappers really
 made on the card (the plain versions on CPU tensors never count here),
-so a run can show that its main path went through the kernels.
+so a run can show that its main path went through the kernels;
+`BY_SHAPE` splits a wrapper's count by the call shape it names.
 """
 from __future__ import annotations
 
@@ -33,6 +34,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 LAUNCHES: dict[str, int] = {}     # C entry point -> launches on the card
+BY_SHAPE: dict[str, dict] = {}    # C entry point -> {shape: launches}
 LOGS: dict[str, str] = {}         # nvcc/ptxas output per built source
 
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -42,10 +44,14 @@ _LOCK = threading.Lock()
 
 def reset_launches():
     LAUNCHES.clear()
+    BY_SHAPE.clear()
 
 
-def count(fn: str):
+def count(fn: str, shape: str | None = None):
     LAUNCHES[fn] = LAUNCHES.get(fn, 0) + 1
+    if shape is not None:
+        by = BY_SHAPE.setdefault(fn, {})
+        by[shape] = by.get(shape, 0) + 1
 
 
 def _nvcc() -> str:
