@@ -19,7 +19,14 @@ Phases (any failure exits non-zero):
   2. each kernel against its plain version on the card, exact, at the
      main paths' shapes (4096 records of 4 KiB in a 12 GiB region, ring
      depth 4096; 2048 gemma-2b KV pages of 16 x 1 x 256 bf16) and at
-     edge shapes; kernel, plain, library and bound times;
+     edge shapes; kernel, plain, library and bound times. Every cold
+     time evicts the L2 by reading 256 MiB (clean lines; `Timer`). The
+     row copies of csrc/wr_rows.cu are timed interleaved with their
+     plain version and library call, 5 rounds of 20 cold calls, median
+     and spread, and again under the earlier memset eviction; the
+     scatter also into a 16 MiB region. flash_attention is timed after
+     the read eviction, the memset, none, and the read eviction followed
+     by a flash call on other operands (primed), interleaved;
   3. the datapath against its scalar oracle: two rigs built from the
      verbs entry points, seeded from one numpy generator with a 12 GiB
      block MR; 4096-WR WRITE/READ/SEND chains and a 64-WR mixed chain
@@ -64,7 +71,8 @@ Phases (any failure exits non-zero):
      and 512 sessions (desc_dmas_per_token flat within 1.2x), (d) the
      migration contract (one doorbell, one descriptor fetch, one gather
      and one scatter launch per cache-leaf run), (e) `PDServer.serve`
-     against the unpaged greedy decode, and with int8 KV;
+     against the unpaged greedy decode, with int8 KV, and through the
+     staged baseline (`staged=True`, tokens equal the unstaged run's);
   9. Solar block storage: a `SolarBlockStore` of 2^20 blocks of 4 KiB
      (4 GiB) on the card, `read_flexins` (one gather launch per request)
      and `read_rdma` at 1x32, 4x32 and 12x32 LBAs against `read_cpu`
@@ -81,7 +89,10 @@ float32 within 2e-5, bf16 within 2e-2 and within
 half a bf16 ulp of the plain version's float32 result, ring_pipe_consume
 on a seeded permutation of 4096 slots of 4 KiB and its edge cases, and
 list_traverse on a 2^20-record list (hits, a miss stopped at max_hops,
-the -1 tail), all exact.
+the -1 tail), all exact; and flash gradients at 1 x 512 and 1 x 2048
+(q, k, v requiring grad: a grad_fn, the kernel's forward, gradients
+bit-equal to autograd of the plain version, which is what the backward
+recomputes: a check of the wiring, not of a backward kernel).
 The last three lines are the card's `nvidia-smi` line, one JSON object
 with a row per kernel, and `{"ok": true, "device": {...}}`.
 """
@@ -90,6 +101,7 @@ from __future__ import annotations
 import gc
 import json
 import math
+import random
 import statistics
 import subprocess
 import sys
@@ -191,19 +203,44 @@ def smi_line() -> str:
 
 class Timer:
     """Milliseconds per call on the card, from CUDA events, after a
-    warm-up. `cold=True` evicts the
-    50 MB L2 before every call (a 256 MiB memset outside the timed
-    window) and times each call alone: a WRITE run lands in rows of a
-    12 GiB region that no earlier launch touched, so warm-cache repeats
-    of the same rows would flatter every version alike."""
+    warm-up. `cold=True` evicts the 50 MB L2 before every call and times
+    each call alone: a WRITE run lands in rows of a 12 GiB region that no
+    earlier launch touched, so warm-cache repeats of the same rows would
+    flatter every version alike. The eviction READS a 256 MiB buffer
+    (row sums into 256 KiB, outside the timed window), which leaves the
+    L2 full of clean lines. `cold="memset"` is the earlier protocol, a
+    256 MiB memset: it leaves up to 50 MB of dirty lines, which
+    the timed call then writes back while it runs (a row copy's 16 MiB
+    of writes evict 16 MiB of them: ~5 us at 3.35 TB/s, on top of its
+    10 us bound); phase 2 keeps it to measure that cost."""
 
     def __init__(self, torch):
         self.torch = torch
         self._evict = None
 
+    def evict(self, how="read"):
+        """Evict the L2: `read` leaves clean lines, `memset` dirty ones;
+        `none` leaves the L2 as the call before left it; a callable
+        evicts its own way."""
+        torch = self.torch
+        if callable(how):
+            return how()
+        if how == "none":
+            return
+        if self._evict is None:
+            self._evict = torch.zeros((1 << 16, 1024), dtype=torch.float32,
+                                      device="cuda")
+            self._sums = torch.zeros(1 << 16, dtype=torch.float32,
+                                     device="cuda")
+        if how == "memset":
+            self._evict.zero_()
+        else:
+            torch.sum(self._evict, dim=1, out=self._sums)
+
     def ms(self, fn, iters: int = 20, warmup: int = 3,
-           cold: bool = False, median: bool = False) -> float:
-        """Mean (or, with `median` and `cold`, median) ms per call."""
+           cold: bool | str = False, median: bool = False) -> float:
+        """Mean (or, with `median` and `cold`, median) ms per call;
+        `cold` is False, True (the read eviction) or "memset"."""
         torch = self.torch
         for _ in range(warmup):
             fn()
@@ -217,12 +254,10 @@ class Timer:
             b.record()
             torch.cuda.synchronize()
             return a.elapsed_time(b) / iters
-        if self._evict is None:
-            self._evict = torch.empty(64 << 20, dtype=torch.float32,
-                                      device="cuda")
+        how = "memset" if cold == "memset" else "read"
         pairs = []
         for _ in range(iters):
-            self._evict.zero_()
+            self.evict(how)
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
             a.record()
@@ -232,6 +267,46 @@ class Timer:
         torch.cuda.synchronize()
         times = [a.elapsed_time(b) for a, b in pairs]
         return statistics.median(times) if median else sum(times) / iters
+
+    def rounds(self, fns: dict, rounds: int = 5, iters: int = 20,
+               warmup: int = 3) -> dict:
+        """Cold ms of each of `fns` (name -> fn, or -> (fn, how) for
+        another eviction than the read: "memset", "none" or a callable),
+        interleaved: `rounds` rounds of `iters`
+        turns, each turn one call of every fn, each call after its own
+        eviction. A call's time moves by up to ~0.5 us with the call
+        before it (what that call left behind), so each round takes its
+        own seeded order of the fns: each fn follows several others.
+        Per fn: `ms`, the median of the round medians, and their spread
+        `lo`-`hi`."""
+        torch = self.torch
+        calls = {k: v if isinstance(v, tuple) else (v, "read")
+                 for k, v in fns.items()}
+        for fn, _ in calls.values():
+            for _ in range(warmup):
+                fn()
+        torch.cuda.synchronize()
+        meds = {k: [] for k in calls}
+        order = random.Random(0)
+        for _ in range(rounds):
+            pairs = {k: [] for k in calls}
+            turn = order.sample(list(calls), len(calls))
+            for _ in range(iters):
+                for k in turn:
+                    fn, how = calls[k]
+                    self.evict(how)
+                    a = torch.cuda.Event(enable_timing=True)
+                    b = torch.cuda.Event(enable_timing=True)
+                    a.record()
+                    fn()
+                    b.record()
+                    pairs[k].append((a, b))
+            torch.cuda.synchronize()
+            for k, ps in pairs.items():
+                meds[k].append(statistics.median(
+                    a.elapsed_time(b) for a, b in ps))
+        return {k: dict(ms=statistics.median(m), lo=min(m), hi=max(m),
+                        rounds=m) for k, m in meds.items()}
 
     def sync(self):
         self.torch.cuda.synchronize()
@@ -289,6 +364,85 @@ def bound_ms(nbytes: int) -> float:
 
 
 # -- phase 2 --------------------------------------------------------------------
+def time_rows(T, lib, entry: str, dst, src, offs_t, n: int, row_bytes: int,
+              plain, library, contiguous=None) -> dict:
+    """Phase 2's interleaved cold timing of one row copy (Timer.rounds:
+    5 rounds of 20 turns): the entry, its plain version and the library
+    call, each after a clean-L2 eviction, and the entry again after a
+    memset eviction (the earlier protocol, to measure what its dirty
+    lines cost); `contiguous`, a copy of the same bytes between two
+    contiguous tensors (no offsets, one stream each way): the floor of
+    any row copy of this size."""
+    from repro_torch.kernels import _build
+    stream = _build.stream_ptr(dst.device)
+    args = (dst.data_ptr(), src.data_ptr(), offs_t.data_ptr(), n, row_bytes)
+
+    def kernel():
+        _build.check(lib, getattr(lib, entry)(*args, stream), entry)
+    fns = {"kernel": kernel, "plain": plain, "library": library,
+           "kernel_memset": (kernel, "memset")}
+    if contiguous is not None:
+        fns["contiguous"] = contiguous
+    names = {"kernel": "ms", "plain": "plain_ms", "library": "library_ms",
+             "kernel_memset": "memset_ms", "contiguous": "contiguous_ms"}
+    out = {}
+    for key, v in T.rounds(fns).items():
+        out[names[key]] = v["ms"]
+        out[f"{names[key]}_spread"] = [v["lo"], v["hi"]]
+    return out
+
+
+def row_line(what: str, t: dict, bound: float) -> str:
+    """One log line of `time_rows`' medians (spreads) and the bound."""
+    def one(k):
+        return f"{t[k]:.4f} ({t[k + '_spread'][0]:.4f}-" \
+               f"{t[k + '_spread'][1]:.4f})"
+    return (f"phase 2: {what}: kernel {one('ms')}  plain {one('plain_ms')}"
+            f"  library {one('library_ms')}  memset protocol: kernel "
+            f"{one('memset_ms')}  bound {bound:.4f} ms"
+            + (f"  contiguous copy {one('contiguous_ms')}"
+               if "contiguous_ms" in t else ""))
+
+
+SCALING_ROWS = (1, 512, 2048, 4096, 8192, 16384)
+
+
+def row_scaling(torch, np, T, lib, region, L: int, rng) -> dict:
+    """Cold ms of the record gather of n rows of `region` (n in
+    SCALING_ROWS, distinct seeded rows), `gather_rows` and
+    `index_select` interleaved, and a least-squares line ms = a + b n
+    per version: `a` the fixed cost of a cold call, 2 n row_bytes / b
+    the rate the rows stream at."""
+    from repro_torch.kernels import _build
+    stream = _build.stream_ptr(region.device)
+    row_bytes = L * region.element_size()
+    fns = {}
+    for n in SCALING_ROWS:
+        o = torch.from_numpy(rng.choice(region.shape[0], size=n,
+                                        replace=False)).to(region.device)
+        out = torch.empty((n, L), dtype=region.dtype, device=region.device)
+        def run(o=o, out=out, n=n):
+            _build.check(lib, lib.gather_rows(
+                out.data_ptr(), region.data_ptr(), o.data_ptr(), n,
+                row_bytes, stream), "gather_rows")
+        fns[f"gather_rows {n}"] = run
+        fns[f"index_select {n}"] = lambda o=o: region.index_select(0, o)
+    t = T.rounds(fns)
+    out = {}
+    for name in ("gather_rows", "index_select"):
+        ms = [t[f"{name} {n}"]["ms"] for n in SCALING_ROWS]
+        b, a = np.polyfit(np.asarray(SCALING_ROWS, float), ms, 1)
+        out[name] = dict(ms=dict(zip(map(str, SCALING_ROWS), ms)),
+                         fixed_ms=float(a),
+                         stream_tb_s=float(2 * row_bytes / (b * 1e-3)
+                                           / 1e12))
+        log(f"phase 2: {name} cold ms by rows "
+            f"{dict(zip(SCALING_ROWS, [round(x, 4) for x in ms]))}: "
+            f"fixed {a:.4f} ms, rows stream at "
+            f"{out[name]['stream_tb_s']:.2f} TB/s (read + write)")
+    return out
+
+
 def phase_kernels(torch, np, dev, S, rng, T) -> dict:
     from repro_torch.kernels import _build
     from repro_torch.kernels.desc_ring import ops as ring_ops
@@ -300,6 +454,18 @@ def phase_kernels(torch, np, dev, S, rng, T) -> dict:
     gen = torch.Generator(device=dev).manual_seed(int(rng.integers(1 << 31)))
     R, L, m = S.blocks, S.rec, S.n
     row_bytes = L * 4
+    lib = _build.load("wr_rows", wr_ops._SIG)
+    stream = _build.stream_ptr(dev)
+
+    def once(entry: str, fn):
+        """fn() launching `entry` once and nothing else of wr_rows."""
+        b = dict(_build.LAUNCHES)
+        out = fn()
+        got = {e: _build.LAUNCHES.get(e, 0) - b.get(e, 0)
+               for e in wr_ops._SIG}
+        check(got == {e: int(e == entry) for e in wr_ops._SIG},
+              f"launched {got}, not {entry} once")
+        return out
     # -- scatter + gather at the main path's shape (12 GiB region) ----------
     region = torch.rand((R, L), generator=gen, device=dev)
     plain = region.clone()
@@ -307,58 +473,71 @@ def phase_kernels(torch, np, dev, S, rng, T) -> dict:
     check((offs >= (1 << 31) // L).any(), "no offset past element 2^31")
     offs_t = torch.from_numpy(offs).to(dev)
     vals = torch.rand((m, L), generator=gen, device=dev)
-    wr_ops.scatter_records(region, offs, vals)
+    once("scatter_rows", lambda: wr_ops.scatter_records(region, offs, vals))
     wr_ref.scatter(plain, offs_t, vals)
     T.sync()
     check(torch.equal(region, plain), "scatter_rows != plain scatter")
     err = float((region[offs_t] - plain[offs_t]).abs().max())
     move = 2 * m * row_bytes + 8 * m
-    lib = _build.load("wr_rows", wr_ops._SIG)
-    stream = _build.stream_ptr(dev)
-
-    def k_scatter():
-        _build.check(lib, lib.scatter_rows(
-            region.data_ptr(), vals.data_ptr(), offs_t.data_ptr(), m,
-            row_bytes, stream), "scatter_rows")
-    k_ms = T.ms(k_scatter, cold=True)
+    dense = torch.empty_like(vals)
+    t_sc = time_rows(T, lib, "scatter_rows", region, vals, offs_t, m,
+                     row_bytes, lambda: wr_ref.scatter(plain, offs_t, vals),
+                     lambda: plain.index_put_((offs_t,), vals),
+                     contiguous=lambda: dense.copy_(vals))
+    del dense
+    log(row_line(f"scatter_rows {m} x {row_bytes} B into 12 GiB", t_sc,
+                 bound_ms(move)))
+    # the same rows into a 16 MiB region (rows 0..m-1 of a fresh tensor,
+    # in a seeded order): what random 4 KiB writes across 12 GiB cost
+    small = torch.zeros((m, L), device=dev)
+    small_plain = torch.zeros_like(small)
+    perm = rng.permutation(m)
+    perm_t = torch.from_numpy(perm).to(dev)
+    wr_ops.scatter_records(small, perm, vals)
+    wr_ref.scatter(small_plain, perm_t, vals)
+    T.sync()
+    check(torch.equal(small, small_plain), "scatter_rows != plain, 16 MiB")
+    t_16 = time_rows(T, lib, "scatter_rows", small, vals, perm_t, m,
+                     row_bytes,
+                     lambda: wr_ref.scatter(small_plain, perm_t, vals),
+                     lambda: small_plain.index_put_((perm_t,), vals))
+    log(row_line(f"scatter_rows {m} x {row_bytes} B into 16 MiB", t_16,
+                 bound_ms(move)))
+    del small, small_plain
     rows["wr_scatter"] = dict(
         name="wr_scatter", route="cuda",
         source="src/repro_torch/csrc/wr_rows.cu",
         replaces="src/repro/kernels/wr_scatter/wr_scatter.py:27",
-        max_abs_err=err, ms=k_ms,
-        plain_ms=T.ms(lambda: wr_ref.scatter(plain, offs_t, vals),
-                      cold=True),
+        max_abs_err=err, **t_sc, region_16mib=t_16,
         bound_ms=bound_ms(move), bound_by="bytes",
-        library_ms=T.ms(lambda: plain.index_put_((offs_t,), vals),
-                        cold=True),
         entry="scatter_rows",
         shape=f"{m}x{row_bytes}B into {R}x{row_bytes}B")
     del plain
-    got = wr_ops.gather_records(region, offs, L)
+    got = once("gather_rows", lambda: wr_ops.gather_records(region, offs, L))
     exp = wr_ref.gather(region, offs_t, L)
     T.sync()
     check(torch.equal(got, exp), "gather_rows != plain gather")
     check(torch.equal(got, vals), "gather did not read back the scatter")
     err = float((got - exp).abs().max())
-    out = torch.empty_like(got)
-
-    def k_gather():
-        _build.check(lib, lib.gather_rows(
-            out.data_ptr(), region.data_ptr(), offs_t.data_ptr(), m,
-            row_bytes, stream), "gather_rows")
-    k_ms = T.ms(k_gather, cold=True)
+    t_ga = time_rows(T, lib, "gather_rows", got, region, offs_t, m,
+                     row_bytes, lambda: wr_ref.gather(region, offs_t, L),
+                     lambda: region.index_select(0, offs_t))
+    log(row_line(f"gather_rows {m} x {row_bytes} B from 12 GiB", t_ga,
+                 bound_ms(move)))
     rows["wr_gather"] = dict(
         name="wr_gather", route="cuda",
         source="src/repro_torch/csrc/wr_rows.cu",
         replaces="src/repro/kernels/wr_scatter/ops.py:48",
-        max_abs_err=err, ms=k_ms,
-        plain_ms=T.ms(lambda: wr_ref.gather(region, offs_t, L),
-                      cold=True),
+        max_abs_err=err, **t_ga,
         bound_ms=bound_ms(move), bound_by="bytes",
-        library_ms=T.ms(lambda: region.index_select(0, offs_t),
-                        cold=True),
         entry="gather_rows",
         shape=f"{m}x{row_bytes}B from {R}x{row_bytes}B")
+    # what a cold call of a row copy costs against the rows it moves: the
+    # record gather of n rows from the 12 GiB region, kernel and library
+    # interleaved; the intercept is the fixed cost of one cold launch,
+    # the slope the rate the rows stream at
+    rows["wr_gather"]["scaling"] = row_scaling(torch, np, T, lib, region,
+                                               L, rng)
     # an empty run launches nothing, so it counts as no launch
     before = dict(_build.LAUNCHES)
     wr_ops.scatter_records(region, offs[:0], vals[:0])
@@ -370,7 +549,9 @@ def phase_kernels(torch, np, dev, S, rng, T) -> dict:
     log(f"phase 2: scatter/gather at {m} x {row_bytes} B in a "
         f"{R * row_bytes / 2**30:.1f} GiB region: exact")
 
-    # -- edge shapes: ragged row widths, dtypes, misaligned base pointers --
+    # -- edge shapes: ragged row widths, dtypes, misaligned base pointers;
+    # one row, 16-byte rows past the 65,535-block grid (the grid-stride
+    # loop), and rows wider than a block's 512 words
     for dtype, rec in ((torch.uint8, (5,)), (torch.int32, (3,)),
                        (torch.float32, (1023,)), (torch.bfloat16, (7,)),
                        (torch.float32, (2, 8))):
@@ -384,16 +565,30 @@ def phase_kernels(torch, np, dev, S, rng, T) -> dict:
             vb = (torch.rand((13 * F + 1,), generator=gen, device=dev)
                   * 200).to(dtype)
             v = vb[shift:shift + 13 * F].view((13,) + rec)
-            wr_ops.scatter_records(reg, o, v)
+            once("scatter_rows", lambda: wr_ops.scatter_records(reg, o, v))
             wr_ref.scatter(pl, torch.from_numpy(o).to(dev), v)
             T.sync()
             check(torch.equal(reg, pl), f"scatter edge {dtype} {rec} {shift}")
-            g = wr_ops.gather_records(reg, o, F)
+            g = once("gather_rows", lambda: wr_ops.gather_records(reg, o, F))
             check(torch.equal(g, wr_ref.gather(
                 reg, torch.from_numpy(o).to(dev), F)),
                 f"gather edge {dtype} {rec} {shift}")
+    for rows_n, width, pool in ((1, 1024, 8), (70000, 4, 80000),
+                                (300, 16384, 400)):
+        reg = torch.rand((pool, width), generator=gen, device=dev)
+        pl = reg.clone()
+        o = rng.choice(pool, size=rows_n, replace=False)
+        v = torch.rand((rows_n, width), generator=gen, device=dev)
+        once("scatter_rows", lambda: wr_ops.scatter_records(reg, o, v))
+        wr_ref.scatter(pl, torch.from_numpy(o).to(dev), v)
+        g = once("gather_rows", lambda: wr_ops.gather_records(reg, o, width))
+        T.sync()
+        check(torch.equal(reg, pl) and torch.equal(g, v),
+              f"{rows_n} rows of {width * 4} B")
+        del reg, pl, v, g
     log("phase 2: scatter/gather edge shapes (uint8/int32/float32/bfloat16,"
-        " rows of 5/12/4092/14/64 B, misaligned bases): exact")
+        " rows of 5/12/4092/14/64 B, misaligned bases; 1 row, 70000 rows "
+        "of 16 B, 300 rows of 64 KiB): exact, one launch each")
 
     # -- desc_ring at depth S.ring: produce / consume / produce_consume ------
     cap, width = S.ring, 8
@@ -771,6 +966,7 @@ def phase_kv_kernels(torch, np, dev, K, rng, T) -> dict:
     from repro_torch.kernels import _build
     from repro_torch.kernels.kv_ingest import ops as kv_ops
     from repro_torch.kernels.kv_ingest import ref as kv_ref
+    from repro_torch.kernels.wr_scatter import ops as wr_ops
 
     cfg = get_config(K.arch)
     gen = torch.Generator(device=dev).manual_seed(int(rng.integers(1 << 31)))
@@ -790,26 +986,20 @@ def phase_kv_kernels(torch, np, dev, K, rng, T) -> dict:
     check(torch.equal(pages, plain), "ingest_pages != plain ingest")
     err = float((pages.float() - plain.float()).abs().max())
     move = 2 * n * page_bytes + 8 * n
-    lib = _build.load("wr_rows", kv_ops._SIG)
-    stream = _build.stream_ptr(dev)
-
-    def k_ingest():
-        _build.check(lib, lib.ingest_pages(
-            pages.data_ptr(), payload.data_ptr(), ids_t.data_ptr(), n,
-            page_bytes, stream), "ingest_pages")
+    lib = _build.load("wr_rows", wr_ops._SIG)
     shape = f"{n} pages of {page_bytes} B ({'x'.join(map(str, page))} bf16)"
+    t_in = time_rows(T, lib, "ingest_pages", pages, payload, ids_t, n,
+                     page_bytes, lambda: kv_ref.ingest(plain, ids_t, payload),
+                     lambda: plain.index_copy_(0, ids_t, payload))
+    log(row_line(f"ingest_pages {shape}", t_in, bound_ms(move)))
     rows = {"kv_ingest": dict(
         name="kv_ingest", route="cuda",
         source="src/repro_torch/csrc/wr_rows.cu",
         replaces="src/repro/kernels/kv_ingest/kv_ingest.py:24",
-        max_abs_err=err, ms=T.ms(k_ingest, cold=True),
+        max_abs_err=err, **t_in,
         wrapper_ms=T.ms(lambda: kv_ops.kv_ingest(pages, payload, ids),
                         cold=True),
-        plain_ms=T.ms(lambda: kv_ref.ingest(plain, ids_t, payload),
-                      cold=True),
         bound_ms=bound_ms(move), bound_by="bytes",
-        library_ms=T.ms(lambda: plain.index_copy_(0, ids_t, payload),
-                        cold=True),
         entry="ingest_pages", shape=shape + " into a pool of as many")}
     got = kv_ops.gather_pages(pages, ids)
     exp = kv_ref.gather(pages, ids_t)
@@ -817,21 +1007,18 @@ def phase_kv_kernels(torch, np, dev, K, rng, T) -> dict:
     check(torch.equal(got, exp), "gather_rows != plain page gather")
     check(torch.equal(got, payload), "page gather did not read the ingest")
     err = float((got.float() - exp.float()).abs().max())
-    out = torch.empty_like(got)
-
-    def k_gather():
-        _build.check(lib, lib.gather_rows(
-            out.data_ptr(), pages.data_ptr(), ids_t.data_ptr(), n,
-            page_bytes, stream), "gather_rows")
+    out = torch.zeros_like(got)
+    t_pg = time_rows(T, lib, "gather_rows", out, pages, ids_t, n,
+                     page_bytes, lambda: kv_ref.gather(pages, ids_t),
+                     lambda: pages.index_select(0, ids_t))
+    log(row_line(f"gather_rows (pages) {shape}", t_pg, bound_ms(move)))
     rows["wr_gather.pages"] = dict(
         name="wr_gather.pages", route="cuda",
         source="src/repro_torch/csrc/wr_rows.cu",
         replaces="src/repro/core/rx_engine.py:33",
-        max_abs_err=err, ms=T.ms(k_gather, cold=True),
+        max_abs_err=err, **t_pg,
         wrapper_ms=T.ms(lambda: kv_ops.gather_pages(pages, ids), cold=True),
-        plain_ms=T.ms(lambda: kv_ref.gather(pages, ids_t), cold=True),
         bound_ms=bound_ms(move), bound_by="bytes",
-        library_ms=T.ms(lambda: pages.index_select(0, ids_t), cold=True),
         entry="gather_rows", shape=shape + " from a pool of as many")
     log(f"phase 2: kv_ingest and page gather at {shape}: exact")
     del pages, payload, plain, got, exp, out
@@ -840,7 +1027,6 @@ def phase_kv_kernels(torch, np, dev, K, rng, T) -> dict:
     # 16-byte alignment, repeated ids (the last one wins), one page, and
     # a payload cast to the pool's dtype
     P = 40
-    before = dict(_build.LAUNCHES)
     cases = 0
     for dtype, shp, src in ((torch.float32, (4, 4), torch.float32),
                             (torch.uint8, (3, 5), torch.uint8),
@@ -859,7 +1045,11 @@ def phase_kv_kernels(torch, np, dev, K, rng, T) -> dict:
                 vb = (torch.rand((m * F + 1,), generator=gen, device=dev)
                       * 200).to(src)
                 v = vb[shift:shift + m * F].view((m,) + shp)
+                k0 = _build.LAUNCHES.get("ingest_pages", 0)
                 kv_ops.kv_ingest(pg, v, idx)
+                check(_build.LAUNCHES.get("ingest_pages", 0) - k0 == 1,
+                      f"ingest edge {dtype} {shp} shift {shift} was not one "
+                      "launch")
                 o, vv = dedupe_last_wins(idx.astype(np.int64), v)
                 pl = seq.clone()
                 kv_ref.ingest(pl, torch.from_numpy(o).to(dev),
@@ -875,12 +1065,9 @@ def phase_kv_kernels(torch, np, dev, K, rng, T) -> dict:
                     pg, torch.from_numpy(idx.astype(np.int64)).to(dev))),
                     f"page gather edge {dtype} {shp} shift {shift}")
                 cases += 1
-    check(_build.LAUNCHES.get("ingest_pages", 0)
-          - before.get("ingest_pages", 0) == cases, "an edge case launched "
-          "no ingest kernel")
     log(f"phase 2: kv_ingest edge shapes ({cases} cases: float32/uint8/"
         "int32/bfloat16, page rows of 64/15/24/8192 B, misaligned bases, "
-        "float32 payloads cast, repeated ids, n=1): exact")
+        "float32 payloads cast, repeated ids, n=1): exact, one launch each")
     for r in rows.values():
         log(f"phase 2: {r['name']:<26} {r['shape']:<36} kernel "
             f"{r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  bound "
@@ -1302,6 +1489,18 @@ def phase_flash_kernels(torch, np, dev, Z, rng, T) -> dict:
     def cold(fn) -> float:
         return T.ms(fn, iters=10, cold=True, median=True)
 
+    # a flash call on other operands, launched between the read eviction
+    # and a timed call: the first flash launch after a reduction (the
+    # eviction) or a GEMM pays ~12 us at the short buckets that the next
+    # one does not, so the primed reading is the kernel with its
+    # operands cold but not that cost
+    primer_qkv = rand(1, H, 2, D), rand(1, KVH, 2, D), rand(1, KVH, 2, D)
+    primer = fa_ops.prepare(*primer_qkv)
+
+    def primed():
+        T.evict("read")
+        primer.run()
+
     by_shape, errs = {}, {TMA: [], GENERIC: []}
     for B, S in FLASH_SHAPES:
         q, k, v = rand(B, H, S, D), rand(B, KVH, S, D), rand(B, KVH, S, D)
@@ -1322,11 +1521,19 @@ def phase_flash_kernels(torch, np, dev, Z, rng, T) -> dict:
         flops = 4 * B * H * D * S * (S + 1) // 2
         nbytes = (2 * H * S * D + 2 * KVH * S * D) * 2 * B
         t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / HBM_BYTES_PER_S
+        # the kernel after each eviction, interleaved; the excess is
+        # ranked on the primed reading, `rank_ms`
+        ev = T.rounds({"read": call.run, "memset": (call.run, "memset"),
+                       "none": (call.run, "none"),
+                       "primed": (call.run, primed)}, iters=10)
         by_shape[f"{B}x{S}"] = dict(
             max_abs_err=err, max_half_ulps=ulps, max_abs_err_f32=err32,
             split=fa_ops.plan(B, H, S, S, causal=True, window=0,
                               sms=fa_ops.sm_count(q.device))[1],
-            ms=cold(call.run), generic_ms=cold(generic.run),
+            ms=ev["read"]["ms"], memset_ms=ev["memset"]["ms"],
+            warm_ms=ev["none"]["ms"], primed_ms=ev["primed"]["ms"],
+            rank_ms=ev["primed"]["ms"],
+            generic_ms=cold(generic.run),
             plain_ms=cold(lambda: fa_ref.reference(q, k, v)),
             library_ms=cold(lambda: F.scaled_dot_product_attention(
                 q, k, v, is_causal=True, enable_gqa=True)),
@@ -1337,6 +1544,45 @@ def phase_flash_kernels(torch, np, dev, Z, rng, T) -> dict:
         log(f"phase 2: flash_attention {B}x{S}: {by_shape[f'{B}x{S}']}")
         del q, k, v, got, call, generic
     free_device_memory(torch)
+
+    # gradients: q, k, v requiring grad give a grad_fn; the forward is
+    # the kernel's (one launch, bit-equal to the call without grad), the
+    # backward the plain version's autograd (no launch). The backward is
+    # that recompute, so this holds the Function's wiring (operands,
+    # saved tensors, the cotangent), bit for bit: it cannot see an error
+    # of the kernel's, which the forward checks above and the CPU tests
+    # against jax.grad of the reference hold
+    grads = {}
+    for B, S in ((1, 512), (1, 2048)):
+        q, k, v = (rand(B, h, S, D).requires_grad_(True)
+                   for h in (H, KVH, KVH))
+        cot = rand(B, H, S, D)
+        k0 = _build.LAUNCHES.get(TMA, 0)
+        out = fa_ops.attention(q, k, v)
+        check(out.grad_fn is not None, f"no grad_fn at {B}x{S}")
+        with torch.no_grad():
+            bare = fa_ops.attention(q, k, v)
+        check(bare.grad_fn is None and torch.equal(out.detach(), bare),
+              f"the forward with grad != without, {B}x{S}")
+        got = torch.autograd.grad(out, (q, k, v), cot)
+        check(_build.LAUNCHES.get(TMA, 0) - k0 == 2,
+              f"{B}x{S}: the two forwards did not launch the kernel once "
+              "each, or the backward launched it")
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        want = torch.autograd.grad(fa_ref.reference(*leaves), leaves, cot)
+        T.sync()
+        rel = [float((a.float() - b.float()).abs().max()
+                     / b.float().abs().max()) for a, b in zip(got, want)]
+        check(all(a.dtype == b.dtype and torch.equal(a, b)
+                  for a, b in zip(got, want)),
+              f"flash gradients at {B}x{S} differ from autograd of the "
+              f"plain version: max |err| / max |grad| {rel}")
+        grads[f"{B}x{S}"] = dict(zip(("dq", "dk", "dv"), rel))
+        del q, k, v, cot, out, bare, got, leaves, want
+    free_device_memory(torch)
+    log(f"phase 2: flash_attention gradients (bf16, kernel forward, plain "
+        f"recompute backward) vs autograd of the plain version: bit-equal, "
+        f"max |err| / max |grad| {grads}")
 
     # edge shapes, in float32 and bf16, each through the entry it routes to
     taken = {TMA: 0, GENERIC: 0}
@@ -1458,6 +1704,7 @@ def phase_flash_kernels(torch, np, dev, Z, rng, T) -> dict:
                ms=main["ms"], plain_ms=main["plain_ms"],
                bound_ms=main["bound_ms"], bound_by=main["bound_by"],
                library_ms=main["library_ms"], entry="flash_attention",
+               grad_rel_err=grads,
                shape=f"B=1 H={H} KVH={KVH} S={FLASH_SHAPES[-1][1]} D={D} "
                      "bf16 causal", by_shape=by_shape,
                ptxas={k: v for k, v in report.items() if "sm90" in k})
@@ -1815,6 +2062,7 @@ def phase_pipe_kernels(torch, np, dev, P, Q, rng, T) -> dict:
     from repro_torch.kernels.list_walk import ref as lw_ref
     from repro_torch.kernels.ring_pipe import ops as rp_ops
     from repro_torch.kernels.ring_pipe import ref as rp_ref
+    from repro_torch.kernels.wr_scatter import ops as wr_ops
 
     rows = {}
     gen = torch.Generator(device=dev).manual_seed(int(rng.integers(1 << 31)))
@@ -1827,34 +2075,39 @@ def phase_pipe_kernels(torch, np, dev, P, Q, rng, T) -> dict:
     T.sync()
     check(torch.equal(got, exp), "ring_pipe_consume != plain gather")
     err = float((got - exp).abs().max())
-    out = torch.empty_like(got)
+    out = torch.zeros_like(got)
     row_bytes = W * slots.element_size()
+    move = 2 * n * row_bytes + 8 * n
     cuda = dev.type == "cuda"
-    # the bare launch on the card (the CPU rehearsal times nothing)
-    lib = _build.load("wr_rows", rp_ops._SIG) if cuda else None
-    stream = _build.stream_ptr(dev) if cuda else None
-
-    def k_pipe():
-        _build.check(lib, lib.ring_pipe_consume(
-            out.data_ptr(), slots.data_ptr(), idx_t.data_ptr(), n,
-            row_bytes, stream), "ring_pipe_consume")
+    # on the card, the interleaved timing of time_rows (the CPU
+    # rehearsal times nothing)
+    if cuda:
+        lib = _build.load("wr_rows", wr_ops._SIG)
+        t = time_rows(T, lib, "ring_pipe_consume", out, slots, idx_t, n,
+                      row_bytes, lambda: rp_ref.consume(slots, idx_t),
+                      lambda: slots.index_select(0, idx_t))
+        log(row_line(f"ring_pipe_consume {n} slots of {row_bytes} B", t,
+                     bound_ms(move)))
+    else:
+        t = dict(ms=None,
+                 plain_ms=T.ms(lambda: rp_ref.consume(slots, idx_t),
+                               cold=True),
+                 library_ms=T.ms(lambda: slots.index_select(0, idx_t),
+                                 cold=True))
     rows["ring_pipe"] = dict(
         name="ring_pipe.consume", route="cuda",
         source="src/repro_torch/csrc/wr_rows.cu",
         replaces="src/repro/kernels/ring_pipe/ring_pipe.py:23",
-        max_abs_err=err, ms=T.ms(k_pipe, cold=True) if cuda else None,
+        max_abs_err=err, **t,
         wrapper_ms=T.ms(lambda: rp_ops.ring_consume(slots, idx), cold=True),
-        plain_ms=T.ms(lambda: rp_ref.consume(slots, idx_t), cold=True),
-        bound_ms=bound_ms(2 * n * row_bytes + 8 * n), bound_by="bytes",
-        library_ms=T.ms(lambda: slots.index_select(0, idx_t), cold=True),
+        bound_ms=bound_ms(move), bound_by="bytes",
         entry="ring_pipe_consume",
         shape=f"{n} of {n} slots of {row_bytes} B")
     del slots, got, exp, out
 
     # edge shapes: dtypes, slot rows not a multiple of 16 B, bases off
     # 16-byte alignment, repeated indices, n = 1 and n = 0
-    before = _build.LAUNCHES.get("ring_pipe_consume", 0)
-    cases = launched = 0
+    cases = 0
     for dtype, w in ((torch.uint8, 5), (torch.int32, 3),
                      (torch.bfloat16, 7), (torch.float32, 1023)):
         for shift in (0, 1):
@@ -1863,7 +2116,12 @@ def phase_pipe_kernels(torch, np, dev, P, Q, rng, T) -> dict:
             sl = base[shift:shift + 40 * w].view(40, w)
             for ix in (rng.integers(0, 40, 13), rng.integers(0, 4, 9),
                        rng.integers(0, 40, 1), np.zeros(0, np.int64)):
+                k0 = _build.LAUNCHES.get("ring_pipe_consume", 0)
                 g = rp_ops.ring_consume(sl, ix)
+                if cuda:
+                    check(_build.LAUNCHES.get("ring_pipe_consume", 0) - k0
+                          == int(ix.size > 0), f"ring_pipe_consume edge "
+                          f"{dtype} w={w} shift {shift} was not one launch")
                 e = rp_ref.consume(sl, torch.from_numpy(
                     ix.astype(np.int64)).to(dev))
                 T.sync()
@@ -1871,10 +2129,6 @@ def phase_pipe_kernels(torch, np, dev, P, Q, rng, T) -> dict:
                       f"ring_pipe_consume edge {dtype} w={w} shift {shift} "
                       f"idx {ix}")
                 cases += 1
-                launched += ix.size > 0
-    if cuda:
-        check(_build.LAUNCHES.get("ring_pipe_consume", 0) - before
-              == launched, "an edge case launched no ring_pipe_consume")
     for bad in ([40], [-1], [0, 41]):
         b0 = dict(_build.LAUNCHES)
         try:
@@ -1887,8 +2141,8 @@ def phase_pipe_kernels(torch, np, dev, P, Q, rng, T) -> dict:
               "launch")
     log(f"phase 2: ring_pipe_consume edge shapes ({cases} cases: uint8/"
         "int32/bfloat16/float32, slot rows of 5/12/14/4092 B, misaligned "
-        "bases, repeated indices, n=1, n=0): exact; out-of-range indices "
-        "raise before a launch")
+        "bases, repeated indices, n=1, n=0): exact, one launch each (none "
+        "for n=0); out-of-range indices raise before a launch")
 
     # -- list_traverse on a seeded Q.records-record list -----------------
     rec_np, order = linked_list(np, rng, Q.records, Q.value)
@@ -1927,6 +2181,7 @@ def phase_pipe_kernels(torch, np, dev, P, Q, rng, T) -> dict:
     meta = torch.empty((3,), dtype=torch.int64, device=dev)
     vout = torch.empty((Q.value,), dtype=torch.float32, device=dev)
     wlib = _build.load("list_walk", lw_ops._SIG) if cuda else None
+    stream = _build.stream_ptr(dev) if cuda else None
     R = rec_np.shape[1]
 
     def k_walk():
@@ -1943,6 +2198,8 @@ def phase_pipe_kernels(torch, np, dev, P, Q, rng, T) -> dict:
         replaces="src/repro/core/offload_engine.py:302",
         max_abs_err=0.0,
         ms=T.ms(k_walk, cold=True, median=True) if cuda else None,
+        memset_ms=T.ms(k_walk, cold="memset", median=True) if cuda
+        else None,
         wrapper_ms=T.ms(lambda: lw_ops.list_traverse(
             recs, miss_key, miss_head, Q.max_hops), cold=True, median=True),
         plain_ms=T.ms(lambda: lw_ref.walk(recs, miss_key, miss_head,
@@ -2385,6 +2642,20 @@ def phase_cluster(torch, np, dev, C, rng, T, params=None) -> dict:
         check(toks.shape == (C.pd_batch, C.pd_steps + 1),
               f"PDServer tokens {toks.shape}")
         free_device_memory(torch)
+    # the staged baseline (replicate-then-move) delivers the same caches
+    server = PDServer(model, params, max_seq=C.pd_seq, page_tokens=C.page)
+    T.sync()
+    t0 = time.perf_counter()
+    toks, stats = counted(lambda: server.serve(pd_prompts,
+                                               n_steps=C.pd_steps,
+                                               staged=True))
+    T.sync()
+    pd["staged"] = dict(tokens=toks, s=time.perf_counter() - t0,
+                        payload_bytes=stats.payload_bytes,
+                        header_bytes=stats.header_bytes)
+    check(np.array_equal(toks, pd[0]["tokens"]),
+          "PDServer tokens with staged=True differ from the unstaged run's")
+    free_device_memory(torch)
     tok = torch.from_numpy(pd_prompts).to(dev)
     logits, caches = model.prefill(params, tok)
     caches = pad_caches(caches, C.pd_prompt, C.pd_seq)
@@ -2406,7 +2677,8 @@ def phase_cluster(torch, np, dev, C, rng, T, params=None) -> dict:
         f"{pd[0]['s']:.2f} s, tokens equal the unpaged greedy decode; "
         f"quantize_bits=8 {pd[8]['s']:.2f} s, tokens equal bits=0's for "
         f"{int((pd[8]['tokens'] == pd[0]['tokens']).all(1).sum())}/"
-        f"{C.pd_batch} prompts; payload/header bytes "
+        f"{C.pd_batch} prompts; staged=True {pd['staged']['s']:.2f} s, "
+        "tokens equal the unstaged run's; payload/header bytes "
         f"{pd[0]['payload_bytes']}/{pd[0]['header_bytes']} (bits 0), "
         f"{pd[8]['payload_bytes']}/{pd[8]['header_bytes']} (bits 8)")
     peak = torch.cuda.max_memory_allocated() / 2**30 if cuda else None
@@ -2644,7 +2916,7 @@ def main() -> int:
             if t is None:
                 untimed.add(shape)
                 continue
-            excess[shape] = excess.get(shape, 0.0) + n * (t["ms"]
+            excess[shape] = excess.get(shape, 0.0) + n * (t["rank_ms"]
                                                           - t["bound_ms"])
     flash["excess_ms_by_shape"] = excess
     check(not untimed, f"flash shapes launched but not timed: {untimed}")

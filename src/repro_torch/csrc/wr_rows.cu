@@ -6,11 +6,13 @@
 //   ring_pipe_consume: out[i] = slots[src[i]] (the T3 descriptor->payload
 //                 pipe: a drained batch gathers its payload slots).
 //
-// Replaces: src/repro/kernels/wr_scatter/wr_scatter.py::wr_scatter (the
-// Pallas scatter: one grid step per record, the offsets scalar-prefetched,
-// the region aliased in place) and src/repro/kernels/wr_scatter/ops.py::
-// _gather (a jitted jnp.take over an (n, L) element index that
-// gather_records builds on the host as int32).
+// Replaces: src/repro/kernels/wr_scatter/wr_scatter.py::wr_scatter (line
+// 27, the Pallas scatter: one grid step per record, the offsets
+// scalar-prefetched, the region aliased in place) and
+// src/repro/kernels/wr_scatter/ops.py::_gather (line 48, a jitted jnp.take
+// over an (n, L) element index that gather_records builds on the host as
+// int32; src/repro/core/rx_engine.py:33 gather_pages is the same take with
+// a page as the row).
 //
 // ingest_pages replaces src/repro/kernels/kv_ingest/kv_ingest.py::kv_ingest
 // (line 24): the Pallas page scatter whose grid walks the payload tiles in
@@ -59,6 +61,19 @@
 // may hold more than 2^31 elements. The wrapper checks every offset
 // against the region before the launch. Scatter offsets are unique (the
 // caller dedupes last-writer-wins), so no two blocks write one row.
+//
+// Why the rows do not go through TMA bulk copies: a persistent grid of
+// one-warp CTAs, each keeping a ring of shared-memory stages full with
+// cp.async.bulk loads and stores, was built and timed against this kernel
+// in interleaved rounds, every call after a clean-L2 eviction
+// (tools/row_ring/probe.py holds it and prints the comparison). At the
+// main paths' 32 MiB it tied on the scatters and trailed on the gathers,
+// where its load -> barrier -> store round trip lengthens the dependent
+// offset -> row chain. A cold call of either design is a few us of launch
+// and dependent latency plus rows streaming at the HBM rate, within ~1 us
+// of a contiguous copy of the same bytes: one 16-byte word per thread
+// already keeps ~32 KB in flight an SM, what Little's law asks for at
+// 3.35 TB/s, so the ring has nothing left to win at these shapes.
 #include <cuda_runtime.h>
 #include <stdint.h>
 

@@ -27,6 +27,9 @@ and window masks, tanh softcap. Its bound on the card is operations:
 for gemma-2b at S = 4096); the three-term P makes the kernels' own work
 twice that. On a CPU tensor `attention` is the plain version in
 `ref.py`; any other device raises, and so does a build or launch error.
+Gradients: where an operand requires grad, `attention` is an autograd
+Function whose backward differentiates the plain version, recomputed on
+the operands' device (no backward kernel yet).
 `_build.LAUNCHES[entry]` counts the calls made on the card, and
 `_build.BY_SHAPE[entry]` the same by "B x Sq".
 
@@ -276,23 +279,59 @@ def prepare(q, k, v, *, causal=True, window=0, sm_scale=None, cap=0.0,
     return Call(lib, entry, args, out, (strides, scratch))
 
 
-def attention(q, k, v, *, causal=True, window=0, sm_scale=None, cap=0.0):
-    """q: (B,H,Sq,Dk); k: (B,KVH,Sk,Dk); v: (B,KVH,Sk,Dv) -> (B,H,Sq,Dv)
-    in q's dtype (float32 or bfloat16), query head h reading kv head
-    h // (H // KVH). The default `sm_scale` is 1/sqrt(Dk)."""
-    _check(q, k, v)
-    if sm_scale is None:
-        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+def _forward(q, k, v, kw):
+    """The kernel on a CUDA tensor, the plain version on a CPU one."""
     if q.device.type == "cpu":
-        return ref.reference(q, k, v, causal=causal, window=window,
-                             sm_scale=sm_scale, cap=cap)
-    call = prepare(q, k, v, causal=causal, window=window, sm_scale=sm_scale,
-                   cap=cap)
+        return ref.reference(q, k, v, **kw)
+    call = prepare(q, k, v, **kw)
     if q.shape[2] == 0:
         return call.out
     call.run()
     _build.count(call.entry, f"{q.shape[0]}x{q.shape[2]}")
     return call.out
+
+
+class _Attention(torch.autograd.Function):
+    """`attention` when a gradient is wanted: the forward as without one
+    (the kernel on the card); the backward recomputes the plain version
+    on the same device and differentiates it, as XLA differentiates the
+    reference's plain `chunked_attention` (its Pallas kernel has no
+    backward). The recompute materialises the (Sq, Sk) scores and is no
+    kernel launch."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kw):
+        ctx.save_for_backward(q, k, v)
+        ctx.kw = kw
+        return _forward(q, k, v, kw)
+
+    @staticmethod
+    def backward(ctx, grad):
+        ops = [t.detach().requires_grad_(need)
+               for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
+        wanted = [t for t in ops if t.requires_grad]
+        with torch.enable_grad():
+            out = ref.reference(*ops, **ctx.kw)
+            got = iter(torch.autograd.grad(out, wanted, grad))
+        return (*(next(got) if t.requires_grad else None for t in ops),
+                None)
+
+
+def attention(q, k, v, *, causal=True, window=0, sm_scale=None, cap=0.0):
+    """q: (B,H,Sq,Dk); k: (B,KVH,Sk,Dk); v: (B,KVH,Sk,Dv) -> (B,H,Sq,Dv)
+    in q's dtype (float32 or bfloat16), query head h reading kv head
+    h // (H // KVH). The default `sm_scale` is 1/sqrt(Dk). Where grad
+    mode is on and an operand requires grad, the result carries a
+    `grad_fn` (`_Attention`) on either device; otherwise the call makes
+    no autograd record."""
+    _check(q, k, v)
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    kw = dict(causal=causal, window=window, sm_scale=sm_scale, cap=cap)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _Attention.apply(q, k, v, kw)
+    return _forward(q, k, v, kw)
 
 
 reference = ref.reference

@@ -6,6 +6,7 @@ CUDA tensor each is one launch of the hand-written row-copy kernel
 (`csrc/wr_rows.cu`: the `ingest_pages` entry point, and the
 `gather_rows` entry point with a page as the row); on a CPU tensor it
 is the plain version in `ref.py`; any other device raises.
+Both launch through `kernels.wr_scatter.ops.launch_rows`.
 `_build.LAUNCHES` counts the launches made on the card (an empty call
 launches nothing). Neither counts on the registry: the reference's T2
 path has no counter.
@@ -23,19 +24,13 @@ Differences from the reference's `kernels/kv_ingest`, on purpose:
 """
 from __future__ import annotations
 
-import ctypes
 import math
 
 import torch
 
 from repro_torch.core.offload_engine import dedupe_last_wins
-from repro_torch.kernels import _build
 from repro_torch.kernels.kv_ingest import ref
-from repro_torch.kernels.wr_scatter.ops import _offsets
-
-_P, _I64 = ctypes.c_void_p, ctypes.c_int64
-_SIG = {"ingest_pages": [_P, _P, _P, _I64, _I64, _P],
-        "gather_rows": [_P, _P, _P, _I64, _I64, _P]}
+from repro_torch.kernels.wr_scatter.ops import _offsets, launch_rows
 
 
 def _check_pages(pages):
@@ -71,12 +66,7 @@ def kv_ingest(pages: torch.Tensor, payload: torch.Tensor,
     n, page_bytes = ids.size, math.prod(pages.shape[1:]) * pages.element_size()
     if n == 0 or page_bytes == 0:
         return pages
-    lib = _build.load("wr_rows", _SIG)
-    rc = lib.ingest_pages(pages.data_ptr(), payload.data_ptr(),
-                          ids_t.data_ptr(), n, page_bytes,
-                          _build.stream_ptr(pages.device))
-    _build.check(lib, rc, "ingest_pages")
-    _build.count("ingest_pages")
+    launch_rows("ingest_pages", pages, payload, ids_t, n, page_bytes)
     return pages
 
 
@@ -92,10 +82,5 @@ def gather_pages(pages: torch.Tensor, page_ids) -> torch.Tensor:
     page_bytes = math.prod(pages.shape[1:]) * pages.element_size()
     if ids.size == 0 or page_bytes == 0:
         return out
-    lib = _build.load("wr_rows", _SIG)
-    rc = lib.gather_rows(out.data_ptr(), pages.data_ptr(), ids_t.data_ptr(),
-                         ids.size, page_bytes,
-                         _build.stream_ptr(pages.device))
-    _build.check(lib, rc, "gather_rows")
-    _build.count("gather_rows")
+    launch_rows("gather_rows", out, pages, ids_t, ids.size, page_bytes)
     return out

@@ -6,9 +6,9 @@ index of each drained descriptor and the payload slot buffer, it
 gathers each descriptor's payload slot into a dense batch in
 descriptor order. On a CUDA tensor it is one launch of the
 hand-written row-copy kernel (`csrc/wr_rows.cu`, entry
-`ring_pipe_consume`, counted apart from the datapath's gathers); on a
-CPU tensor it is the plain version in `ref.py`; any other device
-raises.
+`ring_pipe_consume`, counted apart from the datapath's gathers, through
+`kernels.wr_scatter.ops.launch_rows`); on a CPU tensor it is the plain
+version in `ref.py`; any other device raises.
 
 Difference from the reference's `kernels/ring_pipe`, on purpose: a slot
 index outside ``[0, n_slots)`` raises IndexError before any launch
@@ -18,16 +18,10 @@ gather.
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
-from repro_torch.kernels import _build
 from repro_torch.kernels.ring_pipe import ref
-from repro_torch.kernels.wr_scatter.ops import _offsets
-
-_P, _I64 = ctypes.c_void_p, ctypes.c_int64
-_SIG = {"ring_pipe_consume": [_P, _P, _P, _I64, _I64, _P]}
+from repro_torch.kernels.wr_scatter.ops import _offsets, launch_rows
 
 
 def ring_consume(slots: torch.Tensor, src_idx) -> torch.Tensor:
@@ -49,10 +43,5 @@ def ring_consume(slots: torch.Tensor, src_idx) -> torch.Tensor:
     slot_bytes = W * slots.element_size()
     if n == 0 or slot_bytes == 0:
         return out
-    lib = _build.load("wr_rows", _SIG)
-    rc = lib.ring_pipe_consume(out.data_ptr(), slots.data_ptr(),
-                               idx_t.data_ptr(), n, slot_bytes,
-                               _build.stream_ptr(slots.device))
-    _build.check(lib, rc, "ring_pipe_consume")
-    _build.count("ring_pipe_consume")
+    launch_rows("ring_pipe_consume", out, slots, idx_t, n, slot_bytes)
     return out

@@ -2,9 +2,14 @@
 
 A coalesced flush lands its WRITE run through `scatter_records` and its
 READ run through `gather_records`. On a CUDA tensor each is one launch
-of a hand-written kernel (`csrc/wr_rows.cu`, one row-copy kernel with
-a scatter and a gather entry point); on a CPU tensor it is the plain
-version in `ref.py`; any other device raises. Every call is counted in
+of a hand-written kernel (`csrc/wr_rows.cu`); on a CPU tensor it is the
+plain version in `ref.py`; any other device raises.
+
+`csrc/wr_rows.cu` holds every row copy of the port (this module's, the
+T2 page ingest and gather of `kernels.kv_ingest`, the T3 pipe's
+`kernels.ring_pipe`): one word-copy kernel under four entry points, and
+`launch_rows` here is the one launch path of all three wrappers. Every
+call is counted in
 the `fused/launches` registry counter, exactly where the reference
 counts it (the launches-per-flush contract); `_build.LAUNCHES` counts
 only the kernels really launched on the card (an empty run launches
@@ -44,8 +49,22 @@ from repro_torch.kernels.wr_scatter import ref
 from repro_torch.obs import metrics
 
 _P, _I64 = ctypes.c_void_p, ctypes.c_int64
-_SIG = {"scatter_rows": [_P, _P, _P, _I64, _I64, _P],
-        "gather_rows": [_P, _P, _P, _I64, _I64, _P]}
+_ROW = [_P, _P, _P, _I64, _I64, _P]     # dst, src, offsets, rows, bytes, stream
+_SIG = {"scatter_rows": _ROW, "gather_rows": _ROW, "ingest_pages": _ROW,
+        "ring_pipe_consume": _ROW}
+
+
+def launch_rows(entry: str, dst: torch.Tensor, src: torch.Tensor,
+                offs: torch.Tensor, n: int, row_bytes: int):
+    """ONE launch on the card of the row-copy entry `entry` (`offs`
+    addresses `dst`'s rows for a scatter, `src`'s for a gather), counted
+    under its name. No fallback: a failed launch raises."""
+    lib = _build.load("wr_rows", _SIG)
+    rc = getattr(lib, entry)(dst.data_ptr(), src.data_ptr(),
+                             offs.data_ptr(), n, row_bytes,
+                             _build.stream_ptr(dst.device))
+    _build.check(lib, rc, entry)
+    _build.count(entry)
 
 
 def _count():
@@ -98,13 +117,8 @@ def scatter_records(region, offs, vals):
         return ref.scatter(region, offs_t, vals)
     if m == 0 or row == 0:
         return region
-    lib = _build.load("wr_rows", _SIG)
-    rc = lib.scatter_rows(region.data_ptr(), vals.data_ptr(),
-                          offs_t.data_ptr(), m,
-                          row * region.element_size(),
-                          _build.stream_ptr(region.device))
-    _build.check(lib, rc, "scatter_rows")
-    _build.count("scatter_rows")
+    launch_rows("scatter_rows", region, vals, offs_t, m,
+                row * region.element_size())
     return region
 
 
@@ -139,10 +153,6 @@ def gather_records(region, offs, length: int) -> torch.Tensor:
     out = torch.empty((n, length), dtype=region.dtype, device=region.device)
     if n == 0 or length == 0:
         return out
-    lib = _build.load("wr_rows", _SIG)
-    rc = lib.gather_rows(out.data_ptr(), region.data_ptr(), offs_t.data_ptr(),
-                         n, length * region.element_size(),
-                         _build.stream_ptr(region.device))
-    _build.check(lib, rc, "gather_rows")
-    _build.count("gather_rows")
+    launch_rows("gather_rows", out, region, offs_t, n,
+                length * region.element_size())
     return out

@@ -13,11 +13,12 @@ moves them into a decode pod's reserved pages as one-sided RDMA_WRITEs
 
 The port of the reference's `repro.serve.pd_disagg`. Tensors live on
 the parameters' device: `device=None` takes the fabric's device, or the
-package default when there is no fabric. `PDServer` drops three
-options of the reference that no caller of the port sets: `use_kernel`
-(the device picks the kernel route), `staged` (the staged baseline
-stays `KVTransferEngine.transfer_staged`) and `vectorized` (the
-transfer leg's scalar oracle is tested on `KVTransferEngine` itself).
+package default when there is no fabric. `PDServer` takes the
+reference's options with its defaults: `vectorized` (the transfer leg's
+batch-wise dispatch, its scalar oracle when False), `staged` (the
+replicate-then-move baseline, `KVTransferEngine.transfer_staged`) and
+`use_kernel`, which is accepted and ignored: the device picks the
+kernel route, as in `rx_engine.ingest` and `PagedKVPool.ingest`.
 """
 from __future__ import annotations
 
@@ -41,13 +42,16 @@ def _tokens(a, device) -> torch.Tensor:
 class PDServer:
     def __init__(self, model, params, *, max_seq: int = 128,
                  page_tokens: int = 16, quantize_bits: int = 0,
-                 fabric=None, device=None):
+                 vectorized: bool = True, fabric=None, device=None):
         self.model = model
         self.params = params
         self.cfg = model.cfg
         self.max_seq = max_seq
         self.page_tokens = page_tokens
         self.plan = TransferPlan(quantize_bits=quantize_bits)
+        # batch-wise verbs dispatch on the transfer leg (scalar oracle
+        # when False); threaded into the KVTransferEngine per transfer
+        self.vectorized = vectorized
         # optional shared verbs fabric: when given, every transfer's
         # KVTransferEngine rides it (and its fabric-scope recv pool)
         # instead of spanning a private 2-pod grid per transfer
@@ -64,18 +68,20 @@ class PDServer:
         return first, caches, prompts.shape[1]
 
     # -- the wire ---------------------------------------------------------
-    def transfer(self, caches, batch: int, seq_len: int):
+    def transfer(self, caches, batch: int, seq_len: int, staged=False):
         """One verbs SEND per transfer: prefill is the client QP, decode
         the server; headers ride the CQ ring, payload the mesh wire.
         Delegates to KVTransferEngine — decode-side SRQ pool + CQ-credit
         flow control come with it, and the transfer path lives in ONE
-        place."""
+        place. `staged` sends through the replicate-then-move baseline."""
         fabric = self.fabric if self.fabric is not None else verbs.Fabric(
-            pods=2, plan=self.plan, device=self.device)
+            pods=2, plan=self.plan, vectorized=self.vectorized,
+            device=self.device)
         eng = KVTransferEngine(self.model, batch, seq_len, self.plan,
-                               fabric=fabric)
+                               vectorized=self.vectorized, fabric=fabric)
         try:
-            data = eng.transfer(caches)
+            data = eng.transfer_staged(caches) if staged else \
+                eng.transfer(caches)
         finally:
             if self.fabric is not None:
                 # per-transfer engine on a LONG-LIVED shared fabric:
@@ -86,9 +92,13 @@ class PDServer:
 
     # -- decode pod (with paged ingest) ----------------------------------
     def ingest_and_decode(self, caches, first_tokens, prefill_len: int,
-                          n_steps: int = 8):
+                          n_steps: int = 8, use_kernel: bool = False):
         """Ingest transferred caches through the paged pool (T2), gather
-        back to the decode layout, then run greedy decode steps."""
+        back to the decode layout, then run greedy decode steps.
+        `use_kernel` is the reference's and is ignored: the device picks
+        the route (the kernel on the card, the plain version on the
+        CPU)."""
+        del use_kernel
         caches = pad_caches(caches, prefill_len, self.max_seq)
         caches = page_roundtrip(caches, self.max_seq, self.page_tokens)
         B = first_tokens.shape[0]
@@ -105,10 +115,13 @@ class PDServer:
         return np.stack(out, 1)
 
     # -- end to end -------------------------------------------------------
-    def serve(self, prompts: np.ndarray, n_steps: int = 8):
+    def serve(self, prompts: np.ndarray, n_steps: int = 8, staged=False,
+              use_kernel: bool = False):
         first, caches, plen = self.prefill(prompts)
-        caches, stats = self.transfer(caches, prompts.shape[0], plen)
-        toks = self.ingest_and_decode(caches, first, plen, n_steps)
+        caches, stats = self.transfer(caches, prompts.shape[0], plen,
+                                      staged=staged)
+        toks = self.ingest_and_decode(caches, first, plen, n_steps,
+                                      use_kernel=use_kernel)
         return toks, stats
 
 

@@ -9,7 +9,9 @@ same tokens, the same `router0/`, `prefillpod<i>/`, `kvtransfer<i>/`,
 `serve<i>/` and `fabric0/` registry counters, the same descriptor-fetch
 DMAs and migrated pages, and a clean teardown — also across the seeded
 decode-pod kill. `PDServer.serve` with `quantize_bits` 0 and 8 against
-`repro.serve.pd_disagg.PDServer`; the migration contract; the `--pd`
+`repro.serve.pd_disagg.PDServer`, also with the reference's
+`vectorized`, `staged` and `use_kernel` options; the migration
+contract; the `--pd`
 CLI; and `chip_smoke.py`'s phase 8 at a toy size."""
 import sys
 from pathlib import Path
@@ -32,6 +34,7 @@ from repro_torch import device as tdevice
 from repro_torch import verbs as tverbs
 from repro_torch.configs.base import get_config, reduced
 from repro_torch.convert import params_from_numpy
+from repro_torch.core.kvtransfer import KVTransferEngine as TKV
 from repro_torch.launch import serve as tlaunch
 from repro_torch.models.registry import build_model
 from repro_torch.obs import metrics as tmetrics
@@ -241,6 +244,62 @@ def test_pdserver_serve_matches_reference(gemma, bits):
                       fabric=fabric).serve(prompts, n_steps=6)
     np.testing.assert_array_equal(st, tt)
     assert not fabric.qps and not fabric.routes and not fabric._listeners
+
+
+@pytest.mark.parametrize("staged", [False, True])
+@pytest.mark.parametrize("vectorized", [True, False])
+def test_pdserver_reference_options_match_reference(gemma, vectorized,
+                                                    staged, monkeypatch):
+    """`PDServer(vectorized=)` and `serve(staged=)`, the reference's
+    options with its defaults: tokens and transfer stats equal to the
+    reference's in each combination, the staged baseline taken exactly
+    when asked for, and the scalar oracle's fabric built when
+    `vectorized` is False."""
+    jm, jp, tm, tp = gemma
+    prompts = np.random.default_rng(3).integers(
+        0, jm.cfg.vocab_size, (2, 8)).astype(np.int32)
+    jt, js = JPDServer(jm, jp, max_seq=48, page_tokens=8,
+                       vectorized=vectorized).serve(prompts, n_steps=4,
+                                                    staged=staged)
+    calls, fabrics = [], []
+    real_staged = TKV.transfer_staged
+    real_init = TKV.__init__
+
+    def spy_staged(self, caches):
+        calls.append(self.fabric.vectorized)
+        return real_staged(self, caches)
+
+    def spy_init(self, *a, **kw):
+        real_init(self, *a, **kw)
+        fabrics.append(self.fabric.vectorized)
+    monkeypatch.setattr(TKV, "transfer_staged", spy_staged)
+    monkeypatch.setattr(TKV, "__init__", spy_init)
+    tt, ts = TPDServer(tm, tp, max_seq=48, page_tokens=8,
+                       vectorized=vectorized).serve(prompts, n_steps=4,
+                                                    staged=staged)
+    np.testing.assert_array_equal(tt, np.asarray(jt))
+    assert (ts.n_leaves, ts.payload_bytes, ts.header_bytes) == \
+           (js.n_leaves, js.payload_bytes, js.header_bytes)
+    assert calls == ([vectorized] if staged else [])
+    assert fabrics == [vectorized]
+
+
+def test_pdserver_takes_the_reference_examples_call(gemma):
+    """`examples/serve_pd_disaggregated.py`'s call,
+    `serve(prompts, n_steps=8, use_kernel=True)`: accepted (the device
+    picks the route, so the flag changes nothing) and equal to the
+    reference's tokens and stats, and to the call without the flag."""
+    jm, jp, tm, tp = gemma
+    prompts = np.random.default_rng(4).integers(
+        0, jm.cfg.vocab_size, (4, 8)).astype(np.int32)
+    jt, js = JPDServer(jm, jp, max_seq=48, page_tokens=8).serve(
+        prompts, n_steps=8, use_kernel=True)
+    server = TPDServer(tm, tp, max_seq=48, page_tokens=8)
+    tt, ts = server.serve(prompts, n_steps=8, use_kernel=True)
+    np.testing.assert_array_equal(tt, np.asarray(jt))
+    assert (ts.n_leaves, ts.payload_bytes, ts.header_bytes) == \
+           (js.n_leaves, js.payload_bytes, js.header_bytes)
+    np.testing.assert_array_equal(server.serve(prompts, n_steps=8)[0], tt)
 
 
 @pytest.mark.parametrize("quantize", [False, True])

@@ -25,7 +25,7 @@ from repro_torch.serve.pd_disagg import PDServer
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
-    [ROOT / "chip_smoke.py"]
+    [ROOT / "chip_smoke.py"] + sorted((ROOT / "tools").rglob("*.py"))
 
 
 def _imports(path: Path) -> list[str]:
