@@ -5,9 +5,11 @@ cluster and Solar block storage on one CUDA card, and hold every kernel
 of those paths against its plain PyTorch version.
 
     python3 chip_smoke.py              # from the root of a checkout
+    python3 chip_smoke.py --rehearse   # on the CPU: the ring's call shapes
 
 It needs one CUDA card: without one it exits non-zero and reports
-nothing. The same main paths run on the CPU at a small size in
+nothing (`--rehearse` runs the ring's main paths on the CPU at toy
+widths and prints the device CQ ring's calls by shape class). The same main paths run on the CPU at a small size in
 `tests/test_torch_datapath.py::test_smoke_rig_matches_reference_and_oracle`,
 `tests/test_torch_kv.py` (transfer, page round trip, migration,
 failover), `tests/test_torch_serve.py::
@@ -26,7 +28,18 @@ Phases (any failure exits non-zero):
      and spread, and again under the earlier memset eviction; the
      scatter also into a 16 MiB region. flash_attention is timed after
      the read eviction, the memset, none, and the read eviction followed
-     by a flash call on other operands (primed), interleaved;
+     by a flash call on other operands (primed), interleaved. The device
+     CQ ring (csrc/desc_ring.cu) is held against its plain version over
+     three mixed laps and at its plan's edges (one CTA and 1024 CTAs, a
+     wrap inside one CTA, n and limit at 0 and at cap, either side of
+     the parameters-or-staging switch, an invalid slot in the first, a
+     middle and the last CTA), then timed with the first, one-block
+     design (tools/desc_ring) in the same rounds at depth 4096 and at the
+     shape classes the main paths launch most: kernel and wrapper of
+     each, the plain version, the host ring and an empty launch.
+     list_traverse is timed in the same rounds as its latency floors
+     (tools/latency: a bare chase of the same next words, an empty
+     launch);
   3. the datapath against its scalar oracle: two rigs built from the
      verbs entry points, seeded from one numpy generator with a 12 GiB
      block MR; 4096-WR WRITE/READ/SEND chains and a 64-WR mixed chain
@@ -61,7 +74,10 @@ Phases (any failure exits non-zero):
      device-resident, round trips of one descriptor and of drained
      batches of 4096 OP_KV_WRITE descriptors naming payload slots of
      4 KiB: one ring_pipe_consume launch per drained batch, payloads
-     equal to the slots in descriptor order, us per round trip;
+     equal to the slots in descriptor order, us per round trip; then
+     the reference's host-vs-device ring crossover (depths 64, 512,
+     4096 x publish_every 8, 64; host ring, device ring, and a device
+     ring on the one-block design, interleaved);
   8. the serving cluster at full gemma-2b width on one
      `Fabric(pods=4)` (prefill pods pod0/pod1, paged decode engines
      pod2/pod3, a Router, phase 6's parameters): (a) eight requests of
@@ -93,6 +109,7 @@ the -1 tail), all exact; and flash gradients at 1 x 512 and 1 x 2048
 (q, k, v requiring grad: a grad_fn, the kernel's forward, gradients
 bit-equal to autograd of the plain version, which is what the backward
 recomputes: a check of the wiring, not of a backward kernel).
+The ring's launches by shape class (n, limit) are printed per path.
 The last three lines are the card's `nvidia-smi` line, one JSON object
 with a row per kernel, and `{"ok": true, "device": {...}}`.
 """
@@ -271,8 +288,11 @@ class Timer:
     def rounds(self, fns: dict, rounds: int = 5, iters: int = 20,
                warmup: int = 3) -> dict:
         """Cold ms of each of `fns` (name -> fn, or -> (fn, how) for
-        another eviction than the read: "memset", "none" or a callable),
-        interleaved: `rounds` rounds of `iters`
+        another eviction than the read: "memset", "none" or a callable,
+        or -> (fn, how, "host") to time a call that returns to the host,
+        such as a wrapper that synchronises, on the host clock between
+        two synchronisations after its eviction), interleaved: `rounds`
+        rounds of `iters`
         turns, each turn one call of every fn, each call after its own
         eviction. A call's time moves by up to ~0.5 us with the call
         before it (what that call left behind), so each round takes its
@@ -280,9 +300,9 @@ class Timer:
         Per fn: `ms`, the median of the round medians, and their spread
         `lo`-`hi`."""
         torch = self.torch
-        calls = {k: v if isinstance(v, tuple) else (v, "read")
-                 for k, v in fns.items()}
-        for fn, _ in calls.values():
+        calls = {k: (v + ("events",))[:3] if isinstance(v, tuple)
+                 else (v, "read", "events") for k, v in fns.items()}
+        for fn, _, _ in calls.values():
             for _ in range(warmup):
                 fn()
         torch.cuda.synchronize()
@@ -293,8 +313,15 @@ class Timer:
             turn = order.sample(list(calls), len(calls))
             for _ in range(iters):
                 for k in turn:
-                    fn, how = calls[k]
+                    fn, how, clock = calls[k]
                     self.evict(how)
+                    if clock == "host":
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        fn()
+                        torch.cuda.synchronize()
+                        pairs[k].append((time.perf_counter() - t0) * 1e3)
+                        continue
                     a = torch.cuda.Event(enable_timing=True)
                     b = torch.cuda.Event(enable_timing=True)
                     a.record()
@@ -304,7 +331,8 @@ class Timer:
             torch.cuda.synchronize()
             for k, ps in pairs.items():
                 meds[k].append(statistics.median(
-                    a.elapsed_time(b) for a, b in ps))
+                    p if isinstance(p, float) else p[0].elapsed_time(p[1])
+                    for p in ps))
         return {k: dict(ms=statistics.median(m), lo=min(m), hi=max(m),
                         rounds=m) for k, m in meds.items()}
 
@@ -445,8 +473,6 @@ def row_scaling(torch, np, T, lib, region, L: int, rng) -> dict:
 
 def phase_kernels(torch, np, dev, S, rng, T) -> dict:
     from repro_torch.kernels import _build
-    from repro_torch.kernels.desc_ring import ops as ring_ops
-    from repro_torch.kernels.desc_ring import ref as ring_ref
     from repro_torch.kernels.wr_scatter import ops as wr_ops
     from repro_torch.kernels.wr_scatter import ref as wr_ref
 
@@ -590,8 +616,328 @@ def phase_kernels(torch, np, dev, S, rng, T) -> dict:
         " rows of 5/12/4092/14/64 B, misaligned bases; 1 row, 70000 rows "
         "of 16 B, 300 rows of 64 KiB): exact, one launch each")
 
-    # -- desc_ring at depth S.ring: produce / consume / produce_consume ------
-    cap, width = S.ring, 8
+    rows.update(phase_ring_kernels(torch, np, dev, S.ring, rng, T))
+    for r in rows.values():
+        log(f"phase 2: {r['name']:<26} {r['shape']:<36} kernel "
+            f"{r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  bound "
+            f"{r['bound_ms']:.4f} ms  library {r['library_ms']}")
+    return rows
+
+
+# -- phase 2, the device CQ ring ------------------------------------------------
+# The desc_ring calls phase 2 times (entry, n, limit): each entry at depth
+# 4096 with a full batch and limit, and the shape classes that launch most
+# on the main paths (`chip_smoke.py --rehearse`, PERF.md): produce
+# and consume of one descriptor (the T3 pipe), the cluster's and serving
+# path's fused polls of 8 and 4
+RING_SHAPES = (("ring_produce", 4096, 0), ("ring_produce", 1, 0),
+               ("ring_consume", 0, 4096), ("ring_consume", 0, 1),
+               ("ring_produce_consume", 4096, 4096),
+               ("ring_produce_consume", 8, 8),
+               ("ring_produce_consume", 4, 4))
+RING_DEFS = {"ring_produce": 24, "ring_consume": 35,
+             "ring_produce_consume": 48}
+# the probes outside the package that phases 2 and 7 time, built with the
+# package's sources
+TOOL_SOURCES = tuple(Path(__file__).resolve().parent / "tools" / p for p in
+                     ("desc_ring/ring_v1.cu", "latency/latency.cu"))
+
+
+def tool(name: str):
+    """`tools/<name>/probe.py` as a module: the designs and probes kept
+    outside the package."""
+    import importlib.util
+    path = Path(__file__).resolve().parent / "tools" / name / "probe.py"
+    spec = importlib.util.spec_from_file_location(f"_tool_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def ring_bytes(pl, n: int, limit: int) -> int:
+    """What a ring call must move: the batch read and written to the
+    slots with its flags; the scanned flags and slots read, the rows and
+    each CTA's k word written."""
+    return n * (64 + 64 + 1) + (limit * (1 + 64 + 64) + 8 * pl.grid
+                                if pl.consume else 0)
+
+
+def ring_rounds(torch, np, dev, cap: int, rng, T) -> dict:
+    """Both ring designs at RING_SHAPES on a `cap`-deep ring, in the same
+    rounds (`Timer.rounds`: 5 x 20 cold calls, interleaved): the
+    package's kernel alone and its wrapper (`ops`), the one-block kernel alone
+    and its wrapper (`tools/desc_ring/probe.py` `V1`), the plain version,
+    the host ring's produce + consume of max(n, limit) descriptors
+    (`Ring(device=False)`) and an empty launch (`tools/latency`); kernels
+    on CUDA events, the rest on the host clock. Each shape is first held
+    equal across the designs and the plain version."""
+    from repro_torch.core.notification import Ring
+    from repro_torch.kernels.desc_ring import ops
+    from repro_torch.kernels.desc_ring import ref
+    probe, lat = tool("desc_ring"), tool("latency")
+    v1, elib = probe.v1_lib(), lat.lib()
+    stream = torch.cuda.current_stream(dev)
+    sp = stream.cuda_stream
+    bd = ops.Boundary(cap, dev)
+    ks, kf = ops.alloc(cap, 8, dev)
+    vs, vf = ops.alloc(cap, 8, dev)
+    ps, pf = ops.alloc(cap, 8, dev)
+    full = rng.integers(-2**62, 2**62, (cap, 8), dtype=np.int64)
+    ops.produce(ks, kf, 0, full, via=bd)
+    probe.V1.produce(vs, vf, 0, full)
+    ref.produce(ps, pf, 0, torch.from_numpy(full).to(dev))
+
+    def plain(entry, b, limit):
+        if b is not None:
+            ref.produce(ps, pf, 0, torch.from_numpy(b).to(dev))
+        if entry != "ring_produce":
+            r, k = ref.consume(ps, pf, 0, limit)
+            return r[:k].cpu().numpy()
+        return None
+
+    out = {}
+    for entry, n, limit in RING_SHAPES:
+        b = full[:n] if entry != "ring_consume" else None
+        bt = torch.from_numpy(full[:max(n, 1)]).to(dev)
+        vout = torch.empty((limit + 1, 8), dtype=torch.int64, device=dev)
+        pl = ops.plan(cap, 0, 0, n, limit,
+                      produce=entry != "ring_consume",
+                      consume=entry != "ring_produce")
+        args_v1 = {
+            "ring_produce": (vs.data_ptr(), vf.data_ptr(), cap, 8,
+                             bt.data_ptr(), n, 0, sp),
+            "ring_consume": (vs.data_ptr(), vf.data_ptr(), cap, 8, 0, limit,
+                             vout.data_ptr(), sp),
+            "ring_produce_consume": (vs.data_ptr(), vf.data_ptr(), cap, 8,
+                                     bt.data_ptr(), n, 0, 0, limit,
+                                     vout.data_ptr(), sp)}[entry]
+        call = {"ring_produce": lambda o, s, f: o.produce(s, f, 0, b),
+                "ring_consume": lambda o, s, f: o.consume(s, f, 0, limit),
+                "ring_produce_consume": lambda o, s, f: o.produce_consume(
+                    s, f, 0, 0, b, limit)}[entry]
+        m = max(n, limit)
+        host = Ring(cap, device=False)      # a CQ's poll publishes its tail
+        fns = {
+            "kernel": lambda: bd.launch(entry, ks, kf, 0, 0, b, limit,
+                                        stream),
+            "wrapper": (lambda: call(ops, ks, kf), "read", "host"),
+            "v1_kernel": lambda: _build_check(v1, entry, args_v1),
+            "v1_wrapper": (lambda: call(probe.V1, vs, vf), "read", "host"),
+            "plain": (lambda: plain(entry, b, limit), "read", "host"),
+            "host_ring": (lambda: (host.produce(full[:m]),
+                                   host.consume(None),
+                                   host.force_publish()), "read", "host"),
+            "empty": lambda: _build_check(elib, "empty_launch", (sp,)),
+        }
+        got, want, old = (call(ops, ks, kf), plain(entry, b, limit),
+                          call(probe.V1, vs, vf))
+        T.sync()
+        check(entry == "ring_produce" or (np.array_equal(got, want)
+                                          and np.array_equal(old, want)),
+              f"{entry} n={n} limit={limit}: the designs disagree")
+        check(torch.equal(ks, ps) and torch.equal(kf, pf)
+              and torch.equal(vs, ps) and torch.equal(vf, pf),
+              f"{entry} n={n} limit={limit}: ring state differs")
+        t = T.rounds(fns)
+        key = f"{entry} n={n} limit={limit}"
+        out[key] = {k: dict(ms=v["ms"], lo=v["lo"], hi=v["hi"])
+                    for k, v in t.items()}
+        out[key]["bound_ms"] = bound_ms(ring_bytes(pl, n, limit))
+        out[key]["grid"] = pl.grid
+        out[key]["tier"] = pl.tier
+        # rounds in which the new design's median is under the one-block's
+        out[key]["new_ahead_rounds"] = {
+            what: sum(a < b for a, b in zip(t[what]["rounds"],
+                                            t[f"v1_{what}"]["rounds"]))
+            for what in ("kernel", "wrapper")}
+        log(f"phase 2: desc_ring {key} (grid {pl.grid}, "
+            f"{'params ' + str(pl.tier) if pl.tier else 'staged/none'}): "
+            + "  ".join(f"{k} {v['ms']:.4f} ({v['lo']:.4f}-{v['hi']:.4f})"
+                        for k, v in t.items())
+            + f"  bound {out[key]['bound_ms']:.5f} ms; new design ahead in "
+            f"{out[key]['new_ahead_rounds']} of 5 rounds")
+    return out
+
+
+def ring_classes(by_shape: dict) -> dict:
+    """The ring entries' launches by `ops.shape_class`, from a
+    `_build.BY_SHAPE`-like dict."""
+    return {e: dict(sorted(by_shape[e].items())) for e in RING_DEFS
+            if by_shape.get(e)}
+
+
+# the reference's crossover grid (benchmarks/bench_line_rate.py
+# XOVER_DEPTHS / XOVER_PUBLISH)
+XOVER_DEPTHS = (64, 512, 4096)
+XOVER_PUBLISH = (8, 64)
+
+
+def ring_crossover(torch, np, dev, T) -> dict:
+    """Phase 7's host-vs-device ring sweep, the reference's
+    (`bench_line_rate.py` `_ring_xover_rows`): `Ring.produce` of a full
+    batch then `consume(None)`, warm as there, on a host ring, a device
+    ring and a device ring on the one-block design (`tools/desc_ring/probe.py`
+    `use_v1`), interleaved in `Timer.rounds` on the host clock, at every
+    depth x publish_every. The device ring beats the host ring at a depth
+    when its round spread lies under the host's at both publish_every
+    values; `auto_depth` is the smallest such depth (None: none)."""
+    from repro_torch.core.notification import Ring
+    from repro_torch.obs import metrics
+    probe = tool("desc_ring")
+    real = metrics.get_registry()
+    metrics.set_registry(metrics.Registry())    # keep the paths' counters
+    out = {}
+    try:
+        for depth in XOVER_DEPTHS:
+            batch = np.arange(depth * 8, dtype=np.int64).reshape(depth, 8)
+            for pe in XOVER_PUBLISH:
+                rings = {
+                    "host": Ring(depth, publish_every=pe, device=False),
+                    "device": Ring(depth, publish_every=pe, device=True,
+                                   torch_device=dev),
+                    "v1": probe.use_v1(Ring(depth, publish_every=pe,
+                                            device=True, torch_device=dev))}
+                for k, r in rings.items():
+                    r.produce(batch)
+                    check(np.array_equal(r.consume(None), batch),
+                          f"{k} ring of depth {depth}: the cycle lost rows")
+
+                def cycle(r):
+                    r.produce(batch)
+                    r.consume(None)
+                t = T.rounds({k: (lambda r=r: cycle(r), "none", "host")
+                              for k, r in rings.items()})
+                out[f"{depth}d_{pe}pe"] = {
+                    k: dict(ms=v["ms"], lo=v["lo"], hi=v["hi"])
+                    for k, v in t.items()}
+                out[f"{depth}d_{pe}pe"]["device_ahead_rounds"] = sum(
+                    a < b for a, b in zip(t["device"]["rounds"],
+                                          t["host"]["rounds"]))
+                log(f"phase 7: ring crossover depth {depth} publish_every "
+                    f"{pe}: " + "  ".join(
+                        f"{k} {v['ms'] * 1e3:.1f} us ({v['lo'] * 1e3:.1f}-"
+                        f"{v['hi'] * 1e3:.1f})" for k, v in t.items())
+                    + " per produce + consume (host clock); device ahead in "
+                    f"{out[f'{depth}d_{pe}pe']['device_ahead_rounds']} of 5 "
+                    "rounds")
+    finally:
+        metrics.set_registry(real)
+    wins = [d for d in XOVER_DEPTHS
+            if all(out[f"{d}d_{pe}pe"]["device"]["hi"]
+                   < out[f"{d}d_{pe}pe"]["host"]["lo"]
+                   for pe in XOVER_PUBLISH)]
+    out["auto_depth"] = wins[0] if wins else None
+    log(f"phase 7: the device ring beats the host ring beyond the spread "
+        f"at depths {wins} (both publish_every); smallest: "
+        f"{out['auto_depth']}")
+    return out
+
+
+def _build_check(lib, fn: str, args):
+    from repro_torch.kernels import _build
+    _build.check(lib, getattr(lib, fn)(*args), fn)
+
+
+def ring_edges(torch, np, dev, rng) -> int:
+    """The ring's kernel against its plain version, to the bit (rows, k,
+    slots, flags), at the plan's edges: one CTA and the largest grid
+    (MAX_CTAS CTAs of 64 slots on a 65536-deep ring), a batch that wraps
+    across the lap boundary inside one CTA's range, n and limit at 0 and
+    at cap, a batch one descriptor either side of the parameters-or-
+    staging switch, and an invalid slot in the first, a middle and the
+    last CTA. Each call one launch. Returns the cases held."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.desc_ring import ops
+    from repro_torch.kernels.desc_ring import ref
+    cases = 0
+    P = ops.PARAM_MAX
+    for cap in (4096, 1000, 1 << 16):
+        ks, kf = ops.alloc(cap, 8, dev)
+        ps, pf = ops.alloc(cap, 8, dev)
+        bd = ops.Boundary(cap, dev)
+        head = tail = 0
+
+        def batch_of(n):
+            return rng.integers(-2**62, 2**62, (n, 8), dtype=np.int64)
+        # (entry, n, limit): head and tail move as the Ring would move them
+        plan_ = [("ring_produce_consume", 3, 3),         # one CTA
+                 ("ring_produce", cap - 5, 0),           # staged (big)
+                 ("ring_consume", 0, cap - 9),
+                 ("ring_produce_consume", 12, 40),       # wraps in one CTA
+                 ("ring_produce_consume", 0, 0),
+                 ("ring_produce", 0, 0),
+                 ("ring_consume", 0, 0),
+                 ("ring_consume", 0, cap),               # k < limit
+                 ("ring_produce_consume", min(P, cap // 2), cap),
+                 ("ring_produce_consume", min(P + 1, cap // 2), cap),
+                 ("ring_produce", min(P - 1, cap // 2), 0),
+                 ("ring_consume", 0, cap),
+                 ("ring_produce", min(P + 1, cap // 2), 0),
+                 ("ring_consume", 0, cap),
+                 ("ring_produce_consume", cap, cap)]     # largest grid
+        for entry, n, limit in plan_:
+            n = min(n, cap - (head - tail))
+            b = batch_of(n)
+            before = dict(_build.LAUNCHES)
+            if entry == "ring_produce":
+                got = np.zeros((0, 8), np.int64)
+                ops.produce(ks, kf, head, b, via=bd)
+            elif entry == "ring_consume":
+                got = ops.consume(ks, kf, tail, limit, via=bd)
+            else:
+                got = ops.produce_consume(ks, kf, head, tail, b, limit,
+                                          via=bd)
+            check(sum(_build.LAUNCHES.values()) - sum(before.values()) == 1
+                  and _build.LAUNCHES.get(entry, 0)
+                  - before.get(entry, 0) == 1,
+                  f"ring edge {entry} n={n} limit={limit}: not one launch")
+            if entry != "ring_consume":
+                ref.produce(ps, pf, head % (2 * cap),
+                            torch.from_numpy(b).to(dev))
+                head += n
+            want = np.zeros((0, 8), np.int64)
+            if entry != "ring_produce":
+                r, k = ref.consume(ps, pf, tail % (2 * cap), limit)
+                want = r[:k].cpu().numpy()
+            torch.cuda.synchronize()
+            check(np.array_equal(got, want) and torch.equal(ks, ps)
+                  and torch.equal(kf, pf),
+                  f"ring edge cap {cap} {entry} n={n} limit={limit} head "
+                  f"{head} tail {tail}: != plain")
+            tail += got.shape[0]
+            cases += 1
+        # an invalid slot in the first, a middle and the last CTA of a
+        # full scan: k stops there, whichever CTA holds it
+        ops.produce(ks, kf, head, batch_of(cap - (head - tail)), via=bd)
+        pl = ops.plan(cap, 0, tail, 0, cap, produce=False, consume=True)
+        for c in (0, pl.grid // 2, pl.grid - 1):
+            i = min(c * pl.per + pl.per // 2, cap - 1)
+            s = (tail + i) % cap
+            kf2 = kf.clone()
+            kf2[s] ^= 1
+            got = ops.consume(ks, kf2, tail, cap, via=bd)
+            r, k = ref.consume(ks, kf2, tail % (2 * cap), cap)
+            check(k == i and np.array_equal(got, r[:k].cpu().numpy()),
+                  f"ring edge cap {cap}: invalid slot in CTA {c} of "
+                  f"{pl.grid}: k {got.shape[0]}, plain {k}, expected {i}")
+            cases += 1
+        del ks, kf, ps, pf, bd
+    log(f"phase 2: desc_ring edges ({cases} cases at depths 4096, 1000 and "
+        f"65536: one CTA, {ops.MAX_CTAS} CTAs, a wrap inside one CTA, n and "
+        f"limit at 0 and at cap, batches of {P - 1}/{P}/{P + 1} either side "
+        "of the parameters-or-staging switch, an invalid slot in the "
+        "first, a middle and the last CTA): exact, one launch each")
+    return cases
+
+
+def phase_ring_kernels(torch, np, dev, cap: int, rng, T) -> dict:
+    """desc_ring's three entries on the card: three laps of mixed
+    traffic at depth `cap` against the plain version, to the bit (rows,
+    k, slots, flags); the plan's edge cases (`ring_edges`); and both
+    designs timed at RING_SHAPES (`ring_rounds`)."""
+    from repro_torch.kernels.desc_ring import ops as ring_ops
+    from repro_torch.kernels.desc_ring import ref as ring_ref
+    width = 8
     ks, kf = ring_ops.alloc(cap, width, dev)
     ps, pf = ring_ops.alloc(cap, width, dev)
 
@@ -639,53 +985,29 @@ def phase_kernels(torch, np, dev, S, rng, T) -> dict:
         tail += got.shape[0]
     check(head > 2 * cap, "ring test did not cross two laps")
     log(f"phase 2: desc_ring at depth {cap}, {head // cap} laps: exact")
-    full_batch = batch_of(cap)
-    out = torch.empty((cap + 1, width), dtype=torch.int64, device=dev)
-    bt = torch.from_numpy(full_batch).to(dev)
-    moves = {"ring_produce": 2 * cap * 64 + cap,
-             "ring_consume": cap * 65 + (cap + 1) * 64,
-             "ring_produce_consume": 2 * cap * 64 + cap + cap * 65
-             + (cap + 1) * 64}
-    rlib = _build.load("desc_ring", ring_ops._SIG)
-    args = {
-        "ring_produce": (ks.data_ptr(), kf.data_ptr(), cap, width,
-                         bt.data_ptr(), cap, 0, stream),
-        "ring_consume": (ks.data_ptr(), kf.data_ptr(), cap, width, 0,
-                         cap, out.data_ptr(), stream),
-        "ring_produce_consume": (ks.data_ptr(), kf.data_ptr(), cap,
-                                 width, bt.data_ptr(), cap, 0, 0, cap,
-                                 out.data_ptr(), stream)}
-
-    def raw(fn):
-        return lambda: _build.check(rlib, getattr(rlib, fn)(*args[fn]), fn)
-    wrappers = {
-        "ring_produce": lambda: ring_ops.produce(ks, kf, 0, full_batch),
-        "ring_consume": lambda: ring_ops.consume(ks, kf, 0, cap),
-        "ring_produce_consume": lambda: ring_ops.produce_consume(
-            ks, kf, 0, 0, full_batch, cap)}
-    plains = {
-        "ring_produce": lambda: plain_pc(0, 0, full_batch, cap,
-                                         consume=False),
-        "ring_consume": lambda: plain_pc(0, 0, full_batch, cap,
-                                         produce=False),
-        "ring_produce_consume": lambda: plain_pc(0, 0, full_batch, cap)}
-    defs = {"ring_produce": 24, "ring_consume": 35,
-            "ring_produce_consume": 48}
-    for fn in ("ring_produce", "ring_consume", "ring_produce_consume"):
+    del ks, kf, ps, pf
+    ring_edges(torch, np, dev, rng)
+    t = ring_rounds(torch, np, dev, cap, rng, T)
+    rows = {}
+    for fn, n, limit in RING_SHAPES:
+        if n != cap and limit != cap:
+            continue
+        main = t[f"{fn} n={n} limit={limit}"]
         rows[fn] = dict(
             name=f"desc_ring.{fn.removeprefix('ring_')}", route="cuda",
             source="src/repro_torch/csrc/desc_ring.cu",
-            replaces=f"src/repro/kernels/desc_ring/desc_ring.py:{defs[fn]}",
+            replaces=f"src/repro/kernels/desc_ring/desc_ring.py:"
+                     f"{RING_DEFS[fn]}",
             max_abs_err=float(errs[fn]),
-            ms=T.ms(raw(fn)),
-            wrapper_ms=T.ms(wrappers[fn]),
-            plain_ms=T.ms(plains[fn]),
-            bound_ms=bound_ms(moves[fn]), bound_by="bytes",
-            library_ms=None, entry=fn, shape=f"depth {cap} x 64 B")
-    for r in rows.values():
-        log(f"phase 2: {r['name']:<26} {r['shape']:<36} kernel "
-            f"{r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  bound "
-            f"{r['bound_ms']:.4f} ms  library {r['library_ms']}")
+            ms=main["kernel"]["ms"], wrapper_ms=main["wrapper"]["ms"],
+            plain_ms=main["plain"]["ms"], bound_ms=main["bound_ms"],
+            bound_by="bytes", library_ms=None,
+            v1_ms=main["v1_kernel"]["ms"],
+            v1_wrapper_ms=main["v1_wrapper"]["ms"],
+            empty_ms=main["empty"]["ms"],
+            host_ring_ms=main["host_ring"]["ms"],
+            by_shape={k: v for k, v in t.items() if k.startswith(fn + " ")},
+            entry=fn, shape=f"depth {cap} x 64 B")
     return rows
 
 
@@ -814,7 +1136,8 @@ def phase_datapath(torch, np, dev, S, rng, T):
     local = rng.random((S.n, S.rec), dtype=np.float32)
     offs = rng.choice(S.blocks, size=S.n, replace=False)
     hi = offs >= (1 << 31) // S.rec
-    check(hi.any(), "no WRITE lands past element 2^31")
+    check(hi.any() or dev.type == "cpu",       # the rehearsal's toy MR
+          "no WRITE lands past element 2^31")
     D = dict(offs=offs,
              payload=rng.random((S.n, S.rec), dtype=np.float32),
              small=rng.integers(-2**31, 2**31 - 1, (S.n, 8),
@@ -889,6 +1212,7 @@ def phase_datapath(torch, np, dev, S, rng, T):
                              for i in range(S.mixed)),
           f"{access_errs} ACCESS_ERR completions in the mixed chain")
     main_launches = dict(_build.LAUNCHES)
+    ring_cls = ring_classes(_build.BY_SHAPE)
     for name in ("blocks", "local"):
         check(torch.equal(vec.pd.mr_array(vec.mrs[name]),
                           orc.pd.mr_array(orc.mrs[name])),
@@ -899,13 +1223,13 @@ def phase_datapath(torch, np, dev, S, rng, T):
           f"launches per flush {lpf}")
     for fn in ("scatter_rows", "gather_rows", "ring_produce",
                "ring_consume", "ring_produce_consume"):
-        check(main_launches.get(fn, 0) > 0,
+        check(main_launches.get(fn, 0) > 0 or dev.type == "cpu",
               f"{fn} never launched on the main path")
     log(f"phase 3: MR contents equal; launches per flush {lpf}; main-path "
         f"kernel launches {main_launches}")
     del orc
     free_device_memory(torch)
-    return vec, D, lpf, main_launches
+    return vec, D, lpf, main_launches, ring_cls
 
 
 # -- phase 4 ----------------------------------------------------------------------
@@ -1221,6 +1545,7 @@ def kv_rig(torch, np, dev, K, T, model, caches, perm, vectorized: bool,
         e3.close()
         check(not f3.qps and not f3._listeners, "close() left registrations")
         out["launches"] = dict(_build.LAUNCHES)
+        out["ring_classes"] = ring_classes(_build.BY_SHAPE)
     finally:
         V.CompletionQueue.poll = orig_poll
     cnt: dict = {}
@@ -1362,7 +1687,8 @@ def phase_kv(torch, np, dev, K, rng, T, kernel_ms: dict) -> dict:
     peak = torch.cuda.max_memory_allocated() / 2**30
     log(f"phase 5: peak device memory {peak:.2f} GiB ({held:.2f} GiB "
         "held when it began)")
-    return dict(launches=vec["launches"], timing=tm, peak_gib=peak,
+    return dict(launches=vec["launches"], ring_classes=vec["ring_classes"],
+                timing=tm, peak_gib=peak,
                 counters=vec["counters"], completions=len(vec["polled"]))
 
 
@@ -1864,6 +2190,7 @@ def phase_serve(torch, np, dev, Z, rng, T, params=None) -> dict:
         check(len(steps) < 100 * len(prompts) * Z.new, "the engine stalls")
     run_s = time.perf_counter() - t_run
     launches = dict(_build.LAUNCHES)
+    ring_cls = ring_classes(_build.BY_SHAPE)
     flash_by_shape = dict(_build.BY_SHAPE.get("flash_attention", {}))
     results = dict(eng._finished)
 
@@ -1980,7 +2307,7 @@ def phase_serve(torch, np, dev, Z, rng, T, params=None) -> dict:
         f"step {timing.get('decode_profile')}")
     eng.close()
     return dict(launches=launches, flash_by_shape=flash_by_shape,
-                timing=timing, peak_gib=peak,
+                ring_classes=ring_cls, timing=timing, peak_gib=peak,
                 logit_rel_err=worst, max_dlogit=max_d,
                 token_agreement=agree / n_tok, gated_tokens=gated,
                 tokens=[results[r] for r in rids], rel_by_step=rel_by_step,
@@ -2192,14 +2519,43 @@ def phase_pipe_kernels(torch, np, dev, P, Q, rng, T) -> dict:
     # this run's data: max_hops records' key and next words, the answer's
     # value words read and written, and the three result words
     walk_bytes = Q.max_hops * 8 + 2 * Q.value * 4 + 24
+    # on the card, the walk in the same rounds as its latency floors
+    # (tools/latency): a bare chase of the same records' next words from
+    # the same head for as many hops, and an empty launch
+    tw = {}
+    if cuda:
+        llib = tool("latency").lib()
+        hop = torch.empty((2,), dtype=torch.int64, device=dev)
+
+        def chase():
+            _build_check(llib, "chase_next", (
+                recs.data_ptr(), R, miss_head, Q.max_hops, hop.data_ptr(),
+                stream))
+        chase()
+        k_walk()
+        T.sync()
+        check(hop.tolist() == [int(order[Q.max_hops]), Q.max_hops]
+              == [int(meta[0]), int(meta[1])],
+              f"the chase {hop.tolist()} and the walk {meta.tolist()} "
+              "stop apart")
+        tw = {k: v["ms"] for k, v in T.rounds({
+            "kernel": k_walk, "memset": (k_walk, "memset"), "chase": chase,
+            "empty": lambda: _build_check(llib, "empty_launch",
+                                          (stream,))}).items()}
+        log(f"phase 2: list_traverse {Q.max_hops}-hop miss "
+            f"{tw['kernel']:.4f} ms (memset {tw['memset']:.4f}); its "
+            f"latency bound, a bare chase of the next words "
+            f"{tw['chase']:.4f} ms; empty launch {tw['empty']:.4f} ms: "
+            f"{tw['chase'] / tw['kernel']:.0%} of the bound "
+            f"({'at' if tw['chase'] >= tw['kernel'] / 2 else 'below'} half)")
     rows["list_walk"] = dict(
         name="list_walk.traverse", route="cuda",
         source="src/repro_torch/csrc/list_walk.cu",
         replaces="src/repro/core/offload_engine.py:302",
         max_abs_err=0.0,
-        ms=T.ms(k_walk, cold=True, median=True) if cuda else None,
-        memset_ms=T.ms(k_walk, cold="memset", median=True) if cuda
-        else None,
+        ms=tw.get("kernel"), memset_ms=tw.get("memset"),
+        latency_bound_ms=tw.get("chase"), empty_ms=tw.get("empty"),
+        latency_bound_by="a bare chase of the same next words",
         wrapper_ms=T.ms(lambda: lw_ops.list_traverse(
             recs, miss_key, miss_head, Q.max_hops), cold=True, median=True),
         plain_ms=T.ms(lambda: lw_ref.walk(recs, miss_key, miss_head,
@@ -2275,10 +2631,14 @@ def phase_t3(torch, np, dev, P, rng, T) -> dict:
             f"payloads {out[kind]['batch_us']:.1f} us (median of {P.reps}); "
             f"ring DMAs: {ring.dma_writes} writes, {ring.dma_reads} reads")
     launches = dict(_build.LAUNCHES)
+    ring_cls = ring_classes(_build.BY_SHAPE)
     if cuda:
         check(launches.get("ring_pipe_consume", 0) == 2 * (2 + 2 * P.reps),
               f"t3 pipe launches {launches}")
-    return dict(launches=launches, timing=out, payload=want)
+    # the host-vs-device crossover, after the path's own launches are read
+    xover = ring_crossover(torch, np, dev, T) if cuda else None
+    return dict(launches=launches, ring_classes=ring_cls, timing=out,
+                payload=want, xover=xover)
 
 
 # -- phase 8 ----------------------------------------------------------------------
@@ -2693,7 +3053,7 @@ def phase_cluster(torch, np, dev, C, rng, T, params=None) -> dict:
     log(f"phase 8: kernel launches {launches}; flash launches by B x S "
         f"{flash_by_shape}; peak device memory {peak} GiB")
     return dict(launches=launches, flash_by_shape=flash_by_shape,
-                peak_gib=peak,
+                ring_classes=ring_classes(shapes), peak_gib=peak,
                 tokens_a=got_a, tokens_b=got_b, oracle=want,
                 diffs=dict(a=diffs_a, b=diffs_b),
                 worst_rel=dict(a=worst_a, b=worst_b),
@@ -2826,13 +3186,98 @@ def phase_storage(torch, np, dev, Q, rng, T) -> dict:
     peak = torch.cuda.max_memory_allocated() / 2**30 if cuda else None
     log(f"phase 9: kernel launches {launches}; peak device memory {peak} "
         "GiB")
-    return dict(launches=launches, reads=reads, walk_us=walk_us,
+    return dict(launches=launches, ring_classes=ring_classes(shapes),
+                reads=reads, walk_us=walk_us,
                 walks=walks, build_s=build_s, peak_gib=peak)
+
+
+class _Clock:
+    """The rehearsal's stand-in for `Timer`: nothing to time on the CPU."""
+
+    def sync(self):
+        pass
+
+    def wall(self, fn):
+        fn()
+        return 0.0
+
+    def span(self, fn, spans):
+        return fn()
+
+    def spans_ms(self, spans):
+        return 0.0
+
+
+def rehearse() -> int:
+    """`python3 chip_smoke.py --rehearse`: on the CPU, the main paths
+    that reach the device CQ ring (datapath, serve, T3 pipe, cluster) at
+    the card's ring depths, chains and request mixes, with the record
+    widths and the model cut to toy size, and the desc_ring calls each
+    makes by `ops.shape_class`. The wrappers take their plain versions
+    here, so nothing launches: the calls are recorded around them. The
+    KV leg and storage make no ring call on the card. Prints one JSON
+    object: path -> entry -> class -> calls."""
+    import numpy as np
+    import torch
+    from repro_torch import device as tdevice
+    from repro_torch.kernels.desc_ring import ops as ring_ops
+
+    dev = torch.device("cpu")
+    tdevice.set_default(dev)
+    calls: dict = {}
+    path = {"name": None}
+    real = {f: getattr(ring_ops, f)
+            for f in ("produce", "consume", "produce_consume")}
+
+    def recorded(entry, fn, n_of, limit_of):
+        def call(slots, flags, *a, **kw):
+            cap = slots.shape[0]
+            cls = ring_ops.shape_class(
+                n_of(a), min(max(0, limit_of(a)), cap))
+            by = calls.setdefault(path["name"], {}).setdefault(entry, {})
+            by[cls] = by.get(cls, 0) + 1
+            return fn(slots, flags, *a, **kw)
+        return call
+    ring_ops.produce = recorded("ring_produce", real["produce"],
+                                lambda a: len(a[1]), lambda a: 0)
+    ring_ops.consume = recorded("ring_consume", real["consume"],
+                                lambda a: 0, lambda a: a[1])
+    ring_ops.produce_consume = recorded(
+        "ring_produce_consume", real["produce_consume"],
+        lambda a: len(a[2]), lambda a: a[3])
+    rng = np.random.default_rng(0)
+    T = _Clock()
+    try:
+        path["name"] = "datapath"
+        phase_datapath(torch, np, dev, Sizes(
+            blocks=2 * FULL.n, rec=8, n=FULL.n, ring=FULL.ring,
+            mixed=FULL.mixed, reps=1), rng, T)
+        path["name"] = "serve"
+        # the card's six requests on four slots at the CPU test's
+        # prompts and 6 new tokens (the engine's ring depth is its own,
+        # 64, whatever the prompt lengths; longer float32 runs drift past
+        # the CPU logit tolerance): fewer steps, the same classes
+        phase_serve(torch, np, dev, ServeSizes(**dict(
+            SERVE.__dict__, reduce=True, max_seq=64, page=8,
+            prompts=(3, 5, 9, 17, 30, 40), new=6)), rng, T)
+        path["name"] = "t3_pipe"
+        phase_t3(torch, np, dev, PipeSizes(slots=PIPE.slots, width=16,
+                                          reps=PIPE.reps), rng, T)
+        path["name"] = "cluster"
+        phase_cluster(torch, np, dev, ClusterSizes(**dict(
+            CLUSTER.__dict__, reduce=True)), rng, T)
+    finally:
+        for f, fn in real.items():
+            setattr(ring_ops, f, fn)
+    log(json.dumps(calls, sort_keys=True))
+    return 0
 
 
 def main() -> int:
     import numpy as np
     import torch
+    if sys.argv[1:] == ["--rehearse"]:
+        return rehearse()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this "
               "script needs a CUDA card", file=sys.stderr)
@@ -2857,9 +3302,9 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
-    _build.build()
-    log(f"phase 1: built {len(_build.SOURCES)} kernel sources in "
-        f"{time.perf_counter() - t0:.1f} s")
+    _build.build(_build.SOURCES + TOOL_SOURCES)
+    log(f"phase 1: built {len(_build.SOURCES)} kernel sources and "
+        f"{len(TOOL_SOURCES)} probes in {time.perf_counter() - t0:.1f} s")
     for name, text in _build.LOGS.items():
         for line in dict.fromkeys(text.splitlines()):     # one per kind
             if "registers" in line or "spill" in line:
@@ -2870,7 +3315,8 @@ def main() -> int:
     rows.update(phase_flash_kernels(torch, np, dev, SERVE, rng, T))
     rows.update(phase_pipe_kernels(torch, np, dev, PIPE, STORE, rng, T))
     free_device_memory(torch)
-    vec, D, lpf, main_launches = phase_datapath(torch, np, dev, S, rng, T)
+    vec, D, lpf, main_launches, ring_cls = phase_datapath(torch, np, dev, S,
+                                                          rng, T)
     timing = phase_timing(torch, np, dev, S, T, vec, D)
     del vec, D                  # the 12 GiB block MRs, before phase 5
     free_device_memory(torch)
@@ -2920,6 +3366,22 @@ def main() -> int:
                                                           - t["bound_ms"])
     flash["excess_ms_by_shape"] = excess
     check(not untimed, f"flash shapes launched but not timed: {untimed}")
+    # the ring's launches by shape class (n, limit) on each path
+    ring_by_path = {"datapath": ring_cls, "kv_leg": kv["ring_classes"],
+                    "serve": serve["ring_classes"],
+                    "t3_pipe": t3["ring_classes"],
+                    "cluster": cluster["ring_classes"],
+                    "storage": storage["ring_classes"]}
+    for k in kernels:
+        entry = "ring_" + k["name"].removeprefix("desc_ring.")
+        if entry in RING_DEFS:
+            k["launches_by_shape"] = {p: c[entry] for p, c in
+                                      ring_by_path.items() if entry in c}
+            check(sum(sum(c.values()) for c in
+                      k["launches_by_shape"].values()) == k["launches"],
+                  f"{entry}: launches by shape do not add up")
+    log("ring launches by shape class per path: "
+        + json.dumps(ring_by_path, sort_keys=True))
     for key in ("tokens", "prompts", "rel_by_step"):
         serve.pop(key)
     for key in ("tokens_a", "tokens_b", "oracle", "prompts", "pd",

@@ -37,13 +37,18 @@ class RingFullError(RuntimeError):
 # `Ring(device=None)` — and `CompletionQueue(device_ring=None)` —
 # resolve to a device-resident ring when vectorized AND capacity >= the
 # entry for the ring's torch device type. An entry is set only from a
-# measured depth x publish_every crossover sweep on that device. None
-# has run on a CUDA card yet, so there is no `cuda` entry and auto
-# resolves to a host ring everywhere; `chip_smoke.py` asks for the
-# device ring explicitly. An explicit device=True/False kwarg always
+# measured depth x publish_every crossover sweep on that device: the
+# reference's (depths 64, 512, 4096 x publish_every 8, 64; a full
+# batch produced, then consume(None)), run by `chip_smoke.py` phase 7.
+# On an H100 the device ring led the host ring in every round at depth
+# 4096 at both publish_every values, in four runs (beyond the spread in
+# three; PERF.md), and lost at 512 and 64, where the launch and the
+# synchronisation cost more than the numpy copy they replace. A `cpu`
+# device has no entry: there the plain version never
+# beats the numpy copy. An explicit device=True/False kwarg always
 # wins over this policy, and vectorized=False (the oracle) never
 # launches a kernel regardless.
-DEVICE_RING_AUTO_DEPTH: dict[str, int] = {}
+DEVICE_RING_AUTO_DEPTH: dict[str, int] = {"cuda": 4096}
 
 
 def _auto_device(capacity: int, vectorized: bool, torch_device) -> bool:
@@ -92,6 +97,11 @@ class Ring:
             # int64 slot rows, natively: 64B cachelines as they are
             self.slots, self.flags = _ring_ops.alloc(
                 capacity, width, resolve(torch_device))
+            # on the card, the ring's own pinned read-back and staging
+            # buffers and resolved entry points
+            self._via = _ring_ops.Boundary(
+                capacity, self.slots.device, self.slots, self.flags) \
+                if self.slots.device.type == "cuda" else None
         else:
             self.slots = np.zeros((capacity, width), np.int64)
             self.flags = np.zeros((capacity,), np.uint8)  # starts invalid
@@ -135,7 +145,8 @@ class Ring:
                     f"need {n} slots, have {self._credit()}")
         if self.device:
             # ONE launch writes slots and flags in place
-            self._ring_ops.produce(self.slots, self.flags, self.head, batch)
+            self._ring_ops.produce(self.slots, self.flags, self.head, batch,
+                                   via=self._via)
         elif self.vectorized:
             # credit <= capacity, so the batch wraps at most once: the
             # whole memcpy is at most two slice assignments
@@ -179,7 +190,7 @@ class Ring:
             return np.zeros((0, self.width), np.int64)
         if self.device:
             out = self._ring_ops.consume(self.slots, self.flags,
-                                         self.tail, limit)
+                                         self.tail, limit, via=self._via)
             k = out.shape[0]
             if k == 0:
                 return out
@@ -270,7 +281,7 @@ class Ring:
             return np.zeros((0, self.width), np.int64)
         out = self._ring_ops.produce_consume(
             self.slots, self.flags, self.head, self.tail,
-            batch[:n], max(0, limit))
+            batch[:n], max(0, limit), via=self._via)
         if n:
             self.head += n
             self.dma_writes += 1      # the whole batch rode one DMA

@@ -1,7 +1,9 @@
 """Build and load the port's CUDA kernels: nvcc into `build/`, ctypes.
 
 Each `csrc/<name>.cu` has a plain C interface and includes no PyTorch
-header, so one nvcc call per source takes seconds. A source is built at
+header, so one nvcc call per source takes seconds. A source (a name in
+`csrc/`, or a `Path` to a `.cu` elsewhere, as the probes under `tools/`
+pass) is built at
 first use into `<repo>/build/lib<name>-<hash>.so` (the hash covers the
 source text and the flags, so an edited source never loads a stale
 library) and opened with ctypes. `build()` compiles several sources in
@@ -62,14 +64,14 @@ def _nvcc() -> str:
     return nvcc
 
 
-def _paths(name: str) -> tuple[Path, Path]:
-    src = CSRC / f"{name}.cu"
+def _paths(name: str | Path) -> tuple[Path, Path]:
+    src = name if isinstance(name, Path) else CSRC / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes()
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return src, BUILD_DIR / f"lib{name}-{digest[:12]}.so"
+    return src, BUILD_DIR / f"lib{src.stem}-{digest[:12]}.so"
 
 
-def _start(name: str):
+def _start(name: str | Path):
     """Start nvcc for `name` unless its library is already built."""
     src, out = _paths(name)
     if out.exists():
@@ -82,12 +84,12 @@ def _start(name: str):
     return proc, tmp, out
 
 
-def _finish(name: str, job):
+def _finish(name: str | Path, job):
     proc, tmp, out = job
     so, se = proc.communicate()
-    LOGS[name] = so + se
+    LOGS[name if isinstance(name, str) else name.stem] = so + se
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name}.cu "
+        raise RuntimeError(f"nvcc failed for {name} "
                            f"(exit {proc.returncode}):\n{so}{se}")
     os.replace(tmp, out)       # atomic: a concurrent loader sees all or none
 
@@ -101,7 +103,7 @@ def build(names=SOURCES):
                 _finish(name, job)
 
 
-def load(name: str, signatures: dict) -> ctypes.CDLL:
+def load(name: str | Path, signatures: dict) -> ctypes.CDLL:
     """The loaded library for `csrc/<name>.cu`, built on first use.
     `signatures` maps each C function to its ctypes argtypes; every
     entry point returns an int CUDA error code. Several wrappers share

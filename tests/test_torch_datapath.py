@@ -407,8 +407,11 @@ def test_fused_poll_matches_reference():
 def test_auto_device_depth_policy():
     """`device=None` resolves through DEVICE_RING_AUTO_DEPTH for the
     ring's torch device type; explicit kwargs and the oracle win, and
-    with no measured entry every ring stays on the host."""
-    assert "cuda" not in tnotification.DEVICE_RING_AUTO_DEPTH
+    with no measured entry for the device type every ring stays on the
+    host: the CPU has none, the card's (4096) is the depth at which
+    chip_smoke.py phase 7's crossover found the device ring ahead."""
+    assert "cpu" not in tnotification.DEVICE_RING_AUTO_DEPTH
+    assert tnotification.DEVICE_RING_AUTO_DEPTH.get("cuda") == 4096
     assert not tnotification.Ring(8192).device
     tnotification.DEVICE_RING_AUTO_DEPTH["cpu"] = 64
     try:

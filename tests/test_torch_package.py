@@ -58,8 +58,11 @@ def test_the_scan_covers_every_subpackage():
                 "serve/paged", "serve/engine", "launch/serve",
                 "kernels/ring_pipe/ops", "kernels/ring_pipe/ref",
                 "kernels/list_walk/ops", "kernels/list_walk/ref",
-                "core/solar", "serve/pd_disagg", "serve/router"):
+                "core/solar", "serve/pd_disagg", "serve/router",
+                "kernels/desc_ring/ops", "kernels/desc_ring/ref"):
         assert f"src/repro_torch/{mod}.py" in names, mod
+    for probe in ("row_ring", "desc_ring", "latency"):
+        assert f"tools/{probe}/probe.py" in names, probe
 
 
 def test_import_needs_no_card_no_triton_and_pulls_in_no_jax():
