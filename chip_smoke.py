@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the torch port's verbs datapath, its KV-cache transfer leg, its
 serving path, the T3 notification pipe, the disaggregated serving
-cluster and Solar block storage on one CUDA card, and hold every kernel
-of those paths against its plain PyTorch version.
+cluster, Solar block storage and the MoE and hybrid model families on
+one CUDA card, and hold every kernel of those paths against its plain
+PyTorch version.
 
     python3 chip_smoke.py              # from the root of a checkout
     python3 chip_smoke.py --rehearse   # on the CPU: the ring's call shapes
@@ -14,7 +15,8 @@ widths and prints the device CQ ring's calls by shape class). The same main path
 `tests/test_torch_kv.py` (transfer, page round trip, migration,
 failover), `tests/test_torch_serve.py::
 test_chip_smoke_phase6_at_cpu_size_matches_reference_engine` and
-`tests/test_torch_{ring_pipe,cluster,storage}.py` (phases 7, 8, 9).
+`tests/test_torch_{ring_pipe,cluster,storage}.py` (phases 7, 8, 9) and
+`tests/test_torch_hybrid.py::test_chip_smoke_phase10_at_cpu_size`.
 
 Phases (any failure exits non-zero):
   1. the card (nvidia-smi name and power limit) and the kernel build;
@@ -94,11 +96,36 @@ Phases (any failure exits non-zero):
      and `read_rdma` at 1x32, 4x32 and 12x32 LBAs against `read_cpu`
      (data exact, CRC within 1e-5 of the request's largest checksum),
      kIOPS, and one list walk per request through OP_LIST_TRAVERSAL
-     (one list_traverse launch each).
+     (one list_traverse launch each);
+ 10. the model families at full width, one after the other: granite-
+     moe-1b-a400m (24 layers, 32 experts top-8, 1.3 B bf16 parameters;
+     paged, prompts at their exact lengths) and recurrentgemma-2b (26
+     layers, RG-LRU and window-2048 attention, 2.7 B; the dense engine),
+     each on `ServeEngine(max_batch=4, max_seq=4096, device_ring=True)`
+     with phase 6's six prompts (and, for the hybrid, 3 and 2560 tokens,
+     where the reference's cache padding fails), 32 new tokens each; the
+     logits of every step against the unpadded reference with the
+     request's row repeated over the engine's four slots (the engine's
+     shapes, so the card's arithmetic), bound 2^-4; for the MoE, the
+     first request's reference at batch 1 against the one at batch 4,
+     with the router's top-k choices that differ between them, step by
+     step, and that bound on every step before the first such choice;
+     one flash launch per attention layer per
+     prefill, one produce_consume per admitting step; `PDServer.serve`
+     of 2 x 1024 tokens equal to the dense greedy decode; prefill per
+     request, decode per step, the RG-LRU scans inside the longest
+     prefill and the expert loop inside a decode step (CUDA events), one
+     profiled decode step, and each of those two device steps alone
+     (kernels a call, cold ms, bound).
 Phase 2 also holds flash_attention (its TMA/wgmma entry) and
 flash_attention_generic (its mma.sync entry) against their plain version
-at every prefill shape phases 6 and 8 launch (B x S = 1 x 2 ... 1 x 4096
-and PDServer's 4 x 1024; in bf16 and in float32), prints ptxas's
+at every prefill shape the main paths launch, FLASH_SHAPES: phases 6
+and 8's (gemma's H 8 on 1 kv head of 256, B x S = 1 x 2 ... 1 x 4096
+and PDServer's 4 x 1024) and phase 10's (granite's H 16 on 8 kv heads
+of 64, recurrentgemma's H 10 on 1 kv head of 256 with its 2048 window,
+at exact lengths), each in bf16 and in float32 and timed after four
+kinds of eviction beside the generic entry, the plain version and SDPA
+(a boolean mask where the window cuts); prints ptxas's
 registers and spills of each instance (none may spill at Dv = 256), and
 holds them at edge shapes, each naming the entry it took:
 float32 within 2e-5, bf16 within 2e-2 and within
@@ -115,6 +142,7 @@ with a row per kernel, and `{"ok": true, "device": {...}}`.
 """
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import math
@@ -130,6 +158,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory (data sheet)
 PEAK_BF16_FLOPS = 989e12           # H100 SXM dense bf16 tensor cores
+PEAK_F32_FLOPS = 67e12             # H100 SXM float32 outside the tensor cores
 
 
 @dataclass(frozen=True)
@@ -176,12 +205,27 @@ class ServeSizes:
 SERVE = ServeSizes(arch="gemma-2b", reduce=False, max_batch=4, max_seq=4096,
                    page=16, prompts=(5, 300, 1500, 2100, 3000, 3900),
                    new=32, reps=3, seed=0)
-# the prefill attention shapes (batch, bucket) phase 2 times: every one
-# phases 6 and 8 launch (the sweep's buckets 2 to 8, 64, phase 6's 8 to
-# 4096, PDServer's batch of 4 x 1024; main() fails on one left out) and
-# the powers of two between; the last is the kernel row's main shape
-FLASH_SHAPES = ((1, 2), (1, 4), (1, 8), (1, 16), (1, 32), (1, 64),
-                (1, 512), (1, 1024), (4, 1024), (1, 2048), (1, 4096))
+# the prefill attention shapes phase 2 holds and times, as (heads, kv
+# heads, head dim, window, batch, length): every one the main paths
+# launch (main() fails on one left out). gemma-2b's (phases 6 and 8):
+# the sweep's buckets 2 to 8, 64, phase 6's 8 to 4096, PDServer's batch
+# of 4 x 1024, and the powers of two between. Phase 10's
+# (`family_flash_shapes`): granite-moe's and recurrentgemma's exact
+# prompt lengths and their PDServer batch of 2 x 1024.
+GEMMA_LAYOUT = (8, 1, 256, 0)
+GRANITE_LAYOUT = (16, 8, 64, 0)
+RGEMMA_LAYOUT = (10, 1, 256, 2048)
+FLASH_SHAPES = tuple(
+    [GEMMA_LAYOUT + bs for bs in ((1, 2), (1, 4), (1, 8), (1, 16), (1, 32),
+                                  (1, 64), (1, 512), (1, 1024), (4, 1024),
+                                  (1, 2048), (1, 4096))]
+    + [GRANITE_LAYOUT + (1, n) for n in (5, 300, 1500, 2100, 3000, 3900)]
+    + [GRANITE_LAYOUT + (2, 1024)]
+    + [RGEMMA_LAYOUT + (1, n) for n in (5, 300, 1500, 2100, 3000, 3900,
+                                        3, 2560)]
+    + [RGEMMA_LAYOUT + (2, 1024)])
+# the kernel row's main shape: gemma-2b's longest bucket
+FLASH_MAIN = GEMMA_LAYOUT + (1, 4096)
 # The largest |logit difference| a step of phase 6 may show against the
 # unpaged reference, as a fraction of that step's largest |logit|. The
 # engine and the reference do the same arithmetic but for the page
@@ -1464,9 +1508,10 @@ def kv_rig(torch, np, dev, K, T, model, caches, perm, vectorized: bool,
         check(all(_same_leaves(torch, tree, m, caches) for m in many),
               "transfer_many changed data")
         # 2. the paged round trip of every (layer, batch) row
-        padded = pad_caches(got, K.prefill, K.seq)
+        specs = model.cache_specs(K.batch, K.seq)
+        padded = pad_caches(got, K.prefill, K.seq, specs)
         k0 = dict(_build.LAUNCHES)
-        rt = page_roundtrip(padded, K.seq, K.page)
+        rt = page_roundtrip(padded, K.seq, K.page, specs)
         T.sync()
         rows = sum(x.shape[0] * x.shape[1] for x in tree.leaves(padded))
         for fn in ("ingest_pages", "gather_rows"):
@@ -1585,7 +1630,8 @@ def kv_timing(torch, np, K, T, model, caches, eng, got, migrate,
                               for _ in range(K.reps)),
            "transfer_many2_ms": med(wall(lambda: eng.transfer_many(
                [caches, caches])) for _ in range(K.reps))}
-    padded = pad_caches(got, K.prefill, K.seq)
+    padded = pad_caches(got, K.prefill, K.seq,
+                        model.cache_specs(K.batch, K.seq))
     rt, ing, gat = [], [], []
     for _ in range(K.reps):
         ev = []
@@ -1697,6 +1743,29 @@ def phase_kv(torch, np, dev, K, rng, T, kernel_ms: dict) -> dict:
 FLASH_EPS = 2e-5
 
 
+def flash_layout(cfg) -> tuple:
+    """A model's prefill attention layout: (heads, kv heads, head dim,
+    window, 0 for none)."""
+    w = cfg.hybrid.window if cfg.hybrid is not None else 0
+    return (cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim, w)
+
+
+def flash_key(layout: tuple, shape: str) -> str:
+    """The key of a flash shape in phase 2's rows and the launch counts:
+    the layout and the `_build.BY_SHAPE` shape "BxS", as
+    "H16/KVH8/D64 1x300" or "H10/KVH1/D256/W2048 1x3000"."""
+    H, KVH, D, W = layout
+    return f"H{H}/KVH{KVH}/D{D}{f'/W{W}' if W else ''} {shape}"
+
+
+def causal_pairs(S: int, W: int) -> int:
+    """The (q, k) pairs a causal prefill of S tokens scores, each query
+    the last W keys (all of them for W = 0)."""
+    if not W or W >= S:
+        return S * (S + 1) // 2
+    return W * (W + 1) // 2 + (S - W) * W
+
+
 def bf16_half_ulps(torch, got, r32):
     """|got - r32| over half a bf16 ulp of r32 plus FLASH_EPS (1 + |r32|),
     elementwise: <= 1 wherever `got` is r32 rounded to bf16 but for
@@ -1743,9 +1812,11 @@ def ptxas_report(text: str) -> dict:
 
 def phase_flash_kernels(torch, np, dev, Z, rng, T) -> dict:
     """flash_attention (the TMA/wgmma entry) and flash_attention_generic
-    (the mma.sync entry) against their plain version at the serving
-    path's shapes (gemma-2b's prefill attention at every (batch, bucket)
-    phases 6 and 8 launch: H=8, KVH=1, D=256, causal) and at edge
+    (the mma.sync entry) against their plain version at the main paths'
+    prefill shapes, FLASH_SHAPES (gemma-2b's at every (batch, bucket)
+    phases 6 and 8 launch: H=8, KVH=1, D=256, causal; phase 10's
+    granite-moe, H=16 on KVH=8 of D=64, and recurrentgemma, H=10 on
+    KVH=1 of D=256 with a window of 2048, at exact lengths) and at edge
     shapes: head dims, grouping, ragged lengths, Sq < Sk, no mask,
     windows (one across the K/V ring's stages), softcap and scale,
     strided layouts, split key ranges with their merge, and shapes only
@@ -1769,6 +1840,8 @@ def phase_flash_kernels(torch, np, dev, Z, rng, T) -> dict:
 
     cfg = get_config(Z.arch)
     H, KVH, D = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    check(flash_layout(cfg) == FLASH_MAIN[:4],
+          f"{Z.arch}'s layout {flash_layout(cfg)} is not FLASH_MAIN's")
     gen = torch.Generator(device=dev).manual_seed(int(rng.integers(1 << 31)))
     bf16 = torch.bfloat16
     TMA, GENERIC = "flash_attention", "flash_attention_generic"
@@ -1815,59 +1888,82 @@ def phase_flash_kernels(torch, np, dev, Z, rng, T) -> dict:
     def cold(fn) -> float:
         return T.ms(fn, iters=10, cold=True, median=True)
 
-    # a flash call on other operands, launched between the read eviction
-    # and a timed call: the first flash launch after a reduction (the
-    # eviction) or a GEMM pays ~12 us at the short buckets that the next
-    # one does not, so the primed reading is the kernel with its
-    # operands cold but not that cost
-    primer_qkv = rand(1, H, 2, D), rand(1, KVH, 2, D), rand(1, KVH, 2, D)
-    primer = fa_ops.prepare(*primer_qkv)
+    # a flash call on other operands of the same layout (its kernel
+    # instance), launched between the read eviction and a timed call: the
+    # first flash launch after a reduction (the eviction) or a GEMM pays
+    # ~12 us at the short buckets that the next one does not, so the
+    # primed reading is the kernel with its operands cold but not that
+    # cost
+    primers = {}
 
-    def primed():
-        T.evict("read")
-        primer.run()
+    def primer(layout):
+        if layout not in primers:
+            h, kvh, d, w = layout
+            call = fa_ops.prepare(rand(1, h, 2, d), rand(1, kvh, 2, d),
+                                  rand(1, kvh, 2, d), window=w)
+
+            def primed():
+                T.evict("read")
+                call.run()
+            primers[layout] = primed
+        return primers[layout]
 
     by_shape, errs = {}, {TMA: [], GENERIC: []}
-    for B, S in FLASH_SHAPES:
-        q, k, v = rand(B, H, S, D), rand(B, KVH, S, D), rand(B, KVH, S, D)
-        check(fa_ops.route(q, k, v) == TMA, f"{B}x{S} does not take {TMA}")
-        got = fa_ops.attention(q, k, v)
-        err, ulps = hold_bf16(got, q, k, v, f"bf16 {B}x{S}")
-        call = fa_ops.prepare(q, k, v)
-        generic = fa_ops.prepare(q, k, v, entry=GENERIC)
+    for h, kvh, d, w, B, S in FLASH_SHAPES:
+        key = flash_key((h, kvh, d, w), f"{B}x{S}")
+        q, k, v = rand(B, h, S, d), rand(B, kvh, S, d), rand(B, kvh, S, d)
+        check(fa_ops.route(q, k, v) == TMA, f"{key} does not take {TMA}")
+        got = fa_ops.attention(q, k, v, window=w)
+        err, ulps = hold_bf16(got, q, k, v, f"bf16 {key}", window=w)
+        call = fa_ops.prepare(q, k, v, window=w)
+        generic = fa_ops.prepare(q, k, v, window=w, entry=GENERIC)
         generic.run()
-        err_g = hold_bf16(generic.out, q, k, v, f"generic bf16 {B}x{S}")[0]
+        err_g = hold_bf16(generic.out, q, k, v, f"generic bf16 {key}",
+                          window=w)[0]
         errs[TMA].append(err)
         errs[GENERIC].append(err_g)
         f32 = [t.float() for t in (q, k, v)]
-        err32 = hold_f32(fa_ops.attention(*f32), *f32, f"float32 {B}x{S}")
+        err32 = hold_f32(fa_ops.attention(*f32, window=w), *f32,
+                         f"float32 {key}", window=w)
         del f32
-        # causal: the (q, k) pairs with k <= q, two products of D each;
-        # the kernels' own work is twice that (P V as three bf16 terms)
-        flops = 4 * B * H * D * S * (S + 1) // 2
-        nbytes = (2 * H * S * D + 2 * KVH * S * D) * 2 * B
+        if w and S > w:                 # SDPA's window: a boolean mask
+            i = torch.arange(S, device=dev)
+            mask = (i[:, None] >= i[None]) & (i[:, None] - i[None] < w)
+
+            def library():
+                return F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=mask, enable_gqa=True)
+        else:
+            def library():
+                return F.scaled_dot_product_attention(
+                    q, k, v, is_causal=True, enable_gqa=True)
+        # the causal (windowed) (q, k) pairs, two products of D each; the
+        # kernels' own work is twice that (P V as three bf16 terms)
+        flops = 4 * B * h * d * causal_pairs(S, w)
+        nbytes = (2 * h * S * d + 2 * kvh * S * d) * 2 * B
         t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / HBM_BYTES_PER_S
         # the kernel after each eviction, interleaved; the excess is
         # ranked on the primed reading, `rank_ms`
         ev = T.rounds({"read": call.run, "memset": (call.run, "memset"),
                        "none": (call.run, "none"),
-                       "primed": (call.run, primed)}, iters=10)
-        by_shape[f"{B}x{S}"] = dict(
-            max_abs_err=err, max_half_ulps=ulps, max_abs_err_f32=err32,
-            split=fa_ops.plan(B, H, S, S, causal=True, window=0,
+                       "primed": (call.run, primer((h, kvh, d, w)))},
+                      iters=10)
+        by_shape[key] = dict(
+            entry=TMA, max_abs_err=err, max_half_ulps=ulps,
+            max_abs_err_f32=err32,
+            split=fa_ops.plan(B, h, S, S, causal=True, window=w,
                               sms=fa_ops.sm_count(q.device))[1],
             ms=ev["read"]["ms"], memset_ms=ev["memset"]["ms"],
             warm_ms=ev["none"]["ms"], primed_ms=ev["primed"]["ms"],
             rank_ms=ev["primed"]["ms"],
             generic_ms=cold(generic.run),
-            plain_ms=cold(lambda: fa_ref.reference(q, k, v)),
-            library_ms=cold(lambda: F.scaled_dot_product_attention(
-                q, k, v, is_causal=True, enable_gqa=True)),
+            plain_ms=cold(lambda: fa_ref.reference(q, k, v, window=w)),
+            library_ms=cold(library),
             bound_ms=max(t_ops, t_bytes) * 1e3,
             bound_by="operations" if t_ops > t_bytes else "bytes",
             three_term_bound_ms=max(2 * t_ops, t_bytes) * 1e3,
             gflop=flops / 1e9)
-        log(f"phase 2: flash_attention {B}x{S}: {by_shape[f'{B}x{S}']}")
+        log(f"phase 2: flash_attention {key}: {by_shape[key]}")
         del q, k, v, got, call, generic
     free_device_memory(torch)
 
@@ -2020,8 +2116,8 @@ def phase_flash_kernels(torch, np, dev, Z, rng, T) -> dict:
         entry=GENERIC, main_path=False,
         shape="B=1 H=2 KVH=1 S=90 D=20 bf16 causal",
         ms_by_shape={s: r["generic_ms"] for s, r in by_shape.items()})
-    main_shape = "x".join(map(str, FLASH_SHAPES[-1]))
-    main = by_shape[main_shape]
+    h, kvh, d, _, B, S = FLASH_MAIN
+    main = by_shape[flash_key(FLASH_MAIN[:4], f"{B}x{S}")]
     row = dict(name="flash_attention", route="cuda",
                source="src/repro_torch/csrc/flash_attention.cu",
                replaces="src/repro/kernels/flash_attention/"
@@ -2031,8 +2127,8 @@ def phase_flash_kernels(torch, np, dev, Z, rng, T) -> dict:
                bound_ms=main["bound_ms"], bound_by=main["bound_by"],
                library_ms=main["library_ms"], entry="flash_attention",
                grad_rel_err=grads,
-               shape=f"B=1 H={H} KVH={KVH} S={FLASH_SHAPES[-1][1]} D={D} "
-                     "bf16 causal", by_shape=by_shape,
+               shape=f"B={B} H={h} KVH={kvh} S={S} D={d} bf16 causal",
+               by_shape=by_shape,
                ptxas={k: v for k, v in report.items() if "sm90" in k})
     for r in (row, gen_row):
         log(f"phase 2: {r['name']:<26} {r['shape']:<36} kernel "
@@ -2042,34 +2138,78 @@ def phase_flash_kernels(torch, np, dev, Z, rng, T) -> dict:
 
 
 # -- phase 6 ----------------------------------------------------------------------
-def _serve_reference(torch, model, params, prompt, toks, max_seq, dev):
+def _serve_reference(torch, model, params, prompt, toks, max_seq, dev,
+                     batch: int = 1):
     """The port's unpaged reference, teacher-forced on the engine's own
-    tokens: an unpadded prefill, `pad_caches`, then dense `decode_step`
-    at batch 1. Returns the (len(toks), V) float32 logits it gives at
-    each step."""
+    tokens: an unpadded prefill, `pad_caches` (each leaf as its cache
+    spec says), then dense `decode_step`, at batch 1 or with the
+    request's row repeated `batch` times (every product then has the
+    engine's shapes, so the card picks the engine's kernels). Returns
+    the (len(toks), V) float32 logits of the first row at each step."""
+    from repro_torch import tree
     from repro_torch.serve.kvcache import pad_caches
     lg, caches = model.prefill(params, torch.from_numpy(prompt[None]).to(dev))
-    caches = pad_caches(caches, prompt.size, max_seq)
+    caches = pad_caches(caches, prompt.size, max_seq,
+                        model.cache_specs(1, max_seq))
+    if batch > 1:
+        caches = tree.map(lambda a: a.repeat_interleave(batch, dim=1), caches)
     rows = [lg[0, -1].float()]
     for t in range(1, len(toks)):
-        tok = torch.tensor([[toks[t - 1]]], dtype=torch.int32, device=dev)
+        tok = torch.full((batch, 1), int(toks[t - 1]), dtype=torch.int32,
+                         device=dev)
         lg, caches = model.decode_step(params, tok, caches,
                                        prompt.size + t - 1)
         rows.append(lg[0, 0].float())
     return torch.stack(rows)
 
 
-def profile_decode_step(torch, eng, Z) -> dict:
+def dense_greedy(torch, np, model, params, prompts, max_seq: int,
+                 steps: int, dev):
+    """Greedy tokens of a batch of prompts (B, P) without paging: one
+    prefill, `pad_caches` by the cache specs, then `steps` dense decode
+    steps at batch B. Returns (B, steps + 1) tokens, PDServer's shape."""
+    from repro_torch.serve.kvcache import pad_caches
+    B, P = prompts.shape
+    logits, caches = model.prefill(params, torch.from_numpy(prompts).to(dev))
+    caches = pad_caches(caches, P, max_seq, model.cache_specs(B, max_seq))
+    cur = torch.argmax(logits[:, -1], dim=-1).reshape(-1, 1).to(torch.int32)
+    out = [cur[:, 0].cpu().numpy()]
+    pos = torch.full((B,), P, dtype=torch.int32, device=dev)
+    for _ in range(steps):
+        logits, caches = model.decode_step(params, cur, caches, pos)
+        cur = torch.argmax(logits[:, :1], dim=-1).to(torch.int32)
+        out.append(cur[:, 0].cpu().numpy())
+        pos = pos + 1
+    return np.stack(out, 1)
+
+
+def profile_decode_step(torch, eng, Z, T=None, target=None) -> dict:
     """One decode-only engine step at Z.max_batch active slots under
     torch.profiler: its wall time, the device time its kernels took,
-    the device's idle share of the step, and the five op kinds that
-    took the most device time. Run after the counted main path, on
-    requests of its own."""
+    the device's idle share of the step, the kernels it launched and the
+    five op kinds that took the most device time. With `target` =
+    (module, name), the decode step before it is timed with the function
+    `name` of `module` under CUDA events around each call (`T.span`):
+    its ms, its calls and its share of that step's wall time. Run after
+    the counted main path, on requests of its own."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for i in range(Z.max_batch):
-        eng.submit([1 + i, 2, 3], max_new_tokens=4)
+        eng.submit([1 + i, 2, 3], max_new_tokens=4 + (target is not None))
     eng.step()                          # admits and prefills all four
+    out = {}
+    if target is not None:
+        mod, name = target
+        fn0, spans = getattr(mod, name), []
+        setattr(mod, name,
+                lambda *a, **kw: T.span(lambda: fn0(*a, **kw), spans))
+        try:
+            step = T.wall(eng.step)
+        finally:
+            setattr(mod, name, fn0)
+        ms = T.spans_ms(spans)
+        out = {"step_ms": step, f"{name}_ms": ms, f"{name}_calls": len(spans),
+               f"{name}_share": ms / step}
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -2085,7 +2225,7 @@ def profile_decode_step(torch, eng, Z) -> dict:
     device_ms = sum(r[1] for r in rows)
     kernels = sum(r[2] for r in rows)
     rows.sort(key=lambda r: -r[1])
-    return dict(wall_ms=wall, device_ms=device_ms,
+    return dict(out, wall_ms=wall, device_ms=device_ms,
                 idle_share=1 - device_ms / wall if device_ms else None,
                 device_ops=kernels,
                 top=[(k[:60], round(ms, 4), n) for k, ms, n in rows[:5]])
@@ -2132,66 +2272,15 @@ def phase_serve(torch, np, dev, Z, rng, T, params=None) -> dict:
     check(eng.paged and eng.bucketed and eng.ring.device,
           "the engine is not paged, bucketed and on a device ring")
     pool = eng.pool
-    # record each request's logits and each prefill's flash launches
-    logits_of: dict = {}
-    prefills: list = []
-    polled: list = []
-    cur: dict = {}
-    admit0, prefill0, step0 = eng._admit_local, eng._prefill, eng._paged_step
-    cq = eng.ep.peer.recv_cq
-    poll0 = cq.poll
-
-    def admit_local(slot, rid):
-        cur["rid"] = rid
-        admit0(slot, rid)
-
-    def prefill(p, tokens, **kw):
-        k0 = _build.LAUNCHES.get("flash_attention", 0)
-        logits, caches = prefill0(p, tokens, **kw)
-        prefills.append((tokens.shape[1],
-                         _build.LAUNCHES.get("flash_attention", 0) - k0))
-        logits_of[cur["rid"]] = [logits[0, -1].float()]
-        return logits, caches
-
-    def paged_step(p, tokens, table, pos, regions):
-        logits, regions = step0(p, tokens, table, pos, regions)
-        for i, rid in enumerate(eng.slots):
-            if rid is not None:
-                logits_of[rid].append(logits[i, 0].float())
-        return logits, regions
-
-    def poll(*a, **kw):
-        out = poll0(*a, **kw)
-        polled.append(len(out))
-        return out
-    eng._admit_local, eng._prefill, eng._paged_step = \
-        admit_local, prefill, paged_step
-    cq.poll = poll
-
+    logits_of, prefills, polled = record_engine(eng, _build)
     # the main path: counts from zero, then the run, step by step
     _build.reset_launches()
-    rids = [eng.submit(p.tolist(), max_new_tokens=Z.new) for p in prompts]
-    steps = []
-    t_run = time.perf_counter()
-    while True:
-        n_pre, n_poll = len(prefills), len(polled)
-        r0 = _build.LAUNCHES.get("ring_produce_consume", 0)
-        T.sync()
-        t1 = time.perf_counter()
-        active = eng.step()
-        T.sync()
-        steps.append(dict(ms=(time.perf_counter() - t1) * 1e3, active=active,
-                          prefills=len(prefills) - n_pre,
-                          cqes=sum(polled[n_poll:]),
-                          ring=_build.LAUNCHES.get("ring_produce_consume", 0)
-                          - r0))
-        if not active and not len(cq) and not eng.requests:
-            break
-        check(len(steps) < 100 * len(prompts) * Z.new, "the engine stalls")
-    run_s = time.perf_counter() - t_run
+    rids, steps, run_s = drive_engine(T, _build, eng, prompts, Z.new,
+                                      prefills, polled)
     launches = dict(_build.LAUNCHES)
     ring_cls = ring_classes(_build.BY_SHAPE)
-    flash_by_shape = dict(_build.BY_SHAPE.get("flash_attention", {}))
+    flash_by_shape = {flash_key(flash_layout(cfg), s): n for s, n in
+                      _build.BY_SHAPE.get("flash_attention", {}).items()}
     results = dict(eng._finished)
 
     # what the run must show
@@ -2225,7 +2314,7 @@ def phase_serve(torch, np, dev, Z, rng, T, params=None) -> dict:
     log(f"phase 6: {len(rids)} requests x {Z.new} tokens on {Z.max_batch} "
         f"slots in {len(steps)} steps, {run_s:.2f} s; prefills (length, "
         f"flash launches) {prefills}; kernel launches {launches}; flash "
-        f"launches by B x S {flash_by_shape}")
+        f"launches by shape {flash_by_shape}")
 
     # against the unpaged reference, teacher-forced on the engine's tokens
     tol = LOGIT_TOL[cfg.dtype]
@@ -2312,6 +2401,518 @@ def phase_serve(torch, np, dev, Z, rng, T, params=None) -> dict:
                 token_agreement=agree / n_tok, gated_tokens=gated,
                 tokens=[results[r] for r in rids], rel_by_step=rel_by_step,
                 prompts=[p.tolist() for p in prompts], n_params=n_params)
+
+
+# -- phase 10 ---------------------------------------------------------------------
+@dataclass(frozen=True)
+class FamilySizes:
+    archs: tuple        # model configs, one serving run each
+    reduce: bool        # reduced() widths (the CPU test), else full width
+    max_batch: int      # engine slots
+    max_seq: int        # engine cache length
+    page: int           # tokens per KV page (the paged engine's)
+    prompts: tuple      # prompt lengths of every arch (phase 6's)
+    new: int            # tokens each request asks for
+    pd_batch: int       # PDServer prompts
+    pd_prompt: int      # tokens per PDServer prompt
+    pd_steps: int       # PDServer decode steps
+    pd_seq: int         # PDServer max_seq
+    reps: int           # timing repetitions
+    seed: int           # parameter generator seed
+
+
+FAMILIES = FamilySizes(archs=("granite-moe-1b-a400m", "recurrentgemma-2b"),
+                       reduce=False, max_batch=4, max_seq=4096, page=16,
+                       prompts=SERVE.prompts, new=32, pd_batch=2,
+                       pd_prompt=1024, pd_steps=16, pd_seq=2048, reps=3,
+                       seed=0)
+# phase 10's main paths, by arch: the names of their rows in the kernels
+# line's launches_by_path
+FAMILY_PATH = {"granite-moe-1b-a400m": "moe", "recurrentgemma-2b": "hybrid"}
+
+
+def family_cfg(arch: str, F):
+    from repro_torch.configs.base import get_config, reduced
+    cfg = get_config(arch)
+    return reduced(cfg) if F.reduce else cfg
+
+
+def family_prompts(cfg, F) -> tuple:
+    """An arch's prompt lengths: F.prompts and, for a hybrid, the two
+    where the reference's shape-driven padding meets a state leaf: the
+    conv history (conv_width - 1) and the RG-LRU width."""
+    extra = ()
+    if cfg.hybrid is not None:
+        extra = (cfg.hybrid.conv_width - 1,
+                 cfg.hybrid.lru_width or cfg.d_model)
+    return tuple(F.prompts) + tuple(n for n in extra if n not in F.prompts)
+
+
+def family_flash_shapes(F) -> dict:
+    """{arch: [(H, KVH, D, window, batch, length), ...]}: every prefill
+    attention shape phase 10's main paths launch (engine prefills at
+    exact lengths, the PDServer batch); FLASH_SHAPES holds them."""
+    out = {}
+    for arch in F.archs:
+        cfg = family_cfg(arch, F)
+        out[arch] = [flash_layout(cfg) + (1, n)
+                     for n in family_prompts(cfg, F)] \
+            + [flash_layout(cfg) + (F.pd_batch, F.pd_prompt)]
+    return out
+
+
+def record_engine(eng, _build) -> tuple:
+    """Hook `eng` to record each request's logits (the prefill's last
+    row, then each decode step's, paged or dense), each prefill's
+    (length, flash launches) and the CQEs each poll returns. Returns
+    (logits_of, prefills, polled), filled as the engine runs."""
+    logits_of: dict = {}
+    prefills: list = []
+    polled: list = []
+    cur: dict = {}
+    admit0, prefill0 = eng._admit_local, eng._prefill
+    cq = eng.ep.peer.recv_cq
+    poll0 = cq.poll
+
+    def admit_local(slot, rid):
+        cur["rid"] = rid
+        admit0(slot, rid)
+
+    def prefill(p, tokens, **kw):
+        k0 = _build.LAUNCHES.get("flash_attention", 0)
+        logits, caches = prefill0(p, tokens, **kw)
+        prefills.append((tokens.shape[1],
+                         _build.LAUNCHES.get("flash_attention", 0) - k0))
+        logits_of[cur["rid"]] = [logits[0, -1].float()]
+        return logits, caches
+
+    def record(logits):
+        for i, rid in enumerate(eng.slots):
+            if rid is not None:
+                logits_of[rid].append(logits[i, 0].float())
+
+    if eng.paged:
+        step0 = eng._paged_step
+
+        def paged_step(*a):
+            logits, regions = step0(*a)
+            record(logits)
+            return logits, regions
+        eng._paged_step = paged_step
+    else:
+        decode0 = eng._decode
+
+        def decode(*a):
+            logits, caches = decode0(*a)
+            record(logits)
+            return logits, caches
+        eng._decode = decode
+
+    def poll(*a, **kw):
+        out = poll0(*a, **kw)
+        polled.append(len(out))
+        return out
+    eng._admit_local, eng._prefill = admit_local, prefill
+    cq.poll = poll
+    return logits_of, prefills, polled
+
+
+def drive_engine(T, _build, eng, prompts, new: int, prefills, polled):
+    """Submit `prompts` for `new` tokens each and step `eng` until every
+    request is done, timing each step and counting its prefills, CQEs
+    and produce_consume launches (`record_engine`'s lists). Returns
+    (rids, steps, run_s)."""
+    cq = eng.ep.peer.recv_cq
+    rids = [eng.submit(p.tolist(), max_new_tokens=new) for p in prompts]
+    steps = []
+    t_run = time.perf_counter()
+    while True:
+        n_pre, n_poll = len(prefills), len(polled)
+        r0 = _build.LAUNCHES.get("ring_produce_consume", 0)
+        T.sync()
+        t1 = time.perf_counter()
+        active = eng.step()
+        T.sync()
+        steps.append(dict(ms=(time.perf_counter() - t1) * 1e3, active=active,
+                          prefills=len(prefills) - n_pre,
+                          cqes=sum(polled[n_poll:]),
+                          ring=_build.LAUNCHES.get("ring_produce_consume", 0)
+                          - r0))
+        if not active and not len(cq) and not eng.requests:
+            return rids, steps, time.perf_counter() - t_run
+        check(len(steps) < 100 * len(prompts) * new, "the engine stalls")
+
+
+def moe_route_witness(torch, model, params, prompt, toks, max_seq, dev,
+                      batch: int) -> tuple:
+    """What parts the MoE reference at batch 1 from the one at `batch`
+    (the request's row repeated): both teacher-forced on the same tokens
+    (`_serve_reference`), every decode step's `moe.route` recorded for
+    the first row. The prefill is one batch-1 call in both, so step 0 is
+    the same. Returns (witness, the batch-1 logits): per step, the
+    logits' largest difference over the batch-`batch` step's largest
+    |logit| and the layers whose top-k sets differ; the two runs'
+    largest router score difference at every layer of the first decode
+    step; the first differing choice (step, layer), and there the
+    batch-1 router's gap between its k-th and (k+1)-th selection score
+    beside that score difference, and the score difference at every
+    layer of its step; the largest logit difference over the steps
+    before it."""
+    from repro_torch.models import moe
+    cfg = model.cfg
+    k = cfg.moe.top_k
+    route0 = moe.route
+
+    def run(b):
+        rec = []
+
+        def route(p, x, c):
+            out = route0(p, x, c)
+            if x.shape[-2] == 1:                    # decode steps only
+                lg = x[0, -1].float() @ p["router"]["w"]
+                sel = (torch.sigmoid(lg) + p["router"]["bias"]
+                       if moe._router_type(c) == "sigmoid_bias"
+                       else torch.softmax(lg, -1))
+                rec.append((sorted(out[1][0, -1].tolist()), sel))
+            return out
+        moe.route = route
+        try:
+            logits = _serve_reference(torch, model, params, prompt, toks,
+                                      max_seq, dev, batch=b)
+        finally:
+            moe.route = route0
+        return logits, rec
+
+    r1, rec1 = run(1)
+    rb, recb = run(batch)
+    rel = ((r1 - rb).abs().amax(-1) / rb.abs().amax(-1)).tolist()
+    n_layers = len(rec1) // max(len(toks) - 1, 1)
+    flips = [[]] + [[layer for layer in range(n_layers)
+                     if rec1[(t - 1) * n_layers + layer][0]
+                     != recb[(t - 1) * n_layers + layer][0]]
+                    for t in range(1, len(toks))]
+    first = next(((t, f[0]) for t, f in enumerate(flips) if f), None)
+
+    def score_diffs(t):                 # by layer, at decode step t
+        return [float((rec1[j][1] - recb[j][1]).abs().max())
+                for j in range((t - 1) * n_layers, t * n_layers)]
+    out = dict(rel_by_step=rel, flips_by_step=[len(f) for f in flips],
+               score_diff_by_layer_step1=score_diffs(1) if rec1 else [],
+               first_flip=first, flips=sum(map(len, flips)),
+               before_first_flip=max(rel[:first[0] if first else None]))
+    if first:
+        i = (first[0] - 1) * n_layers + first[1]
+        top = rec1[i][1].topk(k + 1).values
+        out.update(gap_at_first_flip=float(top[k - 1] - top[k]),
+                   score_diff_at_first_flip=float(
+                       (rec1[i][1] - recb[i][1]).abs().max()),
+                   layers_flipped_at_first_flip_step=flips[first[0]],
+                   score_diff_by_layer_at_first_flip_step=score_diffs(
+                       first[0]))
+    return out, r1
+
+
+def device_step(torch, T, fn, nbytes: int, flops: int, peak: float) -> dict:
+    """A plain-torch device step of the model (no Pallas kernel in the
+    reference, none in the port): the kernels one call launches
+    (torch.profiler), its cold ms (median of 10) and its bound, the
+    larger of `nbytes` over the memory rate and `flops` over `peak`."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    T.sync()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        T.sync()
+    kernels = sum(e.count for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA)
+    t_ops, t_bytes = flops / peak, nbytes / HBM_BYTES_PER_S
+    return dict(kernels=kernels, ms=T.ms(fn, iters=10, cold=True,
+                                         median=True),
+                bound_ms=max(t_ops, t_bytes) * 1e3,
+                bound_by="operations" if t_ops > t_bytes else "bytes")
+
+
+def family_device_steps(torch, dev, cfg, params, F, lens, T) -> dict:
+    """`device_step` of the MoE expert loop at a decode step's shape
+    (F.max_batch tokens through `_moe_local`, layer 0's experts) and of
+    the RG-LRU scan at the longest prompt (float32 a, b, h of (1, S,
+    lru_width)), whichever the model has. The expert loop's bound is the
+    work its routing needs: the weights of the distinct experts the
+    tokens chose, read once, with the tokens in and out, and three
+    products of D x F for each token's top_k choices. The loop itself
+    runs every expert on every token."""
+    from repro_torch import tree
+    from repro_torch.models import moe, rglru
+    gen = torch.Generator(device=dev).manual_seed(F.seed)
+    dt = params["embed"]["table"].dtype
+    out = {}
+    if cfg.moe is not None:
+        m, D = cfg.moe, cfg.d_model
+        p = tree.map(lambda a: a[0], params["groups"][0]["b0"]["moe"])
+        x = torch.randn((F.max_batch, 1, D), generator=gen,
+                        device=dev).to(dt)
+        w, idx, _ = moe.route(p, x, cfg)
+        chosen = int(torch.unique(idx).numel())
+        out["moe._moe_local"] = dict(device_step(
+            torch, T, lambda: moe._moe_local(p, x, w, idx, cfg),
+            (3 * chosen * D * m.d_ff_expert + 2 * x.numel())
+            * x.element_size(),
+            2 * F.max_batch * m.top_k * 3 * D * m.d_ff_expert,
+            PEAK_BF16_FLOPS), experts_chosen=chosen,
+            shape=f"{F.max_batch} tokens x {m.n_experts} experts (top "
+                  f"{m.top_k}, {chosen} chosen), D {D}, F {m.d_ff_expert}")
+    if cfg.hybrid is not None:
+        S, R = max(lens), cfg.hybrid.lru_width or cfg.d_model
+        a = torch.rand((1, S, R), generator=gen, device=dev)
+        b = torch.randn((1, S, R), generator=gen, device=dev)
+        out["rglru.rglru_scan"] = dict(device_step(
+            torch, T, lambda: rglru.rglru_scan(a, b), 3 * S * R * 4,
+            2 * S * R, PEAK_F32_FLOPS), shape=f"1 x {S} x {R} float32")
+    for name, r in out.items():
+        log(f"phase 10: device step {name} ({r['shape']}): {r['kernels']} "
+            f"kernels a call, {r['ms']:.4f} ms cold against a "
+            f"{r['bound_ms']:.4f} ms bound ({r['bound_by']})")
+    return out
+
+
+def phase_family(torch, np, dev, F, arch, rng, T, params=None) -> dict:
+    """Phase 10, one model family: `arch` at full width (seeded bf16
+    parameters; `params`, the reference's carried over, on the CPU)
+    served by `ServeEngine(max_batch, max_seq, device_ring=True)` —
+    paged and unbucketed for the MoE decoder, dense for the hybrid, as
+    `pageable` / `bucketable` decide — on `family_prompts`, every step's
+    logits held against the port's unpadded reference (spec-driven
+    padding) teacher-forced on the engine's tokens; then
+    `PDServer.serve` of F.pd_batch x F.pd_prompt against the dense
+    greedy decode of the same batch. Both are the counted main path. On
+    the card it also checks the launches per prefill and per admitting
+    step, and times prefill per request, decode per step, the RG-LRU
+    scan inside the longest prefill or the expert loop inside a decode
+    step, and profiles one decode step."""
+    from repro_torch import tree
+    from repro_torch.kernels import _build
+    from repro_torch.models import moe, rglru
+    from repro_torch.models.registry import build_model
+    from repro_torch.models.transformer import layer_plan
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.paged import bucketable, pageable
+    from repro_torch.serve.pd_disagg import PDServer
+
+    cuda = dev.type == "cuda"
+    tag = f"phase 10 ({arch}{', reduced' if F.reduce else ''})"
+    cfg = family_cfg(arch, F)
+    model = build_model(cfg)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    if params is None:
+        params = model.init(torch.Generator(device=dev).manual_seed(F.seed),
+                            device=dev)
+    T.sync()
+    n_attn = sum(k.mix in ("attn", "attn_win") for k in layer_plan(cfg))
+    lens = family_prompts(cfg, F)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in lens]
+    log(f"{tag}: {cfg.n_layers} layers ({n_attn} attention), "
+        f"{cfg.param_count():,} parameters ({cfg.active_param_count():,} "
+        f"active) in {cfg.dtype}, built in {time.perf_counter() - t0:.1f} s;"
+        f" prompts of {list(lens)} tokens, {F.new} new each")
+
+    eng = ServeEngine(model, params, max_batch=F.max_batch,
+                      max_seq=F.max_seq, page_tokens=F.page,
+                      device_ring=True)
+    check(eng.paged == pageable(model) and not eng.bucketed
+          and not bucketable(model) and eng.ring.device,
+          f"{tag}: engine paged={eng.paged} bucketed={eng.bucketed}")
+    logits_of, prefills, polled = record_engine(eng, _build)
+    launches, shapes = {}, {}
+    rids, steps, run_s = count_launches(
+        _build, launches, lambda: drive_engine(T, _build, eng, prompts,
+                                               F.new, prefills, polled),
+        shapes)
+    results = dict(eng._finished)
+    check(sorted(results) == rids and all(len(results[r]) == F.new
+                                          for r in rids),
+          f"{tag}: requests did not all finish with {F.new} tokens")
+    check(not eng.requests and not eng.pinned_prompts, "live dicts kept")
+    if eng.paged:
+        pool = eng.pool
+        check(len(pool._free) == pool.n_pages - 1 and (pool.table == 0).all()
+              and pool.pages_allocated == pool.pages_freed > 0,
+              f"{tag}: pages not all back in the pool")
+    check(sorted(s for s, _ in prefills) == sorted(lens)
+          and eng.prefill_compiles == len(set(lens)),
+          f"{tag}: prefill lengths {prefills} are not the prompts' {lens}")
+    check(max(s["active"] for s in steps) == F.max_batch
+          and steps[0]["cqes"] == len(prompts)
+          and sum(s["prefills"] for s in steps) == len(prompts),
+          f"{tag}: the burst was not absorbed")
+    if cuda:
+        check(all(n == n_attn for _, n in prefills),
+              f"{tag}: flash launches per prefill {prefills}")
+        check(all(s["ring"] == (1 if s["cqes"] else 0) for s in steps),
+              f"{tag}: produce_consume is not one launch per admitting step")
+    log(f"{tag}: {len(rids)} requests on {F.max_batch} slots "
+        f"({'paged' if eng.paged else 'dense'}) in {len(steps)} steps, "
+        f"{run_s:.2f} s; prefills (length, flash launches) {prefills}")
+
+    # every step's logits against the unpadded reference at the engine's
+    # batch: the reference repeats the request's row over the engine's
+    # slots, so it runs the engine's shapes. For the MoE the first
+    # request's reference also runs at batch 1 (`moe_route_witness`):
+    # once a router's top-k choice differs between the two, their
+    # logits may part without bound; before it they must agree within
+    # the bound, or the decode path depends on the batch.
+    tol = LOGIT_TOL[cfg.dtype]
+    worst, worst_at, agree, n_tok, max_d = 0.0, None, 0, 0, 0.0
+    witness = None
+    if cfg.moe is not None:
+        witness, r0 = moe_route_witness(torch, model, params, prompts[0],
+                                        results[rids[0]], F.max_seq, dev,
+                                        F.max_batch)
+        # the same pair in float32, whose rounding is 2^16 times finer:
+        # a fault of the decode path at batch 4 would part them at the
+        # first decode step as much as in bf16; rounding, far less
+        m32 = build_model(dataclasses.replace(cfg, dtype="float32"))
+        p32 = tree.map(lambda a: a.float() if a.is_floating_point() else a,
+                       params)
+        witness["float32"] = moe_route_witness(
+            torch, m32, p32, prompts[0], results[rids[0]], F.max_seq, dev,
+            F.max_batch)[0]
+        del m32, p32
+    else:
+        r0 = _serve_reference(torch, model, params, prompts[0],
+                              results[rids[0]], F.max_seq, dev)
+    g0 = torch.stack(logits_of[rids[0]])
+    batch1 = float(((g0 - r0).abs().amax(-1) / r0.abs().amax(-1)).max())
+    for rid, prompt in zip(rids, prompts):
+        toks = results[rid]
+        ref = _serve_reference(torch, model, params, prompt, toks,
+                               F.max_seq, dev, batch=F.max_batch)
+        got = torch.stack(logits_of[rid])
+        check(got.shape == ref.shape and bool(torch.isfinite(got).all()),
+              f"{tag}: request {rid}: logits {tuple(got.shape)} vs "
+              f"{tuple(ref.shape)}, or not finite")
+        d = (got - ref).abs().amax(dim=-1)
+        rel = d / ref.abs().amax(dim=-1)
+        max_d = max(max_d, float(d.max()))
+        if float(rel.max()) > worst:
+            worst, worst_at = float(rel.max()), (prompt.size, int(rel.argmax()))
+        same = ref.argmax(dim=-1) == torch.tensor(toks, device=dev)
+        agree += int(same.sum())
+        n_tok += same.numel()
+    log(f"{tag}: logits vs the unpadded reference at batch {F.max_batch}: "
+        f"max |dlogit| {max_d:.4g}, worst step {worst:.4g} of its largest "
+        f"|logit| at (prompt length, step) {worst_at} (tolerance {tol:g}); "
+        f"tokens agree {agree}/{n_tok}; the first request against the "
+        f"reference at batch 1: worst step {batch1:.4g}")
+    check(worst <= tol, f"{tag}: logits differ from the reference by "
+          f"{worst:.4g} of their scale at {worst_at} (tolerance {tol:g})")
+    if witness is not None:
+        log(f"{tag}: the first request's reference at batch 1 vs batch "
+            f"{F.max_batch}: {witness}")
+        check(witness["before_first_flip"] <= tol,
+              f"{tag}: the references at batch 1 and {F.max_batch} differ "
+              f"by {witness['before_first_flip']:.4g} of scale before any "
+              f"router choice differs (tolerance {tol:g})")
+        f32 = witness["float32"]["rel_by_step"]
+        check(len(f32) < 2 or f32[1] <= tol,
+              f"{tag}: in float32 the references at batch 1 and "
+              f"{F.max_batch} differ by {f32[1]:.4g} of scale at the first "
+              f"decode step (tolerance {tol:g})")
+
+    # PDServer: prefill, one KV SEND, the page round trip (sequence
+    # leaves only), greedy decode; against the dense greedy decode
+    pd_prompts = rng.integers(0, cfg.vocab_size,
+                              (F.pd_batch, F.pd_prompt)).astype(np.int32)
+    server = PDServer(model, params, max_seq=F.pd_seq, page_tokens=F.page)
+    T.sync()
+    t1 = time.perf_counter()
+    pd_toks, stats = count_launches(
+        _build, launches, lambda: server.serve(pd_prompts,
+                                               n_steps=F.pd_steps), shapes)
+    T.sync()
+    pd_s = time.perf_counter() - t1
+    want = dense_greedy(torch, np, model, params, pd_prompts, F.pd_seq,
+                        F.pd_steps, dev)
+    check(np.array_equal(pd_toks, want),
+          f"{tag}: PDServer tokens differ from the dense greedy decode")
+    log(f"{tag}: PDServer.serve of {F.pd_batch} x {F.pd_prompt} tokens, "
+        f"{F.pd_steps} steps, max_seq {F.pd_seq}: {pd_s:.2f} s, tokens "
+        f"equal the dense greedy decode; payload/header bytes "
+        f"{stats.payload_bytes}/{stats.header_bytes}")
+    if cuda:
+        check(launches.get("flash_attention", 0)
+              == n_attn * (len(prompts) + 1)
+              and launches.get("ring_produce_consume", 0) > 0
+              and not launches.get("flash_attention_generic"),
+              f"{tag}: launches {launches}")
+        if eng.paged:
+            check(launches.get("ingest_pages", 0) > 0
+                  and launches.get("gather_rows", 0) > 0,
+                  f"{tag}: the page round trip did not launch: {launches}")
+    flash_by_shape = {flash_key(flash_layout(cfg), s): n for s, n in
+                      shapes.get("flash_attention", {}).items()}
+    log(f"{tag}: kernel launches {launches}; flash launches by shape "
+        f"{flash_by_shape}")
+
+    # timings (the stand-in timer of the CPU test returns zeros)
+    prefill_ms = {}
+    for p in prompts:
+        tk = torch.from_numpy(p[None]).to(dev)
+        prefill_ms[int(p.size)] = statistics.median(
+            T.wall(lambda: model.prefill(params, tk)) for _ in range(F.reps))
+    timing = dict(prefill_ms=prefill_ms)
+    if cfg.hybrid is not None:
+        # the RG-LRU scans (every rec layer's) inside the longest prefill
+        tk = torch.from_numpy(max(prompts, key=len)[None]).to(dev)
+        scan0, spans, walls, shares = rglru.rglru_scan, [], [], []
+        rglru.rglru_scan = lambda *a, **kw: T.span(lambda: scan0(*a, **kw),
+                                                   spans)
+        try:
+            for _ in range(F.reps):
+                spans.clear()
+                walls.append(T.wall(lambda: model.prefill(params, tk)))
+                shares.append(T.spans_ms(spans))
+        finally:
+            rglru.rglru_scan = scan0
+        timing.update(scan_prefill_len=int(tk.shape[1]),
+                      scan_ms=statistics.median(shares),
+                      scan_calls=len(spans),
+                      scan_prefill_ms=statistics.median(walls))
+    decode = [s["ms"] for s in steps
+              if s["active"] == F.max_batch and not s["prefills"]]
+    n_tokens = sum(len(v) for v in results.values())
+    timing.update(decode_ms_per_step=statistics.median(decode) if decode
+                  else None, decode_steps_timed=len(decode),
+                  tokens_per_s=n_tokens / run_s, run_s=run_s,
+                  steps=len(steps), pd_serve_s=pd_s)
+    peak = torch.cuda.max_memory_allocated() / 2**30 if cuda else None
+    if cuda:
+        target = (moe, "_moe_local") if cfg.moe is not None \
+            else (rglru, "rglru_decode")
+        timing["decode_profile"] = profile_decode_step(torch, eng, F, T,
+                                                       target)
+        timing["device_steps"] = family_device_steps(
+            torch, dev, cfg, params, F, lens, T)
+    log(f"{tag}: prefill ms by prompt length {prefill_ms} (median of "
+        f"{F.reps}); decode {timing['decode_ms_per_step']} ms per step at "
+        f"{F.max_batch} slots (median of {len(decode)}); "
+        f"{timing['tokens_per_s']:.1f} tokens/s over the run; peak device "
+        f"memory {peak} GiB; {({k: v for k, v in timing.items() if 'scan' in k})}"
+        f"; one profiled decode step {timing.get('decode_profile')}")
+    eng.close()
+    return dict(launches=launches, flash_by_shape=flash_by_shape,
+                ring_classes=ring_classes(shapes), timing=timing,
+                peak_gib=peak, logit_rel_err=worst, max_dlogit=max_d,
+                logit_rel_err_batch1=batch1, route_witness=witness,
+                token_agreement=agree / n_tok, n_params=cfg.param_count(),
+                active_params=cfg.active_param_count(),
+                tokens=[results[r] for r in rids],
+                prompts=[p.tolist() for p in prompts],
+                pd_tokens=pd_toks.tolist(), pd_prompts=pd_prompts.tolist(),
+                pd_bytes=(stats.payload_bytes, stats.header_bytes))
 
 
 # -- phase 2, the T3 pipe's gather and the list walk ----------------------------
@@ -2797,7 +3398,6 @@ def phase_cluster(torch, np, dev, C, rng, T, params=None) -> dict:
     from repro_torch.models.registry import build_model
     from repro_torch.obs import metrics
     from repro_torch.serve.engine import ServeEngine
-    from repro_torch.serve.kvcache import pad_caches
     from repro_torch.serve.pd_disagg import PDServer, PrefillPod
     from repro_torch.serve.router import Router
 
@@ -3016,20 +3616,8 @@ def phase_cluster(torch, np, dev, C, rng, T, params=None) -> dict:
     check(np.array_equal(toks, pd[0]["tokens"]),
           "PDServer tokens with staged=True differ from the unstaged run's")
     free_device_memory(torch)
-    tok = torch.from_numpy(pd_prompts).to(dev)
-    logits, caches = model.prefill(params, tok)
-    caches = pad_caches(caches, C.pd_prompt, C.pd_seq)
-    cur = torch.argmax(logits[:, -1], dim=-1).reshape(-1, 1).to(torch.int32)
-    ref = [cur[:, 0].cpu().numpy()]
-    pos = torch.full((C.pd_batch,), C.pd_prompt, dtype=torch.int32,
-                     device=dev)
-    for _ in range(C.pd_steps):
-        logits, caches = model.decode_step(params, cur, caches, pos)
-        cur = torch.argmax(logits[:, :1], dim=-1).to(torch.int32)
-        ref.append(cur[:, 0].cpu().numpy())
-        pos = pos + 1
-    ref = np.stack(ref, 1)
-    del caches, logits
+    ref = dense_greedy(torch, np, model, params, pd_prompts, C.pd_seq,
+                       C.pd_steps, dev)
     check(np.array_equal(pd[0]["tokens"], ref),
           "PDServer tokens differ from the unpaged greedy decode")
     log(f"phase 8 (e): PDServer.serve of {C.pd_batch} x {C.pd_prompt} "
@@ -3049,8 +3637,9 @@ def phase_cluster(torch, np, dev, C, rng, T, params=None) -> dict:
                   f"cluster path: {launches}")
         check(not launches.get("flash_attention_generic"),
               f"the cluster's prefills left the TMA entry: {launches}")
-    flash_by_shape = shapes.get("flash_attention", {})
-    log(f"phase 8: kernel launches {launches}; flash launches by B x S "
+    flash_by_shape = {flash_key(flash_layout(cfg), s): n for s, n in
+                      shapes.get("flash_attention", {}).items()}
+    log(f"phase 8: kernel launches {launches}; flash launches by shape "
         f"{flash_by_shape}; peak device memory {peak} GiB")
     return dict(launches=launches, flash_by_shape=flash_by_shape,
                 ring_classes=ring_classes(shapes), peak_gib=peak,
@@ -3310,19 +3899,25 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"phase 1: {name}: {line.strip()}")
 
+    def mark(what):
+        log(f"{what} done at {time.perf_counter() - t_start:.1f} s")
+
     rows = phase_kernels(torch, np, dev, S, rng, T)
     rows.update(phase_kv_kernels(torch, np, dev, KV, rng, T))
     rows.update(phase_flash_kernels(torch, np, dev, SERVE, rng, T))
     rows.update(phase_pipe_kernels(torch, np, dev, PIPE, STORE, rng, T))
     free_device_memory(torch)
+    mark("phase 2")
     vec, D, lpf, main_launches, ring_cls = phase_datapath(torch, np, dev, S,
                                                           rng, T)
     timing = phase_timing(torch, np, dev, S, T, vec, D)
+    mark("phases 3-4")
     del vec, D                  # the 12 GiB block MRs, before phase 5
     free_device_memory(torch)
     kv = phase_kv(torch, np, dev, KV, rng, T,
                   {k: rows[k]["ms"] for k in ("kv_ingest", "wr_gather.pages")})
     free_device_memory(torch)           # phase 5's fabrics, before phase 6
+    mark("phase 5")
     # one seeded bf16 parameter tree for the serving path and the cluster
     from repro_torch.models.registry import build_model
     from repro_torch.configs.base import get_config
@@ -3330,19 +3925,29 @@ def main() -> int:
         torch.Generator(device=dev).manual_seed(SERVE.seed), device=dev)
     serve = phase_serve(torch, np, dev, SERVE, rng, T, params=params)
     free_device_memory(torch)
+    mark("phase 6")
     t3 = phase_t3(torch, np, dev, PIPE, rng, T)
     t3.pop("payload")
     free_device_memory(torch)
+    mark("phase 7")
     cluster = phase_cluster(torch, np, dev, CLUSTER, rng, T, params=params)
     del params
     free_device_memory(torch)
+    mark("phase 8")
     storage = phase_storage(torch, np, dev, STORE, rng, T)
     free_device_memory(torch)
+    mark("phase 9")
+    families = {}
+    for arch in FAMILIES.archs:
+        families[arch] = phase_family(torch, np, dev, FAMILIES, arch, rng, T)
+        free_device_memory(torch)
+        mark(f"phase 10 ({arch})")
 
     # launches per C entry point on each main path's own run
     paths = {"datapath": main_launches, "kv_leg": kv["launches"],
              "serve": serve["launches"], "t3_pipe": t3["launches"],
              "cluster": cluster["launches"], "storage": storage["launches"]}
+    paths.update({FAMILY_PATH[a]: r["launches"] for a, r in families.items()})
     kernels = []
     for r in rows.values():
         entry = r.pop("entry")
@@ -3354,7 +3959,8 @@ def main() -> int:
     flash = next(k for k in kernels if k["name"] == "flash_attention")
     flash["launches_by_shape"] = {
         p: dict(sorted(r["flash_by_shape"].items()))
-        for p, r in (("serve", serve), ("cluster", cluster))}
+        for p, r in [("serve", serve), ("cluster", cluster)]
+        + [(FAMILY_PATH[a], r) for a, r in families.items()]}
     excess, untimed = {}, set()
     for by in flash["launches_by_shape"].values():
         for shape, n in by.items():
@@ -3372,6 +3978,8 @@ def main() -> int:
                     "t3_pipe": t3["ring_classes"],
                     "cluster": cluster["ring_classes"],
                     "storage": storage["ring_classes"]}
+    ring_by_path.update({FAMILY_PATH[a]: r["ring_classes"]
+                         for a, r in families.items()})
     for k in kernels:
         entry = "ring_" + k["name"].removeprefix("desc_ring.")
         if entry in RING_DEFS:
@@ -3389,12 +3997,16 @@ def main() -> int:
         cluster.pop(key)
     for row in cluster["sweep"]:
         row.pop("tokens_out")
+    for r in families.values():
+        for key in ("tokens", "prompts", "pd_tokens", "pd_prompts"):
+            r.pop(key)
     check(kernels and all(k["launches"] > 0 for k in kernels
                           if k.get("main_path", True)),
           f"a kernel never launched on a main path: {kernels}")
     log(json.dumps({"chains": timing, "launches_per_flush": lpf,
                     "kv_leg": kv, "serve": serve, "t3_pipe": t3,
                     "cluster": cluster, "storage": storage,
+                    "families": families,
                     "seconds": time.perf_counter() - t_start}))
     log(smi)
     print(json.dumps({"kernels": kernels}))

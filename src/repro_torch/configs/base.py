@@ -5,10 +5,10 @@ Every assigned architecture gets one module in this package that builds a
 any config to a CPU-smoke-testable size while preserving the family's
 structure (MoE stays MoE, the hybrid block pattern stays 2:1, ...).
 
-A copy of the reference's `repro.configs` (pure data). The reference's
-`ModelConfig.param_count` / `active_param_count` need the models'
-parameter specs, which the port gains with the serving model (ROADMAP
-slice 4); until then they are left out here.
+A copy of the reference's `repro.configs`. `ModelConfig.param_count` /
+`active_param_count` count the port's parameter specs
+(`models.registry.count_params_analytic`), so they raise for a family
+the port does not build yet.
 """
 from __future__ import annotations
 
@@ -116,6 +116,15 @@ class ModelConfig:
     def subquadratic(self) -> bool:
         """Can this arch decode with O(window+state) memory at 500k context?"""
         return self.family in ("ssm", "hybrid")
+
+    def param_count(self) -> int:
+        """Analytic parameter count (total, incl. all experts)."""
+        from repro_torch.models.registry import count_params_analytic
+        return count_params_analytic(self)
+
+    def active_param_count(self) -> int:
+        from repro_torch.models.registry import count_params_analytic
+        return count_params_analytic(self, active_only=True)
 
 
 # --------------------------------------------------------------------------

@@ -121,7 +121,8 @@ def params_from_numpy(arrays, device=None, *, model=None,
     bits) as the port's tree of tensors on `device` (None: the package
     default). With `model`, the leaves must match its `param_specs` in
     order and shape, and a leaf whose spec names a dtype must have it
-    (the norms' float32 scales)."""
+    (the norms' scales, the MoE router's weights and bias and the
+    RG-LRU's Λ stay float32 in a bf16 model)."""
     params = tree_from_numpy(arrays, device, bf16_bits=bf16_bits)
     if model is None:
         return params

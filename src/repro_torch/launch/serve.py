@@ -6,10 +6,17 @@ decode — on the torch port.
         --reduced --device cpu            # on the CPU, at smoke size
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma-2b \\
         --reduced                         # on the card
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch recurrentgemma-2b          # full width, on the card
 
-The parameters are random, drawn from a `torch.Generator` seeded with
-`--seed` on the run's device; the prompts come from a numpy generator
-with the same seed. `--pd` routes the requests through `PDServer`:
+`--arch` takes every decoder family the port builds: the dense
+decoders (gemma-2b, ...), the MoE decoder granite-moe-1b-a400m (paged,
+prompts at their exact lengths) and the hybrid recurrentgemma-2b (the
+dense engine: its window and recurrent-state caches are not paged);
+`--reduced` shrinks any of them to smoke size. The parameters are
+random, drawn from a `torch.Generator` seeded with `--seed` on the
+run's device; the prompts come from a numpy generator with the same
+seed. `--pd` routes the requests through `PDServer`:
 prefill, the KV transfer as one verbs SEND, the paged ingest round
 trip and greedy decode (`--quantize-kv`: int8 KV on the wire).
 

@@ -7,14 +7,15 @@ built from it. Trees flatten in `jax.tree` order (`repro_torch.tree`:
 dict keys sorted), so a leaf list of the port and one of the reference
 compare 1:1.
 
-Initializers: ``zeros``, ``ones`` and ``normal`` (std = the spec's
-scale, else 1/sqrt(shape[-2]), drawn in float32 and cast), the random
-one from an explicit `torch.Generator` that the caller passes: leaves
-draw in tree order from that one generator, so a seed fixes the whole
-tree. The same seed does not give the reference's numbers, and nothing
-tries to: tests carry parameters across as numpy
-(`convert.params_from_numpy`). The ssm/rglru initializers (``a_log``,
-``rglru_a``) come with the remaining model families (ROADMAP slice 6).
+Initializers: ``zeros``, ``ones``, ``normal`` (std = the spec's
+scale, else 1/sqrt(shape[-2]), drawn in float32 and cast) and
+``rglru_a`` (Griffin's Λ, the logit of a uniform draw in
+[0.9^(1/8), 0.999^(1/8)]), the random ones from an explicit
+`torch.Generator` that the caller passes: leaves draw in tree order
+from that one generator, so a seed fixes the whole tree. The same seed
+does not give the reference's numbers, and nothing tries to: tests
+carry parameters across as numpy (`convert.params_from_numpy`). The
+ssm initializer (``a_log``) comes with mamba2 (ROADMAP slice 6c).
 """
 from __future__ import annotations
 
@@ -33,7 +34,7 @@ from repro_torch.device import resolve
 class Spec:
     shape: tuple[int, ...]
     axes: tuple[Optional[str], ...]
-    init: str = "normal"            # normal | zeros | ones
+    init: str = "normal"            # normal | zeros | ones | rglru_a
     scale: Optional[float] = None   # stddev; None => 1/sqrt(fan_in)
     dtype: Optional[str] = None     # None => model default dtype
 
@@ -90,10 +91,18 @@ def _init_leaf(spec: Spec, default_dtype: str, device: torch.device,
         v = torch.randn(spec.shape, generator=generator, dtype=torch.float32,
                         device=device)
         return v.mul_(std).to(dt)
-    if spec.init in ("a_log", "rglru_a"):
+    if spec.init == "rglru_a":
+        # griffin Λ: a = sigmoid(Λ) with a^c roughly in [0.9, 0.999], c = 8
+        if generator is None:
+            raise ValueError("the rglru_a initializer needs a "
+                             "torch.Generator")
+        lo, hi = 0.9 ** (1 / 8), 0.999 ** (1 / 8)
+        u = torch.rand(spec.shape, generator=generator, dtype=torch.float32,
+                       device=device).mul_(hi - lo).add_(lo)
+        return torch.log(u / (1.0 - u)).to(dt)
+    if spec.init == "a_log":
         raise NotImplementedError(
-            f"init {spec.init!r} comes with the remaining model families "
-            "(ROADMAP slice 6)")
+            "init 'a_log' comes with mamba2 (ROADMAP slice 6c)")
     raise ValueError(f"unknown init {spec.init!r}")
 
 

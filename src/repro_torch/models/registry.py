@@ -1,7 +1,12 @@
-"""Model registry: config -> model (the decoder families)."""
+"""Model registry: config -> model (the decoder families), parameter
+accounting."""
 from __future__ import annotations
 
+import numpy as np
+
+from repro_torch import tree
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import module as mod
 
 
 def build_model(cfg: ModelConfig):
@@ -12,3 +17,17 @@ def build_model(cfg: ModelConfig):
             "the encoder-decoder family comes with ROADMAP slice 6")
     from repro_torch.models.transformer import DecoderLM
     return DecoderLM(cfg)
+
+
+def count_params_analytic(cfg: ModelConfig, active_only: bool = False) -> int:
+    """Parameters in `cfg`'s specs; with `active_only`, an expert leaf
+    counts top_k / n_experts of its size (the parameters one token
+    meets)."""
+    specs = build_model(cfg).param_specs()
+    total = 0
+    for leaf in tree.leaves(specs, is_leaf=mod.is_spec):
+        n = int(np.prod(leaf.shape))
+        if active_only and "expert" in leaf.axes:
+            n = int(n * cfg.moe.top_k / cfg.moe.n_experts)
+        total += n
+    return total

@@ -1,0 +1,166 @@
+"""Griffin / RecurrentGemma recurrent block: Conv1D + RG-LRU gated linear
+recurrence, with a parallel GeLU gate branch. [arXiv:2402.19427]
+
+    r_t = sigmoid(W_a x_t + b_a)          (recurrence gate, block-diagonal)
+    i_t = sigmoid(W_x x_t + b_x)          (input gate, block-diagonal)
+    log a_t = -c * softplus(Lambda) * r_t          (c = 8)
+    h_t = a_t * h_{t-1} + sqrt(1 - a_t^2) * (i_t * x_t)
+
+The port of the reference's `repro.models.rglru`, function by function.
+The gate matrices are block-diagonal with the reference's block count
+(`_nb`: 16 blocks where the lru width allows, a recorded deviation from
+RecurrentGemma's width/256 there). The recurrence state `h` and the
+conv history are float32 whatever the model dtype.
+
+Differences from the reference, on purpose:
+
+  * `rglru_scan` is an inclusive Hillis–Steele scan: ceil(log2 S)
+    whole-tensor steps with the reference's combine (al·ar, bl·ar + br),
+    in float32, where the reference runs `lax.associative_scan` (a
+    Blelloch tree). Both are exact reassociations of the same
+    recurrence; float32 sums differ in order only (held at 1e-5).
+  * A prompt shorter than the conv history (S < conv_width - 1) leaves a
+    conv state of conv_width - 1 rows, the missing ones zero (what
+    `_dconv` reads before the sequence's start). The reference keeps the
+    S rows it has, and its decode then fails on the short history.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.layers import linear, linear_spec
+from repro_torch.models.module import Spec
+
+C_EXP = 8.0
+
+
+def _nb(cfg) -> int:
+    R = cfg.hybrid.lru_width or cfg.d_model
+    M = 16  # the reference's production model-axis size
+    if R % M == 0:
+        return M
+    for nb in (8, 4, 2, 1):
+        if R % nb == 0:
+            return nb
+    return 1
+
+
+def rglru_block_spec(cfg) -> dict:
+    D = cfg.d_model
+    R = cfg.hybrid.lru_width or D
+    K = cfg.hybrid.conv_width
+    nb = _nb(cfg)
+    bw = R // nb
+    return {
+        "w_x": linear_spec(D, R, ("embed", "rnn")),
+        "w_gate": linear_spec(D, R, ("embed", "rnn")),
+        "conv": Spec((K, R), ("conv", "rnn")),
+        "conv_b": Spec((R,), ("rnn",), init="zeros"),
+        "gate_a": Spec((nb, bw, bw), ("rnn", None, None)),
+        "gate_a_b": Spec((R,), ("rnn",), init="zeros"),
+        "gate_x": Spec((nb, bw, bw), ("rnn", None, None)),
+        "gate_x_b": Spec((R,), ("rnn",), init="zeros"),
+        "lam": Spec((R,), ("rnn",), init="rglru_a", dtype="float32"),
+        "out": linear_spec(R, D, ("rnn", "embed")),
+    }
+
+
+def _block_diag(w, b, x, nb: int):
+    """x: (..., R) -> (..., R) via block-diagonal matmul."""
+    shp = x.shape
+    xb = x.reshape(*shp[:-1], nb, shp[-1] // nb)
+    y = torch.einsum("...ni,nio->...no", xb, w)
+    return y.reshape(shp) + b.to(x.dtype)
+
+
+def _dconv(x, w, b):
+    """Depthwise causal conv along axis 1: x (B, S, R), w (K, R)."""
+    K = w.shape[0]
+    S = x.shape[1]
+    xp = F.pad(x, (0, 0, K - 1, 0))
+    y = sum(xp[:, j:j + S] * w[j] for j in range(K))
+    return y + b.to(y.dtype)
+
+
+def _gates(params, xr, nb: int):
+    r = torch.sigmoid(_block_diag(params["gate_a"], params["gate_a_b"],
+                                  xr, nb).float())
+    i = torch.sigmoid(_block_diag(params["gate_x"], params["gate_x_b"],
+                                  xr, nb).float())
+    log_a = -C_EXP * F.softplus(params["lam"]) * r
+    a = torch.exp(log_a)
+    beta = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12))
+    gated = beta * i * xr.float()
+    return a, gated
+
+
+def rglru_scan(a, b, h0=None):
+    """Linear recurrence h_t = a_t h_{t-1} + b_t along axis 1 (f32).
+
+    An inclusive Hillis–Steele scan: at stride d every position t >= d
+    folds in the prefix ending at t - d with the combine (al·ar,
+    bl·ar + br), so after ceil(log2 S) steps position t holds the
+    composition of steps 0..t — O(log S) launches, not O(S)."""
+    S = a.shape[1]
+    aa, hh = a, b
+    d = 1
+    while d < S:
+        hh = torch.cat([hh[:, :d], hh[:, :-d] * aa[:, d:] + hh[:, d:]], 1)
+        if 2 * d < S or h0 is not None:
+            aa = torch.cat([aa[:, :d], aa[:, :-d] * aa[:, d:]], 1)
+        d *= 2
+    if h0 is not None:
+        hh = hh + aa * h0[:, None]
+    return hh
+
+
+def rglru_forward(params, x, cfg, *, return_cache: bool = False,
+                  h0=None, conv0=None):
+    """x: (B,S,D) -> (B,S,D) [, cache]."""
+    nb = _nb(cfg)
+    gate = F.gelu(linear(params["w_gate"], x), approximate="tanh")
+    xr = linear(params["w_x"], x)
+    xr_raw = xr
+    if conv0 is not None:
+        ext = torch.cat([conv0.to(xr.dtype), xr], dim=1)
+        xr = _dconv(ext, params["conv"], params["conv_b"])[:, conv0.shape[1]:]
+    else:
+        xr = _dconv(xr, params["conv"], params["conv_b"])
+    a, gated = _gates(params, xr, nb)
+    h = rglru_scan(a, gated, h0)
+    y = h.to(x.dtype) * gate
+    out = linear(params["out"], y)
+    if not return_cache:
+        return out
+    K = cfg.hybrid.conv_width
+    hist = xr_raw[:, -(K - 1):].float()
+    if hist.shape[1] < K - 1:           # a prompt shorter than the history
+        hist = F.pad(hist, (0, 0, K - 1 - hist.shape[1], 0))
+    return out, {"h": h[:, -1], "conv": hist}
+
+
+def rglru_decode(params, x, cache, cfg):
+    """x: (B,1,D) single-token step."""
+    nb = _nb(cfg)
+    gate = F.gelu(linear(params["w_gate"], x), approximate="tanh")
+    xr_new = linear(params["w_x"], x)                       # (B,1,R)
+    hist = torch.cat([cache["conv"].to(xr_new.dtype), xr_new],
+                     dim=1)                                 # (B,K,R)
+    xr = torch.einsum("bkr,kr->br", hist, params["conv"]) \
+        + params["conv_b"].to(x.dtype)
+    a, gated = _gates(params, xr[:, None], nb)
+    h = a[:, 0] * cache["h"] + gated[:, 0]                  # (B,R)
+    y = h.to(x.dtype)[:, None] * gate
+    out = linear(params["out"], y)
+    return out, {"h": h, "conv": hist[:, 1:].float()}
+
+
+def rglru_cache_spec(cfg, batch: int) -> dict:
+    R = cfg.hybrid.lru_width or cfg.d_model
+    K = cfg.hybrid.conv_width
+    return {
+        "h": Spec((batch, R), ("batch", "rnn"), init="zeros", dtype="float32"),
+        "conv": Spec((batch, K - 1, R), ("batch", None, "rnn"), init="zeros",
+                     dtype="float32"),
+    }

@@ -1,12 +1,15 @@
 """Decoder-only LM: layer plan -> groups -> step functions.
 
-The port of the reference's `repro.models.transformer` for the dense
-attention decoder the serving model runs (gemma-2b and the other
-`attn` + dense-FFN configurations): the parameter and cache specs, the
-GQA attention block (train / prefill through the flash kernel, decode
-through the local flash-decode), `block_apply` for `attn` with a dense
-or no FFN, and `DecoderLM`'s `init` / `forward` / `prefill` /
-`decode_step`.
+The port of the reference's `repro.models.transformer` for the
+decoder families one process serves: the dense attention decoders
+(gemma-2b and the other `attn` + dense-FFN configurations), the MoE
+decoder (granite-moe: `attn` + `moe`, and the `dense_big` FFN that
+leads deepseek's stack) and the Griffin hybrid (recurrentgemma: `rec`
+RG-LRU blocks and `attn_win` local attention). The parameter and cache
+specs, the GQA attention block (train / prefill through the flash
+kernel, windowed or not; decode through the local flash-decode or the
+rolling window), `block_apply`, and `DecoderLM`'s `init` / `forward` /
+`prefill` / `decode_step`.
 
 Differences from the reference, on purpose:
 
@@ -18,10 +21,9 @@ Differences from the reference, on purpose:
     multi-token-prediction head and no frontends: training, the
     parallelism slice and the other families bring them. The step
     functions run under `torch.no_grad()`; training brings gradients.
-  * The `mla`, `rec` and `ssm` mixers, the windowed attention of the
-    hybrids and the MoE FFNs (`moe`, and `dense_big` before them) raise
-    NotImplementedError naming the remaining model families (ROADMAP
-    slice 6), as their cache specs do.
+  * The `mla` and `ssm` mixers raise NotImplementedError naming the
+    remaining model families (ROADMAP slices 6c, 6d), as their cache
+    specs do; so does the multi-token-prediction head.
 """
 from __future__ import annotations
 
@@ -31,7 +33,7 @@ from dataclasses import dataclass
 import torch
 
 from repro_torch import tree
-from repro_torch.models import ffn
+from repro_torch.models import ffn, moe, rglru
 from repro_torch.models.layers import (apply_rope, embed, embedding_spec,
                                        proj_spec, rmsnorm, rmsnorm_spec,
                                        softcap, unembed)
@@ -40,6 +42,8 @@ from repro_torch.models.module import (Spec, init_params, stack_specs,
 from repro_torch.parallel import collectives
 
 _LATER = "comes with the remaining model families (ROADMAP slice 6)"
+_MIXERS = ("attn", "attn_win", "rec")
+_FFNS = ("dense", "dense_big", "moe", "none")
 
 
 # --------------------------------------------------------------------------
@@ -140,14 +144,16 @@ def _out_proj(params, y):
     return y.flatten(-2) @ params["wo"]["w"].reshape(H * K, D)
 
 
-def attn_apply(params, x, positions, cfg, *, mode="train", cache=None,
-               pos=None):
+def attn_apply(params, x, positions, cfg, *, window=0, mode="train",
+               cache=None, pos=None):
     """Returns (y, new_cache): the cache rows of a prefill, the updated
-    cache of a decode step, None in training. Global causal attention
-    only: the hybrids' windowed layers come with slice 6. The
-    reference's `q_chunk` / `kv_chunk` / `block_skip` (read from its
-    `repro.perf` flags) tile its chunked attention; the flash kernel's
-    tiles are fixed, so the port has neither the flags nor the knobs."""
+    cache of a decode step, None in training. With a `window`, the
+    prefill attends through the flash kernel's window mask and keeps
+    the last min(window, S) keys in the rolling layout (token p in slot
+    p mod W), and decode writes and reads that window. The reference's
+    `q_chunk` / `kv_chunk` / `block_skip` (read from its `repro.perf`
+    flags) tile its chunked attention; the flash kernel's tiles are
+    fixed, so the port has neither the flags nor the knobs."""
     B, S, D = x.shape
     H, KVH = cfg.n_heads, cfg.n_kv_heads
     G = H // KVH
@@ -156,14 +162,26 @@ def attn_apply(params, x, positions, cfg, *, mode="train", cache=None,
 
     if mode in ("train", "prefill"):
         qg = q.reshape(B, S, KVH, G, hd)
-        out = collectives.attend(qg, k, v, causal=True)
+        out = collectives.attend(qg, k, v, causal=True, window=window)
         y = _out_proj(params, out.reshape(B, S, H, hd))
-        return y, ({"k": k, "v": v} if mode == "prefill" else None)
+        new_cache = None
+        if mode == "prefill":
+            if window:
+                W = min(window, S)
+                idxs = S - W + ((torch.arange(W, device=x.device) - S) % W)
+                new_cache = {"k": k[:, idxs], "v": v[:, idxs]}
+            else:
+                new_cache = {"k": k, "v": v}
+        return y, new_cache
 
     # decode
     q1 = q[:, 0].reshape(B, KVH, G, hd)
-    out, kc, vc = collectives.seqparallel_decode_attention(
-        q1, cache["k"], cache["v"], k[:, 0], v[:, 0], pos)
+    if window:
+        out, kc, vc = collectives.window_decode_attention(
+            q1, cache["k"], cache["v"], k[:, 0], v[:, 0], pos, window)
+    else:
+        out, kc, vc = collectives.seqparallel_decode_attention(
+            q1, cache["k"], cache["v"], k[:, 0], v[:, 0], pos)
     y = _out_proj(params, out.reshape(B, 1, H, hd))
     return y, {"k": kc, "v": vc}
 
@@ -203,7 +221,9 @@ def block_cache_spec(cfg, kind: LayerKind, batch: int, seq_len: int) -> dict:
     if kind.mix == "attn_win":
         return attn_cache_spec(cfg, batch, seq_len,
                                window=cfg.hybrid.window)
-    if kind.mix in ("mla", "rec", "ssm"):
+    if kind.mix == "rec":
+        return rglru.rglru_cache_spec(cfg, batch)
+    if kind.mix in ("mla", "ssm"):
         raise NotImplementedError(f"the {kind.mix} cache {_LATER}")
     raise ValueError(kind)
 
@@ -212,19 +232,29 @@ def block_cache_spec(cfg, kind: LayerKind, batch: int, seq_len: int) -> dict:
 # Block = mixer + FFN
 # --------------------------------------------------------------------------
 def _check_kind(kind: LayerKind):
-    if kind.mix != "attn":
+    if kind.mix not in _MIXERS:
         raise NotImplementedError(f"the {kind.mix} mixer {_LATER}")
-    if kind.ffn not in ("dense", "none"):
-        raise NotImplementedError(f"the {kind.ffn} FFN {_LATER}")
+    if kind.ffn not in _FFNS:
+        raise ValueError(kind)
 
 
 def block_spec(cfg, kind: LayerKind) -> dict:
     _check_kind(kind)
     D = cfg.d_model
-    s: dict = {"ln1": rmsnorm_spec(D), "attn": attn_spec(cfg)}
+    s: dict = {"ln1": rmsnorm_spec(D)}
+    if kind.mix in ("attn", "attn_win"):
+        s["attn"] = attn_spec(cfg)
+    else:
+        s["rec"] = rglru.rglru_block_spec(cfg)
     if kind.ffn == "dense":
         s["ln2"] = rmsnorm_spec(D)
         s["ffn"] = ffn.ffn_spec(D, cfg.d_ff, cfg.act)
+    elif kind.ffn == "dense_big":
+        s["ln2"] = rmsnorm_spec(D)
+        s["ffn"] = ffn.ffn_spec(D, cfg.moe.d_ff_dense, cfg.act)
+    elif kind.ffn == "moe":
+        s["ln2"] = rmsnorm_spec(D)
+        s["moe"] = moe.moe_spec(cfg)
     return s
 
 
@@ -236,12 +266,28 @@ def block_apply(params, x, positions, cfg, kind: LayerKind, *, mode="train",
     eps = cfg.norm_eps
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = rmsnorm(params["ln1"], x, eps, zero_centered=zc)
-    a, new_cache = attn_apply(params["attn"], h, positions, cfg, mode=mode,
-                              cache=cache, pos=pos)
+    new_cache = None
+    if kind.mix in ("attn", "attn_win"):
+        window = cfg.hybrid.window if kind.mix == "attn_win" else 0
+        a, new_cache = attn_apply(params["attn"], h, positions, cfg,
+                                  window=window, mode=mode, cache=cache,
+                                  pos=pos)
+    elif mode == "decode":
+        a, new_cache = rglru.rglru_decode(params["rec"], h, cache, cfg)
+    elif mode == "prefill":
+        a, new_cache = rglru.rglru_forward(params["rec"], h, cfg,
+                                           return_cache=True)
+    else:
+        a = rglru.rglru_forward(params["rec"], h, cfg)
     x = x + a
-    if kind.ffn == "dense":
+    if kind.ffn in ("dense", "dense_big"):
         h = rmsnorm(params["ln2"], x, eps, zero_centered=zc)
         x = x + ffn.ffn_apply(params["ffn"], h, cfg.act)
+    elif kind.ffn == "moe":
+        h = rmsnorm(params["ln2"], x, eps, zero_centered=zc)
+        y, aux_moe = moe.moe_apply(params["moe"], h, cfg)
+        aux = aux + aux_moe
+        x = x + y
     return x, aux, new_cache
 
 

@@ -5,10 +5,11 @@ branches a single process takes: with no `model` mesh axis (M == 1)
 full-sequence attention is local chunked attention (the flash kernel),
 and decode is the local branch of the KV-sequence-parallel flash-decode
 — the per-request write of the new entry at `pos`, `decode_partials`
-over the whole cache, `finalize_partials`. `merge_partials` and the
-shard_map branches (head-TP, context parallelism, the sharded decode)
-come with the parallelism slice (ROADMAP slice 8);
-`window_decode_attention` with recurrentgemma (slice 6).
+over the whole cache, `finalize_partials` — and the hybrids' decode
+against a rolling window cache (`window_decode_attention`).
+`merge_partials` and the shard_map branches (head-TP, context
+parallelism, the sharded decode) come with the parallelism slice
+(ROADMAP slice 8).
 """
 from __future__ import annotations
 
@@ -55,3 +56,28 @@ def seqparallel_decode_attention(q, k_cache, v_cache, k_new, v_new, pos, *,
                                 cap=cap, sm_scale=sm_scale)
     out = finalize_partials(acc, l).to(q.dtype)
     return out, k_cache, v_cache
+
+
+def window_decode_attention(q, k_win, v_win, k_new, v_new, pos, window: int,
+                            *, cap=0.0, sm_scale=None):
+    """One-token decode against a rolling window cache (B,W,KVH,D*):
+    token p lives in slot p mod W. pos: scalar or (B,) per-request
+    positions (the new entry's). Slot j of request b holds token
+    pos - ((pos - j) mod W); the slots not yet written (a token before
+    0) and, where W exceeds the window, the tokens that left it are
+    masked. Returns (out (B,KVH,G,Dv), k_win, v_win), new tensors."""
+    B, W = k_win.shape[0], k_win.shape[1]
+    pos = torch.as_tensor(pos, device=q.device).long().broadcast_to((B,))
+    slot = pos % W
+    rows = torch.arange(B, device=q.device)
+    k_win = k_win.index_put((rows, slot), k_new.to(k_win.dtype))
+    v_win = v_win.index_put((rows, slot), v_new.to(v_win.dtype))
+    slots = torch.arange(W, device=q.device)
+    token_of_slot = pos[:, None] - ((pos[:, None] - slots[None]) % W)
+    valid = token_of_slot >= 0
+    if window < W:
+        valid &= token_of_slot > pos[:, None] - window
+    acc, m, l = decode_partials(q, k_win, v_win, token_of_slot, pos,
+                                cap=cap, extra_mask=valid,
+                                sm_scale=sm_scale)
+    return finalize_partials(acc, l).to(q.dtype), k_win, v_win

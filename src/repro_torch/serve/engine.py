@@ -139,6 +139,8 @@ class ServeEngine:
             self.pool = None
             self.caches = model.init_cache(max_batch, max_seq,
                                            device=self.device)
+            # what a prefill's caches are padded to, leaf by leaf
+            self._slot_specs = model.cache_specs(1, max_seq)
         self._decode = model.decode_step
         self._prefill = model.prefill
 
@@ -302,11 +304,14 @@ class ServeEngine:
             self.pool.bind_slot(slot, ids)
             self.positions[slot] = plen - 1
         else:
-            caches = pad_caches(caches, padded, self.max_seq)
+            caches = pad_caches(caches, padded, self.max_seq,
+                                self._slot_specs)
             self._install(slot, caches, plen)
         self.slots[slot] = rid
 
     def _install(self, slot: int, caches, prompt_len: int):
+        """Copy a padded prefill's caches (batch 1) into `slot` of every
+        leaf: sequence, window and recurrent-state leaves alike."""
         def put(dst, src):
             if dst.ndim >= 2:
                 dst[:, slot:slot + 1] = src

@@ -22,23 +22,47 @@ from repro_torch.device import resolve
 from repro_torch.models.module import torch_dtype
 
 
-def pad_caches(caches, s_prefill: int, s_max: int):
+SEQ_AXES = ("kv_seq", "seq")            # a cache leaf's sequence axis
+PAD_AXES = SEQ_AXES + ("window",)       # the axes a prefill's leaf grows on
+
+
+def _axis(spec, names) -> int | None:
+    """The index of the first of `names` among `spec`'s axes, or None."""
+    return next((i for i, a in enumerate(spec.axes) if a in names), None)
+
+
+def pad_caches(caches, s_prefill: int, s_max: int, specs):
     """Pad layer-stacked decode caches from prefill length to max length.
 
-    Only sequence-indexed leaves (dim 2 == s_prefill under the (L, B, S, …)
-    stacking) are padded, with zeros; window/state/conv caches pass
-    through."""
+    `specs` is the cache spec tree at length `s_max` (the model's
+    `cache_specs(batch, s_max)`): each leaf is padded with zeros, at the
+    end, along the axis its spec names, to that spec's length there. A
+    ``kv_seq`` / ``seq`` leaf grows to `s_max`; a ``window`` leaf to
+    min(window, s_max), so token p stays in slot p mod W, the rolling
+    layout window decode reads; every other leaf (recurrent state, conv
+    history) passes through, whatever its length.
+
+    The reference pads every leaf whose dim 2 equals the prefill length,
+    so a window, conv or state leaf that happens to have that length is
+    padded too (and its engine then fails); the spec decides here."""
     if s_prefill == s_max:
         return caches
 
-    def pad(a):
-        if a.ndim >= 3 and a.shape[2] == s_prefill:
-            shape = list(a.shape)
-            shape[2] = s_max - s_prefill
-            return torch.cat([a, a.new_zeros(shape)], dim=2)
-        return a
+    def pad(a, spec):
+        ax = _axis(spec, PAD_AXES)
+        if ax is None:
+            return a
+        want, have = spec.shape[ax], a.shape[ax]
+        if a.ndim != len(spec.shape) or have > want:
+            raise ValueError(f"a cache leaf of shape {tuple(a.shape)} "
+                             f"does not fit its spec {spec.shape}")
+        if have == want:
+            return a
+        shape = list(a.shape)
+        shape[ax] = want - have
+        return torch.cat([a, a.new_zeros(shape)], dim=ax)
 
-    return tree.map(pad, caches)
+    return tree.map(pad, caches, specs)
 
 
 @dataclass
@@ -95,16 +119,21 @@ class PagedKVPool:
         return flat[:n_tokens]
 
 
-def page_roundtrip(caches, max_seq: int, page_tokens: int):
-    """Every seq-indexed cache leaf (dim 2 == max_seq) through the paged
-    ingest and gather, row by row: one `PagedKVPool` per (layer, batch)
-    row, on the leaf's device. The body of the reference's
+def page_roundtrip(caches, max_seq: int, page_tokens: int, specs):
+    """Every sequence-indexed cache leaf (its spec names ``kv_seq`` or
+    ``seq``; `specs` as for `pad_caches`, at `max_seq`) through the
+    paged ingest and gather, row by row: one `PagedKVPool` per (layer,
+    batch) row, on the leaf's device. The body of the reference's
     `PDServer._page_roundtrip` (`serve/pd_disagg.py`), which the port's
     `PDServer.ingest_and_decode` calls; the result equals `caches`
-    exactly."""
-    def one(a):
-        if a.ndim < 3 or a.shape[2] != max_seq:
+    exactly. Window and state leaves pass through (the reference moves a
+    window leaf too when `pad_caches` has grown it to `max_seq`)."""
+    def one(a, spec):
+        if _axis(spec, SEQ_AXES) is None:
             return a                    # state/window caches pass through
+        if a.ndim < 3 or a.shape[2] != max_seq:
+            raise ValueError(f"a sequence leaf of shape {tuple(a.shape)} "
+                             f"is not padded to {max_seq}")
         lead = tuple(a.shape[:2])       # (L, B)
         flat = a.reshape((-1, max_seq) + tuple(a.shape[3:]))
         outs = []
@@ -118,4 +147,4 @@ def page_roundtrip(caches, max_seq: int, page_tokens: int):
             outs.append(pool.gather(alloc, max_seq))
         return torch.stack(outs).reshape(lead + (max_seq,)
                                          + tuple(a.shape[3:]))
-    return tree.map(one, caches)
+    return tree.map(one, caches, specs)

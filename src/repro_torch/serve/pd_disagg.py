@@ -94,14 +94,20 @@ class PDServer:
     def ingest_and_decode(self, caches, first_tokens, prefill_len: int,
                           n_steps: int = 8, use_kernel: bool = False):
         """Ingest transferred caches through the paged pool (T2), gather
-        back to the decode layout, then run greedy decode steps.
+        back to the decode layout, then run greedy decode steps. Each
+        leaf is padded as its cache spec says (`pad_caches`), and only
+        the sequence-indexed leaves take the page round trip: window and
+        state leaves pass through, where the reference pads a window
+        leaf shorter than the window to `max_seq` and pages it.
         `use_kernel` is the reference's and is ignored: the device picks
         the route (the kernel on the card, the plain version on the
         CPU)."""
         del use_kernel
-        caches = pad_caches(caches, prefill_len, self.max_seq)
-        caches = page_roundtrip(caches, self.max_seq, self.page_tokens)
         B = first_tokens.shape[0]
+        specs = self.model.cache_specs(B, self.max_seq)
+        caches = pad_caches(caches, prefill_len, self.max_seq, specs)
+        caches = page_roundtrip(caches, self.max_seq, self.page_tokens,
+                                specs)
         toks = first_tokens.reshape(B, 1).to(torch.int32)
         out = [toks[:, 0].cpu().numpy()]
         pos = torch.full((B,), prefill_len, dtype=torch.int32,

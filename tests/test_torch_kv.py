@@ -46,7 +46,7 @@ from repro_torch.core.descriptors import TransferPlan
 from repro_torch.kernels import _build
 from repro_torch.kernels.kv_ingest import ops as kv_ops
 from repro_torch.kernels.kv_ingest import ref as kv_ref
-from repro_torch.models.module import is_spec
+from repro_torch.models.module import Spec, is_spec
 from repro_torch.models.registry import build_model
 from repro_torch.obs import metrics as tmetrics
 from repro_torch.serve import kvcache as tcache
@@ -249,19 +249,27 @@ def test_pad_caches_matches_reference():
                     {kk: vv.astype(np.float32) for kk, vv in v.items()})
                 for k, v in tree_np[0].items()}]
     import jax
+    # the port pads as the spec tree at length 8 says: the sequence
+    # leaves to 8, the state leaves as they are (the reference decides by
+    # dim 2 == 5, which these leaves meet or miss alike)
+    kv = Spec((2, 3, 8, 1, 4), ("layers", "batch", "kv_seq", None, None))
+    specs = [{"b0": {"k": kv, "v": kv},
+              "w": Spec((2, 3, 7), ("layers", "batch", "rnn")),
+              "s": Spec((2, 3), ("layers", "batch"))}]
     want = jcache.pad_caches(jax.tree.map(jnp.asarray, tree_np), 5, 8)
-    got = tcache.pad_caches(tree_from_numpy(tree_np, "cpu"), 5, 8)
+    got = tcache.pad_caches(tree_from_numpy(tree_np, "cpu"), 5, 8, specs)
     wl, gl = jax.tree.leaves(want), ttree.leaves(got)
     assert len(wl) == len(gl) == 4
     for w, g in zip(wl, gl):
         _same_bits(g, w)
-    assert tcache.pad_caches(got, 8, 8) is got
+    assert tcache.pad_caches(got, 8, 8, specs) is got
 
 
 # -- the model's spec layer -----------------------------------------------------
 @pytest.mark.parametrize("arch,size", [
     ("gemma-2b", "reduced"), ("gemma-2b", "full"),
-    ("granite-moe-1b-a400m", "reduced"), ("phi4-mini-3.8b", "full")])
+    ("granite-moe-1b-a400m", "reduced"), ("phi4-mini-3.8b", "full"),
+    ("recurrentgemma-2b", "reduced"), ("recurrentgemma-2b", "full")])
 def test_cache_specs_match_reference(arch, size):
     import jax
     cfg = get_config(arch)
@@ -284,7 +292,7 @@ def test_cache_specs_match_reference(arch, size):
 
 
 def test_other_mixers_wait_for_their_slice():
-    cfg = reduced(get_config("recurrentgemma-2b"))
+    cfg = reduced(get_config("mamba2-780m"))
     with pytest.raises(NotImplementedError, match="slice 6"):
         build_model(cfg).cache_specs(2, 8)
     with pytest.raises(NotImplementedError, match="slice 6"):
@@ -519,10 +527,12 @@ def test_kv_leg_as_a_whole_matches_reference():
     jeng = jkv.KVTransferEngine(jm, 2, 13)
     teng = tkv.KVTransferEngine(tm, 2, 13)
     jout, tout = jeng.transfer(jc), teng.transfer(tc)
-    jpad, tpad = jcache.pad_caches(jout, 13, 24), tcache.pad_caches(tout, 13, 24)
+    specs = tm.cache_specs(2, 24)
+    jpad = jcache.pad_caches(jout, 13, 24)
+    tpad = tcache.pad_caches(tout, 13, 24, specs)
     want = PDServer._page_roundtrip(
         SimpleNamespace(max_seq=24, page_tokens=8), jpad, use_kernel=True)
-    got = tcache.page_roundtrip(tpad, 24, 8)
+    got = tcache.page_roundtrip(tpad, 24, 8, specs)
     _leaves_equal(got, want)
     _leaves_equal(got, jpad)
     jeng.close()

@@ -77,7 +77,7 @@ def _leaves_near(got, want, rel):
 
 def test_param_specs_match_reference_leaf_for_leaf():
     for arch in ("gemma-2b", "phi4-mini-3.8b", "codeqwen1.5-7b",
-                 "stablelm-12b"):
+                 "stablelm-12b", "granite-moe-1b-a400m", "recurrentgemma-2b"):
         js = jax.tree.leaves(jbuild(jreduced(jget_config(arch)))
                              .param_specs(), is_leaf=jis_spec)
         tm = build_model(reduced(get_config(arch)))
@@ -90,13 +90,32 @@ def test_param_specs_match_reference_leaf_for_leaf():
     assert count_params(full.param_specs()) == 2_506_172_416
 
 
-def test_other_families_raise_not_implemented():
-    for arch in ("granite-moe-1b-a400m", "mamba2-780m", "recurrentgemma-2b",
-                 "deepseek-v3-671b"):
-        with pytest.raises(NotImplementedError, match="slice 6"):
-            build_model(reduced(get_config(arch))).param_specs()
+# the configs the port builds, and the families it does not build yet
+BUILT = ("gemma-2b", "phi4-mini-3.8b", "codeqwen1.5-7b", "stablelm-12b",
+         "internvl2-2b", "granite-moe-1b-a400m", "recurrentgemma-2b")
+
+
+@pytest.mark.parametrize("arch", ["mamba2-780m", "deepseek-v3-671b",
+                                  "whisper-base"])
+def test_other_families_raise_not_implemented(arch):
     with pytest.raises(NotImplementedError, match="slice 6"):
-        build_model(reduced(get_config("whisper-base")))
+        build_model(reduced(get_config(arch))).param_specs()
+    with pytest.raises(NotImplementedError, match="slice 6"):
+        get_config(arch).param_count()
+
+
+@pytest.mark.parametrize("arch", BUILT)
+def test_param_counts_equal_the_reference_at_full_size(arch):
+    """`ModelConfig.param_count` / `active_param_count` (an expert leaf
+    counting top_k / n_experts when active-only) of every full-size
+    config the port builds, against the reference's."""
+    cfg, jcfg = get_config(arch), jget_config(arch)
+    assert cfg.param_count() == jcfg.param_count() > 0
+    assert cfg.active_param_count() == jcfg.active_param_count()
+    if cfg.moe is not None:
+        assert cfg.active_param_count() < cfg.param_count()
+    else:
+        assert cfg.active_param_count() == cfg.param_count()
 
 
 def test_init_is_seeded_by_a_generator_and_deterministic():
@@ -250,7 +269,7 @@ def test_prefill_with_last_pos_and_decode_match_reference(both):
     _near(tl, jl, MODEL_REL)
     _leaves_near(tc, jc, MODEL_REL)
     # decode on the padded caches, per-request positions
-    jc, tc = jpad(jc, 16, 24), tpad(tc, 16, 24)
+    jc, tc = jpad(jc, 16, 24), tpad(tc, 16, 24, tm.cache_specs(2, 24))
     for step in range(3):
         nxt = rng.integers(0, 256, (2, 1)).astype(np.int32)
         pos = np.asarray([16 + step, 16 + step], np.int32)
@@ -264,7 +283,7 @@ def test_prefill_with_last_pos_and_decode_match_reference(both):
 def test_decode_step_leaves_its_input_caches_alone(both):
     _, _, tm, tp = both
     _, caches = tm.prefill(tp, torch.ones((1, 4), dtype=torch.int32))
-    caches = tpad(caches, 4, 8)
+    caches = tpad(caches, 4, 8, tm.cache_specs(1, 8))
     before = [x.clone() for x in tree.leaves(caches)]
     _, new = tm.decode_step(tp, torch.ones((1, 1), dtype=torch.int32),
                             caches, 4)
@@ -293,7 +312,8 @@ def test_greedy_tokens_equal_reference(both, prompt):
     want = _generate(jm, jp, prompt, 6, 48,
                      lambda a: jnp.asarray(a, jnp.int32), jpad)
     got = _generate(tm, tp, prompt, 6, 48,
-                    lambda a: torch.tensor(a, dtype=torch.int32), tpad)
+                    lambda a: torch.tensor(a, dtype=torch.int32),
+                    lambda c, s, m: tpad(c, s, m, tm.cache_specs(1, m)))
     assert got == want
 
 
