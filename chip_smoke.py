@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Drive the torch port's verbs datapath, its KV-cache transfer leg, its
 serving path, the T3 notification pipe, the disaggregated serving
-cluster, Solar block storage and the MoE and hybrid model families on
-one CUDA card, and hold every kernel of those paths against its plain
-PyTorch version.
+cluster, Solar block storage and the MoE, hybrid, SSM and MLA model
+families on one CUDA card, and hold every kernel of those paths against
+its plain PyTorch version.
 
     python3 chip_smoke.py              # from the root of a checkout
     python3 chip_smoke.py --rehearse   # on the CPU: the ring's call shapes
@@ -16,7 +16,7 @@ widths and prints the device CQ ring's calls by shape class). The same main path
 failover), `tests/test_torch_serve.py::
 test_chip_smoke_phase6_at_cpu_size_matches_reference_engine` and
 `tests/test_torch_{ring_pipe,cluster,storage}.py` (phases 7, 8, 9) and
-`tests/test_torch_hybrid.py::test_chip_smoke_phase10_at_cpu_size`.
+`tests/test_torch_{hybrid,ssm,mla}.py::test_chip_smoke_phase10_at_cpu_size`.
 
 Phases (any failure exits non-zero):
   1. the card (nvidia-smi name and power limit) and the kernel build;
@@ -99,31 +99,42 @@ Phases (any failure exits non-zero):
      (one list_traverse launch each);
  10. the model families at full width, one after the other: granite-
      moe-1b-a400m (24 layers, 32 experts top-8, 1.3 B bf16 parameters;
-     paged, prompts at their exact lengths) and recurrentgemma-2b (26
+     paged, prompts at their exact lengths), recurrentgemma-2b (26
      layers, RG-LRU and window-2048 attention, 2.7 B; the dense engine),
-     each on `ServeEngine(max_batch=4, max_seq=4096, device_ring=True)`
-     with phase 6's six prompts (and, for the hybrid, 3 and 2560 tokens,
-     where the reference's cache padding fails), 32 new tokens each; the
+     mamba2-780m (48 SSD layers, 0.78 B; the dense engine) and, last,
+     deepseek-v3 (MLA, 256 experts top-8, its depth cut from 61 to 4
+     layers — the 3 dense ones and one MoE — plus the MTP head: 26.7 B,
+     50 GiB; paged at exact lengths), each on `ServeEngine(max_batch=4,
+     max_seq=4096, device_ring=True)` with phase 6's six prompts (and,
+     for the hybrid, 3 and 2560 tokens, for mamba2 2, 3 and 48, where
+     the reference's serving path fails), 32 new tokens each; the
      logits of every step against the unpadded reference with the
      request's row repeated over the engine's four slots (the engine's
-     shapes, so the card's arithmetic), bound 2^-4; for the MoE, the
+     shapes, so the card's arithmetic), bound 2^-4; for the MoEs, the
      first request's reference at batch 1 against the one at batch 4,
      with the router's top-k choices that differ between them, step by
-     step, and that bound on every step before the first such choice;
+     step, and that bound on every step before the first such choice
+     (in float32 too where a float32 copy fits: not deepseek's);
      one flash launch per attention layer per
      prefill, one produce_consume per admitting step; `PDServer.serve`
-     of 2 x 1024 tokens equal to the dense greedy decode; prefill per
-     request, decode per step, the RG-LRU scans inside the longest
-     prefill and the expert loop inside a decode step (CUDA events), one
-     profiled decode step, and each of those two device steps alone
-     (kernels a call, cold ms, bound).
+     of 2 x 1024 tokens equal to the dense greedy decode (deepseek's
+     migrates the 576-wide MLA latent through the page kernels);
+     deepseek's `forward` of 1 x 512, its last hidden row equal to
+     `prefill`'s to the bit, its last logits within 2^-4 of them and its
+     MTP logits finite; prefill per
+     request, decode per step, the RG-LRU and SSD scans inside the
+     longest prefill and the expert loop inside a decode step (CUDA
+     events), one profiled decode step, and each of those device steps
+     alone (kernels a call, cold ms, bound).
 Phase 2 also holds flash_attention (its TMA/wgmma entry) and
 flash_attention_generic (its mma.sync entry) against their plain version
 at every prefill shape the main paths launch, FLASH_SHAPES: phases 6
 and 8's (gemma's H 8 on 1 kv head of 256, B x S = 1 x 2 ... 1 x 4096
 and PDServer's 4 x 1024) and phase 10's (granite's H 16 on 8 kv heads
 of 64, recurrentgemma's H 10 on 1 kv head of 256 with its 2048 window,
-at exact lengths), each in bf16 and in float32 and timed after four
+deepseek's MLA H 128 on 128 kv heads of Dk 192 / Dv 128, at exact
+lengths; SDPA's backend is named), each in bf16 and in float32 and
+timed after four
 kinds of eviction beside the generic entry, the plain version and SDPA
 (a boolean mask where the window cuts); prints ptxas's
 registers and spills of each instance (none may spill at Dv = 256), and
@@ -210,11 +221,14 @@ SERVE = ServeSizes(arch="gemma-2b", reduce=False, max_batch=4, max_seq=4096,
 # launch (main() fails on one left out). gemma-2b's (phases 6 and 8):
 # the sweep's buckets 2 to 8, 64, phase 6's 8 to 4096, PDServer's batch
 # of 4 x 1024, and the powers of two between. Phase 10's
-# (`family_flash_shapes`): granite-moe's and recurrentgemma's exact
-# prompt lengths and their PDServer batch of 2 x 1024.
+# (`family_flash_shapes`): granite-moe's, recurrentgemma's and
+# deepseek-v3's exact prompt lengths and their PDServer batch of 2 x
+# 1024, and deepseek's forward at 1 x 512 with its MTP block's 1 x 511.
+# A head dim (Dk, Dv) is MLA's: keys of nope + rope (192), values of 128.
 GEMMA_LAYOUT = (8, 1, 256, 0)
 GRANITE_LAYOUT = (16, 8, 64, 0)
 RGEMMA_LAYOUT = (10, 1, 256, 2048)
+MLA_LAYOUT = (128, 128, (192, 128), 0)
 FLASH_SHAPES = tuple(
     [GEMMA_LAYOUT + bs for bs in ((1, 2), (1, 4), (1, 8), (1, 16), (1, 32),
                                   (1, 64), (1, 512), (1, 1024), (4, 1024),
@@ -223,7 +237,10 @@ FLASH_SHAPES = tuple(
     + [GRANITE_LAYOUT + (2, 1024)]
     + [RGEMMA_LAYOUT + (1, n) for n in (5, 300, 1500, 2100, 3000, 3900,
                                         3, 2560)]
-    + [RGEMMA_LAYOUT + (2, 1024)])
+    + [RGEMMA_LAYOUT + (2, 1024)]
+    + [MLA_LAYOUT + (1, n) for n in (5, 300, 1500, 2100, 3000, 3900,
+                                     512, 511)]
+    + [MLA_LAYOUT + (2, 1024)])
 # the kernel row's main shape: gemma-2b's longest bucket
 FLASH_MAIN = GEMMA_LAYOUT + (1, 4096)
 # The largest |logit difference| a step of phase 6 may show against the
@@ -1324,10 +1341,48 @@ def phase_timing(torch, np, dev, S, T, vec, D):
 
 
 # -- phase 2, T2 kernels ------------------------------------------------------------
-def phase_kv_kernels(torch, np, dev, K, rng, T) -> dict:
-    """kv_ingest and the page gather against their plain versions at the
-    KV leg's shape (one (layer, batch) row: 2048 pages of 16 x 1 x 256
-    bf16 into a 2048-page pool) and at edge shapes, exact."""
+def page_key(n: int, page: tuple, dtype: str) -> str:
+    """A page round trip's shape: n pages of `page` values in `dtype`."""
+    return f"{n} pages of {'x'.join(map(str, page))} {dtype}"
+
+
+def seq_leaf_specs(model, batch: int, seq: int) -> list:
+    """The cache specs of `model`'s sequence leaves (a ``kv_seq`` or
+    ``seq`` axis), the ones `page_roundtrip` pages: (L, B, S, ...)."""
+    from repro_torch import tree
+    from repro_torch.models.module import is_spec
+    return [sp for sp in tree.leaves(model.cache_specs(batch, seq),
+                                     is_leaf=is_spec)
+            if "kv_seq" in sp.axes or "seq" in sp.axes]
+
+
+def family_page_shapes(F) -> dict:
+    """{arch: [(n, page, dtype), ...]}: the pages `PDServer`'s round
+    trip ingests and gathers on phase 10's paths, one entry per distinct
+    sequence leaf: a pool of ceil(F.pd_seq / F.page) pages of F.page
+    tokens of the leaf's feature dims, in its dtype (an SSM and the
+    hybrid page none). Phase 2 holds and times both kernels at each."""
+    from repro_torch.models.registry import build_model
+    out = {}
+    for arch in F.archs:
+        cfg = family_cfg(arch, F)
+        shapes = []
+        for sp in seq_leaf_specs(build_model(cfg), F.pd_batch, F.pd_seq):
+            s = (-(-F.pd_seq // F.page), (F.page,) + tuple(sp.shape[3:]),
+                 sp.dtype or cfg.dtype)
+            if s not in shapes:
+                shapes.append(s)
+        out[arch] = shapes
+    return out
+
+
+def phase_kv_kernels(torch, np, dev, K, rng, T, family_pages=()) -> dict:
+    """kv_ingest and the page gather against their plain versions, exact,
+    at the KV leg's shape (one (layer, batch) row: 2048 pages of 16 x 1 x
+    256 bf16 into a 2048-page pool), at every page `family_pages` ((n,
+    page, dtype) triples: phase 10's round trips, `family_page_shapes`)
+    names, and at edge shapes. Each row's top-level times are the KV
+    leg's; `by_shape` holds them at every shape, by `page_key`."""
     import math
     from repro_torch.configs.base import get_config
     from repro_torch.core.offload_engine import dedupe_last_wins
@@ -1335,61 +1390,82 @@ def phase_kv_kernels(torch, np, dev, K, rng, T) -> dict:
     from repro_torch.kernels.kv_ingest import ops as kv_ops
     from repro_torch.kernels.kv_ingest import ref as kv_ref
     from repro_torch.kernels.wr_scatter import ops as wr_ops
+    from repro_torch.models.module import torch_dtype
 
     cfg = get_config(K.arch)
     gen = torch.Generator(device=dev).manual_seed(int(rng.integers(1 << 31)))
+    lib = _build.load("wr_rows", wr_ops._SIG)
+
+    def held(n: int, page: tuple, dtype: str) -> tuple:
+        """Both kernels on a permutation of a pool of n pages of `page`,
+        held exactly against kv_ref and timed against it and the library
+        call: (page_key, ingest row, gather row)."""
+        dt = torch_dtype(dtype)
+        page_bytes = math.prod(page) * dt.itemsize
+        key = page_key(n, page, dtype)
+        pages = torch.randn((n,) + page, generator=gen, device=dev, dtype=dt)
+        payload = torch.randn((n,) + page, generator=gen, device=dev,
+                              dtype=dt)
+        ids = rng.permutation(n)
+        ids_t = torch.from_numpy(ids).to(dev)
+        plain = pages.clone()
+        check(kv_ops.kv_ingest(pages, payload, ids) is pages, "not in place")
+        kv_ref.ingest(plain, ids_t, payload)
+        T.sync()
+        check(torch.equal(pages, plain), f"ingest_pages != plain ingest at "
+              f"{key} ({page_bytes} B a page)")
+        bound = bound_ms(2 * n * page_bytes + 8 * n)
+        t_in = time_rows(T, lib, "ingest_pages", pages, payload, ids_t, n,
+                         page_bytes, lambda: kv_ref.ingest(plain, ids_t,
+                                                           payload),
+                         lambda: plain.index_copy_(0, ids_t, payload))
+        log(row_line(f"ingest_pages {key} ({page_bytes} B a page)", t_in,
+                     bound))
+        t_in.update(max_abs_err=float((pages.float() - plain.float())
+                                      .abs().max()),
+                    wrapper_ms=T.ms(lambda: kv_ops.kv_ingest(pages, payload,
+                                                             ids),
+                                    cold=True), bound_ms=bound)
+        got = kv_ops.gather_pages(pages, ids)
+        exp = kv_ref.gather(pages, ids_t)
+        T.sync()
+        check(torch.equal(got, exp), f"gather_rows != plain page gather at "
+              f"{key} ({page_bytes} B a page)")
+        check(torch.equal(got, payload),
+              f"page gather did not read the ingest at {key}")
+        out = torch.zeros_like(got)
+        t_pg = time_rows(T, lib, "gather_rows", out, pages, ids_t, n,
+                         page_bytes, lambda: kv_ref.gather(pages, ids_t),
+                         lambda: pages.index_select(0, ids_t))
+        log(row_line(f"gather_rows (pages) {key} ({page_bytes} B a page)",
+                     t_pg, bound))
+        t_pg.update(max_abs_err=float((got.float() - exp.float())
+                                      .abs().max()),
+                    wrapper_ms=T.ms(lambda: kv_ops.gather_pages(pages, ids),
+                                    cold=True), bound_ms=bound)
+        log(f"phase 2: kv_ingest and page gather at {key} "
+            f"({page_bytes} B a page): exact")
+        return key, t_in, t_pg
+
     n = K.seq // K.page
     page = (K.page, cfg.n_kv_heads, cfg.resolved_head_dim)
-    page_bytes = math.prod(page) * 2
-    pages = torch.randn((n,) + page, generator=gen, device=dev,
-                        dtype=torch.bfloat16)
-    payload = torch.randn((n,) + page, generator=gen, device=dev,
-                          dtype=torch.bfloat16)
-    ids = rng.permutation(n)
-    ids_t = torch.from_numpy(ids).to(dev)
-    plain = pages.clone()
-    check(kv_ops.kv_ingest(pages, payload, ids) is pages, "not in place")
-    kv_ref.ingest(plain, ids_t, payload)
-    T.sync()
-    check(torch.equal(pages, plain), "ingest_pages != plain ingest")
-    err = float((pages.float() - plain.float()).abs().max())
-    move = 2 * n * page_bytes + 8 * n
-    lib = _build.load("wr_rows", wr_ops._SIG)
-    shape = f"{n} pages of {page_bytes} B ({'x'.join(map(str, page))} bf16)"
-    t_in = time_rows(T, lib, "ingest_pages", pages, payload, ids_t, n,
-                     page_bytes, lambda: kv_ref.ingest(plain, ids_t, payload),
-                     lambda: plain.index_copy_(0, ids_t, payload))
-    log(row_line(f"ingest_pages {shape}", t_in, bound_ms(move)))
+    key, t_in, t_pg = held(n, page, "bfloat16")
+    by_in, by_pg = {key: t_in}, {key: t_pg}
+    for fn, fp, fd in dict.fromkeys(family_pages):
+        k, a, b = held(fn, tuple(fp), fd)
+        by_in[k], by_pg[k] = a, b
     rows = {"kv_ingest": dict(
         name="kv_ingest", route="cuda",
         source="src/repro_torch/csrc/wr_rows.cu",
         replaces="src/repro/kernels/kv_ingest/kv_ingest.py:24",
-        max_abs_err=err, **t_in,
-        wrapper_ms=T.ms(lambda: kv_ops.kv_ingest(pages, payload, ids),
-                        cold=True),
-        bound_ms=bound_ms(move), bound_by="bytes",
-        entry="ingest_pages", shape=shape + " into a pool of as many")}
-    got = kv_ops.gather_pages(pages, ids)
-    exp = kv_ref.gather(pages, ids_t)
-    T.sync()
-    check(torch.equal(got, exp), "gather_rows != plain page gather")
-    check(torch.equal(got, payload), "page gather did not read the ingest")
-    err = float((got.float() - exp.float()).abs().max())
-    out = torch.zeros_like(got)
-    t_pg = time_rows(T, lib, "gather_rows", out, pages, ids_t, n,
-                     page_bytes, lambda: kv_ref.gather(pages, ids_t),
-                     lambda: pages.index_select(0, ids_t))
-    log(row_line(f"gather_rows (pages) {shape}", t_pg, bound_ms(move)))
+        **t_in, bound_by="bytes", entry="ingest_pages", by_shape=by_in,
+        shape=key + " into a pool of as many")}
     rows["wr_gather.pages"] = dict(
         name="wr_gather.pages", route="cuda",
         source="src/repro_torch/csrc/wr_rows.cu",
         replaces="src/repro/core/rx_engine.py:33",
-        max_abs_err=err, **t_pg,
-        wrapper_ms=T.ms(lambda: kv_ops.gather_pages(pages, ids), cold=True),
-        bound_ms=bound_ms(move), bound_by="bytes",
-        entry="gather_rows", shape=shape + " from a pool of as many")
-    log(f"phase 2: kv_ingest and page gather at {shape}: exact")
-    del pages, payload, plain, got, exp, out
+        **t_pg, bound_by="bytes", entry="gather_rows", by_shape=by_pg,
+        shape=key + " from a pool of as many")
 
     # edge shapes: dtypes, page rows not a multiple of 16 B, bases off
     # 16-byte alignment, repeated ids (the last one wins), one page, and
@@ -1743,19 +1819,48 @@ def phase_kv(torch, np, dev, K, rng, T, kernel_ms: dict) -> dict:
 FLASH_EPS = 2e-5
 
 
-def flash_layout(cfg) -> tuple:
+def flash_layout(cfg) -> tuple | None:
     """A model's prefill attention layout: (heads, kv heads, head dim,
-    window, 0 for none)."""
+    window, 0 for none); MLA's expanded form has a kv head per query
+    head and the head dim (Dk, Dv) (keys nope + rope, values
+    v_head_dim). None for a model with no attention."""
+    if cfg.is_attention_free:
+        return None
     w = cfg.hybrid.window if cfg.hybrid is not None else 0
+    if cfg.use_mla:
+        a = cfg.mla
+        return (cfg.n_heads, cfg.n_heads,
+                (a.qk_nope_head_dim + a.qk_rope_head_dim, a.v_head_dim), w)
     return (cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim, w)
+
+
+def head_dims(d) -> tuple:
+    """(Dk, Dv) of a layout's head dim."""
+    return tuple(d) if isinstance(d, tuple) else (d, d)
 
 
 def flash_key(layout: tuple, shape: str) -> str:
     """The key of a flash shape in phase 2's rows and the launch counts:
     the layout and the `_build.BY_SHAPE` shape "BxS", as
-    "H16/KVH8/D64 1x300" or "H10/KVH1/D256/W2048 1x3000"."""
+    "H16/KVH8/D64 1x300", "H10/KVH1/D256/W2048 1x3000" or
+    "H128/KVH128/D192v128 1x3900" (Dk 192, Dv 128)."""
     H, KVH, D, W = layout
-    return f"H{H}/KVH{KVH}/D{D}{f'/W{W}' if W else ''} {shape}"
+    dk, dv = head_dims(D)
+    d = f"{dk}" if dk == dv else f"{dk}v{dv}"
+    return f"H{H}/KVH{KVH}/D{d}{f'/W{W}' if W else ''} {shape}"
+
+
+def sdpa_backend(torch, q, k, v, **kw) -> str:
+    """The backend `F.scaled_dot_product_attention` picks for these
+    operands (PyTorch's own choice function), or "unknown"."""
+    choose = getattr(torch, "_fused_sdp_choice", None)
+    if choose is None:
+        return "unknown"
+    try:
+        from torch.nn.attention import SDPBackend
+        return SDPBackend(int(choose(q, k, v, **kw))).name
+    except (RuntimeError, TypeError, ValueError, ImportError):
+        return "unknown"
 
 
 def causal_pairs(S: int, W: int) -> int:
@@ -1899,8 +2004,9 @@ def phase_flash_kernels(torch, np, dev, Z, rng, T) -> dict:
     def primer(layout):
         if layout not in primers:
             h, kvh, d, w = layout
-            call = fa_ops.prepare(rand(1, h, 2, d), rand(1, kvh, 2, d),
-                                  rand(1, kvh, 2, d), window=w)
+            dk, dv = head_dims(d)
+            call = fa_ops.prepare(rand(1, h, 2, dk), rand(1, kvh, 2, dk),
+                                  rand(1, kvh, 2, dv), window=w)
 
             def primed():
                 T.evict("read")
@@ -1911,8 +2017,15 @@ def phase_flash_kernels(torch, np, dev, Z, rng, T) -> dict:
     by_shape, errs = {}, {TMA: [], GENERIC: []}
     for h, kvh, d, w, B, S in FLASH_SHAPES:
         key = flash_key((h, kvh, d, w), f"{B}x{S}")
-        q, k, v = rand(B, h, S, d), rand(B, kvh, S, d), rand(B, kvh, S, d)
-        check(fa_ops.route(q, k, v) == TMA, f"{key} does not take {TMA}")
+        dk, dv = head_dims(d)
+        q, k, v = rand(B, h, S, dk), rand(B, kvh, S, dk), rand(B, kvh, S, dv)
+        # the layout `chunked_attention` hands the kernel too: (B, S,
+        # heads, D) tensors seen as (B, heads, S, D)
+        views = [rand(B, S, n, e).transpose(1, 2)
+                 for n, e in ((h, dk), (kvh, dk), (kvh, dv))]
+        check(fa_ops.route(q, k, v) == TMA == fa_ops.route(*views),
+              f"{key} does not take {TMA}")
+        del views
         got = fa_ops.attention(q, k, v, window=w)
         err, ulps = hold_bf16(got, q, k, v, f"bf16 {key}", window=w)
         call = fa_ops.prepare(q, k, v, window=w)
@@ -1929,18 +2042,18 @@ def phase_flash_kernels(torch, np, dev, Z, rng, T) -> dict:
         if w and S > w:                 # SDPA's window: a boolean mask
             i = torch.arange(S, device=dev)
             mask = (i[:, None] >= i[None]) & (i[:, None] - i[None] < w)
-
-            def library():
-                return F.scaled_dot_product_attention(
-                    q, k, v, attn_mask=mask, enable_gqa=True)
+            sdpa_kw = dict(attn_mask=mask)
         else:
-            def library():
-                return F.scaled_dot_product_attention(
-                    q, k, v, is_causal=True, enable_gqa=True)
-        # the causal (windowed) (q, k) pairs, two products of D each; the
-        # kernels' own work is twice that (P V as three bf16 terms)
-        flops = 4 * B * h * d * causal_pairs(S, w)
-        nbytes = (2 * h * S * d + 2 * kvh * S * d) * 2 * B
+            sdpa_kw = dict(is_causal=True)
+
+        def library():
+            return F.scaled_dot_product_attention(q, k, v, enable_gqa=True,
+                                                  **sdpa_kw)
+        # the causal (windowed) (q, k) pairs, a product of Dk and one of
+        # Dv each; the kernels' own P V work is three times its share
+        # (P as three bf16 terms)
+        flops = 2 * B * h * (dk + dv) * causal_pairs(S, w)
+        nbytes = (h * S * (dk + dv) + kvh * S * (dk + dv)) * 2 * B
         t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / HBM_BYTES_PER_S
         # the kernel after each eviction, interleaved; the excess is
         # ranked on the primed reading, `rank_ms`
@@ -1961,8 +2074,11 @@ def phase_flash_kernels(torch, np, dev, Z, rng, T) -> dict:
             library_ms=cold(library),
             bound_ms=max(t_ops, t_bytes) * 1e3,
             bound_by="operations" if t_ops > t_bytes else "bytes",
-            three_term_bound_ms=max(2 * t_ops, t_bytes) * 1e3,
-            gflop=flops / 1e9)
+            three_term_bound_ms=max(
+                t_ops * (dk + 3 * dv) / (dk + dv), t_bytes) * 1e3,
+            gflop=flops / 1e9,
+            library_backend=sdpa_backend(torch, q, k, v, enable_gqa=True,
+                                         **sdpa_kw))
         log(f"phase 2: flash_attention {key}: {by_shape[key]}")
         del q, k, v, got, call, generic
     free_device_memory(torch)
@@ -2042,6 +2158,11 @@ def phase_flash_kernels(torch, np, dev, Z, rng, T) -> dict:
                  dict(B=1, H=4, KVH=1, Sq=100, Sk=100, Dk=64, Dv=24),
                  dict(B=1, H=2, KVH=1, Sq=90, Sk=90, Dk=64, Dv=64,
                       offset=True)]
+        # MLA's expanded form: Dk 192 (nope + rope) against Dv 128, one
+        # kv head per query head, at odd lengths, two sequences, and in
+        # the (B, S, H, D) layout the model hands
+        grid += [dict(B=2, H=4, KVH=4, Sq=n, Sk=n, Dk=192, Dv=128,
+                      strided=st) for n in (77, 129) for st in (False, True)]
         for c in grid:
             kw = {key: c[key] for key in ("causal", "window", "cap",
                                           "sm_scale") if key in c}
@@ -2091,6 +2212,7 @@ def phase_flash_kernels(torch, np, dev, Z, rng, T) -> dict:
         f"the float32 plain result (worst {worst_ulps:.3f} of that bound); "
         "D 16/64/128/256 x G 1/2/4/8, S 1/3/100/129/256 causal and not, "
         "Sq < Sk, windows 32/128/100, cap 20 with scale 0.2, Dv != Dk, "
+        "MLA's Dk 192 / Dv 128 at G 1, S 77/129, B 2, strided and not, "
         "strided (B,S,H,D) views, G 8 at S 8, Sq off 128, "
         f"{splits} with split keys, D 20, Dv 24, a base off 16 bytes): "
         "match")
@@ -2419,45 +2541,67 @@ class FamilySizes:
     pd_seq: int         # PDServer max_seq
     reps: int           # timing repetitions
     seed: int           # parameter generator seed
+    layers: tuple = ()  # (arch, n): depth cuts, every width kept
+    mtp_len: int = 0    # tokens of the one `forward` of an MTP model
 
 
-FAMILIES = FamilySizes(archs=("granite-moe-1b-a400m", "recurrentgemma-2b"),
+FAMILIES = FamilySizes(archs=("granite-moe-1b-a400m", "recurrentgemma-2b",
+                              "mamba2-780m", "deepseek-v3-671b"),
                        reduce=False, max_batch=4, max_seq=4096, page=16,
                        prompts=SERVE.prompts, new=32, pd_batch=2,
                        pd_prompt=1024, pd_steps=16, pd_seq=2048, reps=3,
-                       seed=0)
+                       seed=0, layers=(("deepseek-v3-671b", 4),),
+                       mtp_len=512)
 # phase 10's main paths, by arch: the names of their rows in the kernels
 # line's launches_by_path
-FAMILY_PATH = {"granite-moe-1b-a400m": "moe", "recurrentgemma-2b": "hybrid"}
+FAMILY_PATH = {"granite-moe-1b-a400m": "moe", "recurrentgemma-2b": "hybrid",
+               "mamba2-780m": "ssm", "deepseek-v3-671b": "mla"}
 
 
 def family_cfg(arch: str, F):
+    """`arch`'s config at F's size: reduced or full width, then cut to
+    the depth F.layers names for it (deepseek-v3's 61 layers do not fit
+    one card; 4 keep its 3 dense layers and one MoE layer)."""
     from repro_torch.configs.base import get_config, reduced
     cfg = get_config(arch)
-    return reduced(cfg) if F.reduce else cfg
+    cfg = reduced(cfg) if F.reduce else cfg
+    n = dict(F.layers).get(arch)
+    return dataclasses.replace(cfg, n_layers=n) if n else cfg
 
 
 def family_prompts(cfg, F) -> tuple:
-    """An arch's prompt lengths: F.prompts and, for a hybrid, the two
-    where the reference's shape-driven padding meets a state leaf: the
-    conv history (conv_width - 1) and the RG-LRU width."""
+    """An arch's prompt lengths: F.prompts and, where the reference's
+    serving path fails on a state leaf, those lengths: for a hybrid the
+    conv history (conv_width - 1) and the RG-LRU width; for an SSM 2
+    tokens (shorter than the conv history), the conv history (d_conv -
+    1) and the number of heads (the state leaf's dim 2)."""
     extra = ()
     if cfg.hybrid is not None:
         extra = (cfg.hybrid.conv_width - 1,
                  cfg.hybrid.lru_width or cfg.d_model)
+    if cfg.family == "ssm":
+        from repro_torch.models.ssm import dims
+        extra = (2, cfg.ssm.d_conv - 1, dims(cfg)[1])
     return tuple(F.prompts) + tuple(n for n in extra if n not in F.prompts)
 
 
 def family_flash_shapes(F) -> dict:
     """{arch: [(H, KVH, D, window, batch, length), ...]}: every prefill
     attention shape phase 10's main paths launch (engine prefills at
-    exact lengths, the PDServer batch); FLASH_SHAPES holds them."""
+    exact lengths, the PDServer batch, an MTP model's forward and its
+    MTP block one token shorter); FLASH_SHAPES holds them. An SSM
+    launches none."""
     out = {}
     for arch in F.archs:
         cfg = family_cfg(arch, F)
-        out[arch] = [flash_layout(cfg) + (1, n)
-                     for n in family_prompts(cfg, F)] \
-            + [flash_layout(cfg) + (F.pd_batch, F.pd_prompt)]
+        layout = flash_layout(cfg)
+        if layout is None:
+            out[arch] = []
+            continue
+        out[arch] = [layout + (1, n) for n in family_prompts(cfg, F)] \
+            + [layout + (F.pd_batch, F.pd_prompt)]
+        if cfg.mtp_depth and F.mtp_len:
+            out[arch] += [layout + (1, F.mtp_len), layout + (1, F.mtp_len - 1)]
     return out
 
 
@@ -2543,28 +2687,37 @@ def drive_engine(T, _build, eng, prompts, new: int, prefills, polled):
         check(len(steps) < 100 * len(prompts) * new, "the engine stalls")
 
 
-def moe_route_witness(torch, model, params, prompt, toks, max_seq, dev,
-                      batch: int) -> tuple:
-    """What parts the MoE reference at batch 1 from the one at `batch`
-    (the request's row repeated): both teacher-forced on the same tokens
-    (`_serve_reference`), every decode step's `moe.route` recorded for
-    the first row. The prefill is one batch-1 call in both, so step 0 is
-    the same. Returns (witness, the batch-1 logits): per step, the
-    logits' largest difference over the batch-`batch` step's largest
-    |logit| and the layers whose top-k sets differ; the two runs'
-    largest router score difference at every layer of the first decode
-    step; the first differing choice (step, layer), and there the
-    batch-1 router's gap between its k-th and (k+1)-th selection score
-    beside that score difference, and the score difference at every
-    layer of its step; the largest logit difference over the steps
-    before it."""
-    from repro_torch.models import moe
+def batch_witness(torch, model, params, prompt, toks, max_seq, dev,
+                  batch: int) -> tuple:
+    """What parts the reference at batch 1 from the one at `batch` (the
+    request's row repeated): both teacher-forced on the same tokens
+    (`_serve_reference`), every decode step's block outputs recorded for
+    the first row, and for an MoE every `moe.route`. The prefill is one
+    batch-1 call in both, so step 0 is the same. Returns (witness, the
+    batch-1 logits). The witness: per step, the logits' largest
+    difference over the batch-`batch` step's largest |logit|; per layer
+    at the first decode step, the block outputs' the same way; the first
+    (step, layer) where the block outputs differ at all, with the
+    difference there, and the first where it passes the logit bound
+    LOGIT_TOL; the last block's difference by step. For an MoE also the
+    layers whose top-k sets differ by step; the two runs' largest router
+    score difference at every layer of the first decode step; the first
+    differing choice (step, layer), and there the batch-1 router's gap
+    between its k-th and (k+1)-th selection score beside that score
+    difference, and the score difference at every layer of its step; the
+    largest logit difference over the steps before it."""
+    from repro_torch.models import moe, transformer
     cfg = model.cfg
-    k = cfg.moe.top_k
-    route0 = moe.route
+    block0, route0 = transformer.block_apply, moe.route
 
     def run(b):
-        rec = []
+        hid, rec = [], []
+
+        def block(*a, **kw):
+            out = block0(*a, **kw)
+            if kw.get("mode") == "decode":
+                hid.append(out[0][0, -1].float())
+            return out
 
         def route(p, x, c):
             out = route0(p, x, c)
@@ -2575,40 +2728,58 @@ def moe_route_witness(torch, model, params, prompt, toks, max_seq, dev,
                        else torch.softmax(lg, -1))
                 rec.append((sorted(out[1][0, -1].tolist()), sel))
             return out
-        moe.route = route
+        transformer.block_apply, moe.route = block, route
         try:
             logits = _serve_reference(torch, model, params, prompt, toks,
                                       max_seq, dev, batch=b)
         finally:
-            moe.route = route0
-        return logits, rec
+            transformer.block_apply, moe.route = block0, route0
+        return logits, hid, rec
 
-    r1, rec1 = run(1)
-    rb, recb = run(batch)
+    r1, h1, rec1 = run(1)
+    rb, hb, recb = run(batch)
     rel = ((r1 - rb).abs().amax(-1) / rb.abs().amax(-1)).tolist()
-    n_layers = len(rec1) // max(len(toks) - 1, 1)
-    flips = [[]] + [[layer for layer in range(n_layers)
-                     if rec1[(t - 1) * n_layers + layer][0]
-                     != recb[(t - 1) * n_layers + layer][0]]
-                    for t in range(1, len(toks))]
-    first = next(((t, f[0]) for t, f in enumerate(flips) if f), None)
+    steps = max(len(toks) - 1, 1)
+    n_layers = len(h1) // steps
+    hrel = []                           # [decode step - 1][layer]
+    if h1:
+        a, b = torch.stack(h1), torch.stack(hb)
+        hrel = ((a - b).abs().amax(-1) / b.abs().amax(-1)).reshape(
+            steps, n_layers).tolist()
+    tol = LOGIT_TOL[cfg.dtype]
 
-    def score_diffs(t):                 # by layer, at decode step t
+    def first(over):                    # (step, layer, difference)
+        return next(((t + 1, l, d) for t, row in enumerate(hrel)
+                     for l, d in enumerate(row) if d > over), None)
+    out = dict(rel_by_step=rel, layers=n_layers,
+               hidden_rel_by_layer_step1=hrel[0] if hrel else [],
+               hidden_first_part=first(0.0), hidden_first_over_tol=first(tol),
+               hidden_rel_last_layer_by_step=[row[-1] for row in hrel])
+    if cfg.moe is None:
+        return out, r1
+    k = cfg.moe.top_k
+    n_moe = len(rec1) // steps
+    flips = [[]] + [[layer for layer in range(n_moe)
+                     if rec1[(t - 1) * n_moe + layer][0]
+                     != recb[(t - 1) * n_moe + layer][0]]
+                    for t in range(1, len(toks))]
+    fl = next(((t, f[0]) for t, f in enumerate(flips) if f), None)
+
+    def score_diffs(t):                 # by MoE layer, at decode step t
         return [float((rec1[j][1] - recb[j][1]).abs().max())
-                for j in range((t - 1) * n_layers, t * n_layers)]
-    out = dict(rel_by_step=rel, flips_by_step=[len(f) for f in flips],
+                for j in range((t - 1) * n_moe, t * n_moe)]
+    out.update(flips_by_step=[len(f) for f in flips],
                score_diff_by_layer_step1=score_diffs(1) if rec1 else [],
-               first_flip=first, flips=sum(map(len, flips)),
-               before_first_flip=max(rel[:first[0] if first else None]))
-    if first:
-        i = (first[0] - 1) * n_layers + first[1]
+               first_flip=fl, flips=sum(map(len, flips)),
+               before_first_flip=max(rel[:fl[0] if fl else None]))
+    if fl:
+        i = (fl[0] - 1) * n_moe + fl[1]
         top = rec1[i][1].topk(k + 1).values
         out.update(gap_at_first_flip=float(top[k - 1] - top[k]),
                    score_diff_at_first_flip=float(
                        (rec1[i][1] - recb[i][1]).abs().max()),
-                   layers_flipped_at_first_flip_step=flips[first[0]],
-                   score_diff_by_layer_at_first_flip_step=score_diffs(
-                       first[0]))
+                   layers_flipped_at_first_flip_step=flips[fl[0]],
+                   score_diff_by_layer_at_first_flip_step=score_diffs(fl[0]))
     return out, r1
 
 
@@ -2635,21 +2806,27 @@ def device_step(torch, T, fn, nbytes: int, flops: int, peak: float) -> dict:
 
 def family_device_steps(torch, dev, cfg, params, F, lens, T) -> dict:
     """`device_step` of the MoE expert loop at a decode step's shape
-    (F.max_batch tokens through `_moe_local`, layer 0's experts) and of
-    the RG-LRU scan at the longest prompt (float32 a, b, h of (1, S,
-    lru_width)), whichever the model has. The expert loop's bound is the
-    work its routing needs: the weights of the distinct experts the
-    tokens chose, read once, with the tokens in and out, and three
-    products of D x F for each token's top_k choices. The loop itself
-    runs every expert on every token."""
+    (F.max_batch tokens through `_moe_local`, the first MoE layer's
+    experts), of the RG-LRU scan at the longest prompt (float32 a, b, h
+    of (1, S, lru_width)) and of the SSD chunked scan there (`ssd_chunked`
+    on bf16 x, B, C and float32 dt of the full width), whichever the
+    model has. The expert loop's bound is the work its routing needs:
+    the weights of the distinct experts the tokens chose, read once,
+    with the tokens in and out, and three products of D x F for each
+    token's top_k choices. The loop itself runs every expert on every
+    token. The SSD scan's: x, dt, B and C read and y and the final
+    state written, against the recurrence's four float32 operations a
+    (token, head, state, head-dim) element (decay, input, output)."""
     from repro_torch import tree
-    from repro_torch.models import moe, rglru
+    from repro_torch.models import moe, rglru, ssm
     gen = torch.Generator(device=dev).manual_seed(F.seed)
     dt = params["embed"]["table"].dtype
     out = {}
     if cfg.moe is not None:
         m, D = cfg.moe, cfg.d_model
-        p = tree.map(lambda a: a[0], params["groups"][0]["b0"]["moe"])
+        gi = next(i for i, g in enumerate(params["groups"])
+                  if "moe" in g["b0"])
+        p = tree.map(lambda a: a[0], params["groups"][gi]["b0"]["moe"])
         x = torch.randn((F.max_batch, 1, D), generator=gen,
                         device=dev).to(dt)
         w, idx, _ = moe.route(p, x, cfg)
@@ -2669,6 +2846,24 @@ def family_device_steps(torch, dev, cfg, params, F, lens, T) -> dict:
         out["rglru.rglru_scan"] = dict(device_step(
             torch, T, lambda: rglru.rglru_scan(a, b), 3 * S * R * 4,
             2 * S * R, PEAK_F32_FLOPS), shape=f"1 x {S} x {R} float32")
+    if cfg.family == "ssm":
+        S = max(lens)
+        _, H, G, N, P = ssm.dims(cfg)
+        xh = torch.randn((1, S, H, P), generator=gen, device=dev).to(dt)
+        dts = torch.rand((1, S, H), generator=gen, device=dev) * 0.1
+        A = -torch.rand((H,), generator=gen, device=dev).add_(0.5)
+        Bm, Cm = (torch.randn((1, S, G, N), generator=gen,
+                              device=dev).to(dt) for _ in range(2))
+        Dp = torch.ones((H,), device=dev)
+        nbytes = (2 * xh.numel() + 2 * Bm.numel()) * xh.element_size() \
+            + dts.numel() * 4 + H * N * P * 4
+        out["ssm.ssd_chunked"] = dict(device_step(
+            torch, T, lambda: ssm.ssd_chunked(xh, dts, A, Bm, Cm, Dp,
+                                              cfg.ssm.chunk_size),
+            nbytes, 4 * S * H * N * P, PEAK_F32_FLOPS),
+            shape=f"1 x {S} tokens, H {H} x N {N} x P {P}, chunk "
+                  f"{cfg.ssm.chunk_size} ({-(-S // cfg.ssm.chunk_size)} "
+                  f"chunks)")
     for name, r in out.items():
         log(f"phase 10: device step {name} ({r['shape']}): {r['kernels']} "
             f"kernels a call, {r['ms']:.4f} ms cold against a "
@@ -2678,21 +2873,28 @@ def family_device_steps(torch, dev, cfg, params, F, lens, T) -> dict:
 
 def phase_family(torch, np, dev, F, arch, rng, T, params=None) -> dict:
     """Phase 10, one model family: `arch` at full width (seeded bf16
-    parameters; `params`, the reference's carried over, on the CPU)
-    served by `ServeEngine(max_batch, max_seq, device_ring=True)` —
-    paged and unbucketed for the MoE decoder, dense for the hybrid, as
-    `pageable` / `bucketable` decide — on `family_prompts`, every step's
-    logits held against the port's unpadded reference (spec-driven
-    padding) teacher-forced on the engine's tokens; then
+    parameters; `params`, the reference's carried over, on the CPU), cut
+    in depth where F.layers says, served by `ServeEngine(max_batch,
+    max_seq, device_ring=True)` — paged and unbucketed for the MoE
+    decoders (granite's GQA, deepseek's MLA), dense for the hybrid and
+    the SSM, as `pageable` / `bucketable` decide — on `family_prompts`,
+    every step's logits held against the port's unpadded reference
+    (spec-driven padding) teacher-forced on the engine's tokens; then
+    the first request's reference at batch 1 against it
+    (`batch_witness`, in float32 too where that fits the card); then
     `PDServer.serve` of F.pd_batch x F.pd_prompt against the dense
-    greedy decode of the same batch. Both are the counted main path. On
-    the card it also checks the launches per prefill and per admitting
-    step, and times prefill per request, decode per step, the RG-LRU
-    scan inside the longest prefill or the expert loop inside a decode
-    step, and profiles one decode step."""
+    greedy decode of the same batch, its pages those phase 2 held; and,
+    for a model with an MTP head, one `forward` of F.mtp_len tokens whose
+    last row equals `prefill`'s logits to the bit on the card, with
+    finite MTP logits. All three are the counted
+    main path. On the card it also checks the launches per prefill and
+    per admitting step, and times prefill per request, decode per step,
+    the RG-LRU or SSD scans inside the longest prefill or the expert
+    loop inside a decode step, and profiles one decode step."""
     from repro_torch import tree
     from repro_torch.kernels import _build
-    from repro_torch.models import moe, rglru
+    from repro_torch.models import moe, rglru, ssm
+    from repro_torch.models.module import torch_dtype
     from repro_torch.models.registry import build_model
     from repro_torch.models.transformer import layer_plan
     from repro_torch.serve.engine import ServeEngine
@@ -2710,10 +2912,17 @@ def phase_family(torch, np, dev, F, arch, rng, T, params=None) -> dict:
         params = model.init(torch.Generator(device=dev).manual_seed(F.seed),
                             device=dev)
     T.sync()
-    n_attn = sum(k.mix in ("attn", "attn_win") for k in layer_plan(cfg))
+    n_attn = sum(k.mix in ("attn", "attn_win", "mla")
+                 for k in layer_plan(cfg))
     lens = family_prompts(cfg, F)
     prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
                for n in lens]
+    cut = dict(F.layers).get(arch)
+    if cut:
+        full = family_cfg(arch, dataclasses.replace(F, layers=()))
+        log(f"{tag}: depth cut {full.n_layers} -> {cfg.n_layers} layers, "
+            f"every width kept: {full.param_count():,} -> "
+            f"{cfg.param_count():,} parameters")
     log(f"{tag}: {cfg.n_layers} layers ({n_attn} attention), "
         f"{cfg.param_count():,} parameters ({cfg.active_param_count():,} "
         f"active) in {cfg.dtype}, built in {time.perf_counter() - t0:.1f} s;"
@@ -2759,31 +2968,40 @@ def phase_family(torch, np, dev, F, arch, rng, T, params=None) -> dict:
 
     # every step's logits against the unpadded reference at the engine's
     # batch: the reference repeats the request's row over the engine's
-    # slots, so it runs the engine's shapes. For the MoE the first
-    # request's reference also runs at batch 1 (`moe_route_witness`):
-    # once a router's top-k choice differs between the two, their
-    # logits may part without bound; before it they must agree within
-    # the bound, or the decode path depends on the batch.
+    # slots, so it runs the engine's shapes. The first request's
+    # reference also runs at batch 1 (`batch_witness`), in bf16 and, where
+    # a float32 copy of the parameters fits the card beside the bf16 ones,
+    # in float32, whose rounding is 2^16 times finer: a fault of the
+    # decode path at batch 4 would part the float32 pair at the first
+    # decode step as much as the bf16 one; rounding, far less. For an MoE,
+    # once a router's top-k choice differs between the two, their logits
+    # may part without bound; before it the bf16 pair must agree within
+    # the bound too.
     tol = LOGIT_TOL[cfg.dtype]
     worst, worst_at, agree, n_tok, max_d = 0.0, None, 0, 0, 0.0
-    witness = None
-    if cfg.moe is not None:
-        witness, r0 = moe_route_witness(torch, model, params, prompts[0],
-                                        results[rids[0]], F.max_seq, dev,
-                                        F.max_batch)
-        # the same pair in float32, whose rounding is 2^16 times finer:
-        # a fault of the decode path at batch 4 would part them at the
-        # first decode step as much as in bf16; rounding, far less
+    witness, r0 = batch_witness(torch, model, params, prompts[0],
+                                results[rids[0]], F.max_seq, dev,
+                                F.max_batch)
+    # keyed on the model's size, not on the memory free at run time:
+    # deepseek's 26.7 B (100 GiB in float32) cannot, granite, the hybrid
+    # and mamba2 always can
+    f32_bytes = 4 * cfg.param_count()
+    card_bytes = torch.cuda.get_device_properties(dev).total_memory \
+        if cuda else None
+    if not cuda or 1.5 * f32_bytes <= 0.75 * card_bytes:
         m32 = build_model(dataclasses.replace(cfg, dtype="float32"))
-        p32 = tree.map(lambda a: a.float() if a.is_floating_point() else a,
-                       params)
-        witness["float32"] = moe_route_witness(
-            torch, m32, p32, prompts[0], results[rids[0]], F.max_seq, dev,
-            F.max_batch)[0]
+        p32 = tree.map(lambda a: a.float() if a.is_floating_point()
+                       else a, params)
+        witness["float32"] = batch_witness(
+            torch, m32, p32, prompts[0], results[rids[0]], F.max_seq,
+            dev, F.max_batch)[0]
         del m32, p32
     else:
-        r0 = _serve_reference(torch, model, params, prompts[0],
-                              results[rids[0]], F.max_seq, dev)
+        witness["float32"] = None
+        log(f"{tag}: the batch witness runs in bf16 only: a float32 copy "
+            f"of the parameters ({f32_bytes / 2**30:.1f} GiB) beside the "
+            f"bf16 ones does not fit 3/4 of the card's "
+            f"{card_bytes / 2**30:.1f} GiB")
     g0 = torch.stack(logits_of[rids[0]])
     batch1 = float(((g0 - r0).abs().amax(-1) / r0.abs().amax(-1)).max())
     for rid, prompt in zip(rids, prompts):
@@ -2809,18 +3027,19 @@ def phase_family(torch, np, dev, F, arch, rng, T, params=None) -> dict:
         f"reference at batch 1: worst step {batch1:.4g}")
     check(worst <= tol, f"{tag}: logits differ from the reference by "
           f"{worst:.4g} of their scale at {worst_at} (tolerance {tol:g})")
-    if witness is not None:
-        log(f"{tag}: the first request's reference at batch 1 vs batch "
-            f"{F.max_batch}: {witness}")
+    log(f"{tag}: the first request's reference at batch 1 vs batch "
+        f"{F.max_batch}: {witness}")
+    if "before_first_flip" in witness:
         check(witness["before_first_flip"] <= tol,
               f"{tag}: the references at batch 1 and {F.max_batch} differ "
               f"by {witness['before_first_flip']:.4g} of scale before any "
               f"router choice differs (tolerance {tol:g})")
-        f32 = witness["float32"]["rel_by_step"]
-        check(len(f32) < 2 or f32[1] <= tol,
+    f32 = (witness["float32"] or {}).get("rel_by_step", [])
+    if len(f32) > 1:
+        check(f32[1] <= tol,
               f"{tag}: in float32 the references at batch 1 and "
-              f"{F.max_batch} differ by {f32[1]:.4g} of scale at the first "
-              f"decode step (tolerance {tol:g})")
+              f"{F.max_batch} differ by {f32[1]:.4g} of scale at the "
+              f"first decode step (tolerance {tol:g})")
 
     # PDServer: prefill, one KV SEND, the page round trip (sequence
     # leaves only), greedy decode; against the dense greedy decode
@@ -2838,13 +3057,68 @@ def phase_family(torch, np, dev, F, arch, rng, T, params=None) -> dict:
                         F.pd_steps, dev)
     check(np.array_equal(pd_toks, want),
           f"{tag}: PDServer tokens differ from the dense greedy decode")
+    # what the page round trip moves: the sequence leaves, page by page
+    seq_leaves = seq_leaf_specs(model, F.pd_batch, F.pd_seq)
+    page_shapes = sorted({page_key(-(-F.pd_seq // F.page),
+                                   (F.page,) + tuple(sp.shape[3:]),
+                                   sp.dtype or cfg.dtype)
+                          for sp in seq_leaves})
+    pd_pages = sum(sp.shape[0] * sp.shape[1] * -(-F.pd_seq // F.page)
+                   for sp in seq_leaves)
+    token_bytes = sum(sp.shape[0] * math.prod(sp.shape[3:])
+                      * torch_dtype(sp.dtype or cfg.dtype).itemsize
+                      for sp in seq_leaves)
     log(f"{tag}: PDServer.serve of {F.pd_batch} x {F.pd_prompt} tokens, "
         f"{F.pd_steps} steps, max_seq {F.pd_seq}: {pd_s:.2f} s, tokens "
         f"equal the dense greedy decode; payload/header bytes "
-        f"{stats.payload_bytes}/{stats.header_bytes}")
+        f"{stats.payload_bytes}/{stats.header_bytes}; the page round trip "
+        f"moves {len(seq_leaves)} sequence leaves, {pd_pages} pages of "
+        f"{F.page} tokens, {token_bytes} bytes a token, in pools of "
+        f"{page_shapes}")
+
+    # an MTP model's one forward: the trunk's last hidden row is
+    # prefill's, to the bit (the same products at the same shapes), and
+    # on the card its last logits are too; the CPU's float32 unembedding
+    # of F.mtp_len rows and of one row round otherwise (4.8e-6 of scale
+    # at the test's size), so there they are held within the logit
+    # bound. The MTP block runs one token shorter
+    fwd = None
+    if cfg.mtp_depth and F.mtp_len:
+        tk = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, F.mtp_len))
+                              .astype(np.int32)).to(dev)
+        hidden, logits0 = [], model._logits
+        model._logits = lambda p, h: (hidden.append(h), logits0(p, h))[1]
+        try:
+            logits, extras = count_launches(
+                _build, launches, lambda: model.forward(params, tk), shapes)
+            pre, _ = model.prefill(params, tk)
+        finally:
+            del model._logits
+        mtp = extras["mtp_logits"]
+        check(torch.equal(hidden[0][:, -1:], hidden[1]),
+              f"{tag}: forward's last hidden row differs from prefill's")
+        d = float((logits[:, -1:].float() - pre.float()).abs().max())
+        rel = d / float(pre.float().abs().max())
+        ftol = 0.0 if cuda else tol
+        check(rel <= ftol, f"{tag}: forward's last logits differ from "
+              f"prefill's by {rel:.4g} of scale (tolerance {ftol:g})")
+        check(mtp.shape == (1, F.mtp_len - 1, cfg.vocab_size)
+              and bool(torch.isfinite(mtp).all()),
+              f"{tag}: mtp_logits {tuple(mtp.shape)} or not finite")
+        fwd = dict(tokens=F.mtp_len, logit_rel_err=rel, max_dlogit=d,
+                   mtp_shape=list(mtp.shape),
+                   mtp_max_abs=float(mtp.float().abs().max()))
+        same = "equal to the bit" if d == 0 else \
+            f"within {rel:.4g} of scale (max |dlogit| {d:.4g})"
+        log(f"{tag}: forward of 1 x {F.mtp_len}: last hidden row equal to "
+            f"prefill's to the bit; last logits {same}; mtp_logits "
+            f"{tuple(mtp.shape)}, finite, max |logit| "
+            f"{fwd['mtp_max_abs']:.4g}")
+        del logits, extras, pre, mtp, hidden
     if cuda:
+        n_fwd = (n_attn + cfg.mtp_depth) if fwd else 0
         check(launches.get("flash_attention", 0)
-              == n_attn * (len(prompts) + 1)
+              == n_attn * (len(prompts) + 1) + n_fwd
               and launches.get("ring_produce_consume", 0) > 0
               and not launches.get("flash_attention_generic"),
               f"{tag}: launches {launches}")
@@ -2864,20 +3138,23 @@ def phase_family(torch, np, dev, F, arch, rng, T, params=None) -> dict:
         prefill_ms[int(p.size)] = statistics.median(
             T.wall(lambda: model.prefill(params, tk)) for _ in range(F.reps))
     timing = dict(prefill_ms=prefill_ms)
-    if cfg.hybrid is not None:
-        # the RG-LRU scans (every rec layer's) inside the longest prefill
+    scan = (rglru, "rglru_scan") if cfg.hybrid is not None else \
+        (ssm, "ssd_chunked") if cfg.family == "ssm" else None
+    if scan is not None:
+        # the scans (every rec or ssm layer's) inside the longest prefill
         tk = torch.from_numpy(max(prompts, key=len)[None]).to(dev)
-        scan0, spans, walls, shares = rglru.rglru_scan, [], [], []
-        rglru.rglru_scan = lambda *a, **kw: T.span(lambda: scan0(*a, **kw),
-                                                   spans)
+        mod, name = scan
+        scan0, spans, walls, shares = getattr(mod, name), [], [], []
+        setattr(mod, name, lambda *a, **kw: T.span(lambda: scan0(*a, **kw),
+                                                   spans))
         try:
             for _ in range(F.reps):
                 spans.clear()
                 walls.append(T.wall(lambda: model.prefill(params, tk)))
                 shares.append(T.spans_ms(spans))
         finally:
-            rglru.rglru_scan = scan0
-        timing.update(scan_prefill_len=int(tk.shape[1]),
+            setattr(mod, name, scan0)
+        timing.update(scan=name, scan_prefill_len=int(tk.shape[1]),
                       scan_ms=statistics.median(shares),
                       scan_calls=len(spans),
                       scan_prefill_ms=statistics.median(walls))
@@ -2891,7 +3168,8 @@ def phase_family(torch, np, dev, F, arch, rng, T, params=None) -> dict:
     peak = torch.cuda.max_memory_allocated() / 2**30 if cuda else None
     if cuda:
         target = (moe, "_moe_local") if cfg.moe is not None \
-            else (rglru, "rglru_decode")
+            else (rglru, "rglru_decode") if cfg.hybrid is not None \
+            else (ssm, "mamba2_decode")
         timing["decode_profile"] = profile_decode_step(torch, eng, F, T,
                                                        target)
         timing["device_steps"] = family_device_steps(
@@ -2906,13 +3184,16 @@ def phase_family(torch, np, dev, F, arch, rng, T, params=None) -> dict:
     return dict(launches=launches, flash_by_shape=flash_by_shape,
                 ring_classes=ring_classes(shapes), timing=timing,
                 peak_gib=peak, logit_rel_err=worst, max_dlogit=max_d,
-                logit_rel_err_batch1=batch1, route_witness=witness,
+                logit_rel_err_batch1=batch1, batch_witness=witness,
                 token_agreement=agree / n_tok, n_params=cfg.param_count(),
                 active_params=cfg.active_param_count(),
                 tokens=[results[r] for r in rids],
                 prompts=[p.tolist() for p in prompts],
                 pd_tokens=pd_toks.tolist(), pd_prompts=pd_prompts.tolist(),
-                pd_bytes=(stats.payload_bytes, stats.header_bytes))
+                pd_bytes=(stats.payload_bytes, stats.header_bytes),
+                pd_pages=pd_pages, pd_token_bytes=token_bytes,
+                page_shapes=page_shapes, forward=fwd,
+                n_layers=cfg.n_layers)
 
 
 # -- phase 2, the T3 pipe's gather and the list walk ----------------------------
@@ -3903,7 +4184,10 @@ def main() -> int:
         log(f"{what} done at {time.perf_counter() - t_start:.1f} s")
 
     rows = phase_kernels(torch, np, dev, S, rng, T)
-    rows.update(phase_kv_kernels(torch, np, dev, KV, rng, T))
+    family_pages = family_page_shapes(FAMILIES)
+    rows.update(phase_kv_kernels(
+        torch, np, dev, KV, rng, T,
+        [s for arch in FAMILIES.archs for s in family_pages[arch]]))
     rows.update(phase_flash_kernels(torch, np, dev, SERVE, rng, T))
     rows.update(phase_pipe_kernels(torch, np, dev, PIPE, STORE, rng, T))
     free_device_memory(torch)
@@ -3972,6 +4256,11 @@ def main() -> int:
                                                           - t["bound_ms"])
     flash["excess_ms_by_shape"] = excess
     check(not untimed, f"flash shapes launched but not timed: {untimed}")
+    # every page phase 10's round trips moved was held in phase 2
+    for a, r in families.items():
+        check(set(r["page_shapes"]) <= set(rows["kv_ingest"]["by_shape"])
+              & set(rows["wr_gather.pages"]["by_shape"]),
+              f"{a}: pages {r['page_shapes']} not all held in phase 2")
     # the ring's launches by shape class (n, limit) on each path
     ring_by_path = {"datapath": ring_cls, "kv_leg": kv["ring_classes"],
                     "serve": serve["ring_classes"],

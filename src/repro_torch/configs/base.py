@@ -7,8 +7,8 @@ structure (MoE stays MoE, the hybrid block pattern stays 2:1, ...).
 
 A copy of the reference's `repro.configs`. `ModelConfig.param_count` /
 `active_param_count` count the port's parameter specs
-(`models.registry.count_params_analytic`), so they raise for a family
-the port does not build yet.
+(`models.registry.count_params_analytic`), so they raise for the one
+family the port does not build yet, the encoder-decoder.
 """
 from __future__ import annotations
 

@@ -10,13 +10,21 @@ decode — on the torch port.
         --arch recurrentgemma-2b          # full width, on the card
 
 `--arch` takes every decoder family the port builds: the dense
-decoders (gemma-2b, ...), the MoE decoder granite-moe-1b-a400m (paged,
-prompts at their exact lengths) and the hybrid recurrentgemma-2b (the
-dense engine: its window and recurrent-state caches are not paged);
-`--reduced` shrinks any of them to smoke size. The parameters are
-random, drawn from a `torch.Generator` seeded with `--seed` on the
-run's device; the prompts come from a numpy generator with the same
-seed. `--pd` routes the requests through `PDServer`:
+decoders (gemma-2b, ...), the MoE decoders granite-moe-1b-a400m and
+deepseek-v3-671b (MLA; paged, prompts at their exact lengths), the
+hybrid recurrentgemma-2b and the SSM mamba2-780m (the dense engine:
+their window, conv and recurrent-state caches are not paged);
+`--reduced` shrinks any of them to smoke size. `--layers N` cuts the
+depth to N layers and keeps every width (deepseek-v3's 61 layers do not
+fit one card; 4 do, its 3 dense layers and one MoE layer, plus the MTP
+head), and prints the cut.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch deepseek-v3-671b --layers 4   # full width, on the card
+
+The parameters are random, drawn from a `torch.Generator` seeded with
+`--seed` on the run's device; the prompts come from a numpy generator
+with the same seed. `--pd` routes the requests through `PDServer`:
 prefill, the KV transfer as one verbs SEND, the paged ingest round
 trip and greedy decode (`--quantize-kv`: int8 KV on the wire).
 
@@ -26,6 +34,7 @@ trip and greedy decode (`--quantize-kv`: int8 KV on the wire).
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import numpy as np
@@ -48,6 +57,8 @@ def main(argv=None):
     p.add_argument("--max-seq", type=int, default=96)
     p.add_argument("--device", default="cuda")
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--layers", type=int, default=0,
+                   help="cut the depth to this many layers (0: keep it)")
     p.add_argument("--pd", action="store_true",
                    help="prefill/decode disaggregation path")
     p.add_argument("--quantize-kv", action="store_true")
@@ -58,6 +69,10 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduce_cfg(cfg)
+    if args.layers and args.layers < cfg.n_layers:
+        print(f"{cfg.name}: depth cut {cfg.n_layers} -> {args.layers} "
+              f"layers, every width kept")
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
     model = build_model(cfg)
     params = model.init(torch.Generator(device=dev).manual_seed(args.seed))
     rng = np.random.default_rng(args.seed)

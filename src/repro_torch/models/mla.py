@@ -1,0 +1,144 @@
+"""Multi-head Latent Attention (DeepSeek-V2/V3). [arXiv:2412.19437]
+
+Prefill and training run the *expanded* form: the latent is
+up-projected to per-head K/V and attention runs through the flash
+kernel over qk_dim = nope + rope (192) for the keys and v_head_dim
+(128) for the values. Decode runs the *absorbed* form: the queries are
+pulled into latent space through W_UK and attention runs against the
+cached 576-value-per-token latent — the KV-transfer payload for MLA is
+the latent, 10-60x smaller than the expanded KV.
+
+The port of the reference's `repro.models.mla`. The expanded keys are
+the nope part and the shared rope part concatenated into a tensor of
+their own: a broadcast view would have stride 0 over the heads, which
+no TMA tensor map reads. `mla_forward_sp` (Megatron-SP over a `model`
+mesh axis, one `shard_map`) comes with the parallelism slice.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.models.layers import apply_rope, rmsnorm, rmsnorm_spec
+from repro_torch.models.module import Spec
+from repro_torch.parallel import collectives
+
+
+def latent_dim(cfg) -> int:
+    a = cfg.mla
+    return a.kv_lora_rank + a.qk_rope_head_dim
+
+
+def mla_spec(cfg) -> dict:
+    a = cfg.mla
+    D, H = cfg.d_model, cfg.n_heads
+    qk = a.qk_nope_head_dim + a.qk_rope_head_dim
+    s: dict = {}
+    if a.q_lora_rank:
+        s["w_dq"] = Spec((D, a.q_lora_rank), ("embed", "q_lora"))
+        s["q_norm"] = rmsnorm_spec(a.q_lora_rank)
+        s["w_uq"] = Spec((a.q_lora_rank, H, qk), ("q_lora", "heads", "head_dim"))
+    else:
+        s["w_q"] = Spec((D, H, qk), ("embed", "heads", "head_dim"))
+    s["w_dkv"] = Spec((D, a.kv_lora_rank), ("embed", "kv_lora"))
+    s["kv_norm"] = rmsnorm_spec(a.kv_lora_rank)
+    s["w_kr"] = Spec((D, a.qk_rope_head_dim), ("embed", None))
+    s["w_uk"] = Spec((a.kv_lora_rank, H, a.qk_nope_head_dim),
+                     ("kv_lora", "heads", "head_dim"))
+    s["w_uv"] = Spec((a.kv_lora_rank, H, a.v_head_dim),
+                     ("kv_lora", "heads", "head_dim"))
+    s["w_o"] = Spec((H, a.v_head_dim, D), ("heads", "head_dim", "embed"))
+    return s
+
+
+def _up(x, w):
+    """einsum("bsr,rhk->bshk", x, w) as one matrix product."""
+    R, H, K = w.shape
+    return (x @ w.reshape(R, H * K)).unflatten(-1, (H, K))
+
+
+def _queries(params, x, positions, cfg):
+    a = cfg.mla
+    if a.q_lora_rank:
+        ql = rmsnorm(params["q_norm"], x @ params["w_dq"], cfg.norm_eps)
+        q = _up(ql, params["w_uq"])
+    else:
+        q = _up(x, params["w_q"])
+    qn = q[..., :a.qk_nope_head_dim]
+    qr = apply_rope(q[..., a.qk_nope_head_dim:], positions, cfg.rope_theta)
+    return qn, qr
+
+
+def _latent(params, x, positions, cfg):
+    ckv = rmsnorm(params["kv_norm"], x @ params["w_dkv"], cfg.norm_eps)
+    kr = apply_rope(x @ params["w_kr"], positions, cfg.rope_theta)
+    return ckv, kr
+
+
+def _out(o, w_o):
+    """einsum("bshv,hvd->bsd", o, w_o)."""
+    H, V, D = w_o.shape
+    return o.flatten(-2) @ w_o.reshape(H * V, D)
+
+
+def mla_forward_sp(params, x, positions, cfg, *, q_chunk=512, kv_chunk=1024):
+    """Megatron-SP MLA: the latents all-gathered over a `model` mesh
+    axis inside one shard_map. One process has no such axis."""
+    raise NotImplementedError(
+        "mla_forward_sp (sequence-parallel MLA over a model mesh axis) "
+        "comes with the parallelism slice (ROADMAP slice 8)")
+
+
+def mla_forward(params, x, positions, cfg, *, return_cache: bool = False,
+                q_chunk=512, kv_chunk=1024):
+    """Expanded-form MLA over a full sequence. x: (B,S,D). The cache of
+    a prefill is the latent, (B,S,1,kv_lora_rank + qk_rope). The
+    reference's `q_chunk` / `kv_chunk` tile its chunked attention; the
+    flash kernel's tiles are fixed, so they change nothing."""
+    del q_chunk, kv_chunk
+    a = cfg.mla
+    B, S, D = x.shape
+    H = cfg.n_heads
+    qn, qr = _queries(params, x, positions, cfg)
+    ckv, kr = _latent(params, x, positions, cfg)
+
+    kn = _up(ckv, params["w_uk"])
+    v = _up(ckv, params["w_uv"])
+    q = torch.cat([qn, qr], dim=-1)                         # (B,S,H,qk)
+    k = torch.cat([kn, kr[:, :, None].expand(B, S, H, a.qk_rope_head_dim)],
+                  dim=-1)                                   # materialised
+    out = collectives.attend(q.unsqueeze(3), k, v, causal=True)
+    y = _out(out.reshape(B, S, H, a.v_head_dim), params["w_o"])
+    if not return_cache:
+        return y
+    return y, torch.cat([ckv, kr], dim=-1)[:, :, None, :]
+
+
+def mla_decode(params, x, cache, pos, cfg):
+    """Absorbed-form single-token decode. x: (B,1,D); cache: (B,S,1,C);
+    pos: scalar or (B,) write index."""
+    a = cfg.mla
+    B = x.shape[0]
+    positions = torch.as_tensor(pos, dtype=torch.int32,
+                                device=x.device).broadcast_to((B,))[:, None]
+    qn, qr = _queries(params, x, positions, cfg)             # (B,1,H,*)
+    # absorb W_UK: q_eff[h] = qn[h] @ W_UK[:,h,:]^T  -> latent space
+    q_eff = torch.einsum("bhn,rhn->bhr", qn[:, 0], params["w_uk"])
+    q_full = torch.cat([q_eff, qr[:, 0]], dim=-1)            # (B,H,C)
+    ckv, kr = _latent(params, x, positions, cfg)
+    new = torch.cat([ckv, kr], dim=-1)[:, 0]                 # (B,C)
+
+    qk_dim = a.qk_nope_head_dim + a.qk_rope_head_dim
+    # q grouped as (B, KVH=1, G=H, C): the latent cache is MQA-like
+    out, cache, _ = collectives.seqparallel_decode_attention(
+        q_full[:, None], cache, None, new[:, None], None, pos,
+        sm_scale=1.0 / math.sqrt(qk_dim), v_dims=a.kv_lora_rank)
+    o = torch.einsum("bhr,rhv->bhv", out[:, 0].float(),
+                     params["w_uv"].float()).to(x.dtype)     # (B,H,v)
+    return _out(o[:, None], params["w_o"]), cache
+
+
+def mla_cache_spec(cfg, batch: int, seq_len: int) -> Spec:
+    return Spec((batch, seq_len, 1, latent_dim(cfg)),
+                ("batch", "kv_seq", None, None), init="zeros")

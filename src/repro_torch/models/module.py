@@ -8,14 +8,13 @@ dict keys sorted), so a leaf list of the port and one of the reference
 compare 1:1.
 
 Initializers: ``zeros``, ``ones``, ``normal`` (std = the spec's
-scale, else 1/sqrt(shape[-2]), drawn in float32 and cast) and
-``rglru_a`` (Griffin's Λ, the logit of a uniform draw in
-[0.9^(1/8), 0.999^(1/8)]), the random ones from an explicit
-`torch.Generator` that the caller passes: leaves draw in tree order
-from that one generator, so a seed fixes the whole tree. The same seed
+scale, else 1/sqrt(shape[-2]), drawn in float32 and cast), ``rglru_a``
+(Griffin's Λ, the logit of a uniform draw in [0.9^(1/8),
+0.999^(1/8)]) and ``a_log`` (mamba2's A_log, log U[1, 16]), the random
+ones from an explicit `torch.Generator` that the caller passes: leaves
+draw in tree order from that one generator, so a seed fixes the whole tree. The same seed
 does not give the reference's numbers, and nothing tries to: tests
-carry parameters across as numpy (`convert.params_from_numpy`). The
-ssm initializer (``a_log``) comes with mamba2 (ROADMAP slice 6c).
+carry parameters across as numpy (`convert.params_from_numpy`).
 """
 from __future__ import annotations
 
@@ -34,7 +33,7 @@ from repro_torch.device import resolve
 class Spec:
     shape: tuple[int, ...]
     axes: tuple[Optional[str], ...]
-    init: str = "normal"            # normal | zeros | ones | rglru_a
+    init: str = "normal"            # normal | zeros | ones | rglru_a | a_log
     scale: Optional[float] = None   # stddev; None => 1/sqrt(fan_in)
     dtype: Optional[str] = None     # None => model default dtype
 
@@ -101,8 +100,12 @@ def _init_leaf(spec: Spec, default_dtype: str, device: torch.device,
                        device=device).mul_(hi - lo).add_(lo)
         return torch.log(u / (1.0 - u)).to(dt)
     if spec.init == "a_log":
-        raise NotImplementedError(
-            "init 'a_log' comes with mamba2 (ROADMAP slice 6c)")
+        # mamba2 A_log: log(U[1, 16])
+        if generator is None:
+            raise ValueError("the a_log initializer needs a torch.Generator")
+        u = torch.rand(spec.shape, generator=generator, dtype=torch.float32,
+                       device=device).mul_(15.0).add_(1.0)
+        return torch.log(u).to(dt)
     raise ValueError(f"unknown init {spec.init!r}")
 
 

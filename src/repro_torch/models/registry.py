@@ -1,5 +1,5 @@
-"""Model registry: config -> model (the decoder families), parameter
-accounting."""
+"""Model registry: config -> model (the decoder families: dense, MoE,
+MLA, hybrid, SSM), parameter accounting."""
 from __future__ import annotations
 
 import numpy as np
@@ -11,10 +11,10 @@ from repro_torch.models import module as mod
 
 def build_model(cfg: ModelConfig):
     """The port's model for `cfg`. The encoder-decoder family comes with
-    the remaining model families (ROADMAP slice 6)."""
+    ROADMAP slice 6e."""
     if cfg.family == "encdec":
         raise NotImplementedError(
-            "the encoder-decoder family comes with ROADMAP slice 6")
+            "the encoder-decoder family comes with ROADMAP slice 6e")
     from repro_torch.models.transformer import DecoderLM
     return DecoderLM(cfg)
 

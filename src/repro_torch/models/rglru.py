@@ -83,6 +83,16 @@ def _dconv(x, w, b):
     return y + b.to(y.dtype)
 
 
+def _conv_tail(t, K: int):
+    """The conv history a prefill leaves: the last K - 1 pre-conv rows
+    of t (B, S, F) as float32, zero rows first when S < K - 1 (what
+    `_dconv` reads before the sequence's start)."""
+    tail = t[:, -(K - 1):].float()
+    if tail.shape[1] < K - 1:
+        tail = F.pad(tail, (0, 0, K - 1 - tail.shape[1], 0))
+    return tail
+
+
 def _gates(params, xr, nb: int):
     r = torch.sigmoid(_block_diag(params["gate_a"], params["gate_a_b"],
                                   xr, nb).float())
@@ -133,11 +143,8 @@ def rglru_forward(params, x, cfg, *, return_cache: bool = False,
     out = linear(params["out"], y)
     if not return_cache:
         return out
-    K = cfg.hybrid.conv_width
-    hist = xr_raw[:, -(K - 1):].float()
-    if hist.shape[1] < K - 1:           # a prompt shorter than the history
-        hist = F.pad(hist, (0, 0, K - 1 - hist.shape[1], 0))
-    return out, {"h": h[:, -1], "conv": hist}
+    return out, {"h": h[:, -1],
+                 "conv": _conv_tail(xr_raw, cfg.hybrid.conv_width)}
 
 
 def rglru_decode(params, x, cache, cfg):

@@ -3,13 +3,14 @@
 The port of the reference's `repro.models.transformer` for the
 decoder families one process serves: the dense attention decoders
 (gemma-2b and the other `attn` + dense-FFN configurations), the MoE
-decoder (granite-moe: `attn` + `moe`, and the `dense_big` FFN that
-leads deepseek's stack) and the Griffin hybrid (recurrentgemma: `rec`
-RG-LRU blocks and `attn_win` local attention). The parameter and cache
-specs, the GQA attention block (train / prefill through the flash
-kernel, windowed or not; decode through the local flash-decode or the
-rolling window), `block_apply`, and `DecoderLM`'s `init` / `forward` /
-`prefill` / `decode_step`.
+decoders (granite-moe: `attn` + `moe`; deepseek-v3: `mla` with the
+`dense_big` FFN first, then `moe`, and the multi-token-prediction
+head), the Griffin hybrid (recurrentgemma: `rec` RG-LRU blocks and
+`attn_win` local attention) and the SSM (mamba2: `ssm` blocks, no
+FFN). The parameter and cache specs, the GQA attention block (train /
+prefill through the flash kernel, windowed or not; decode through the
+local flash-decode or the rolling window), `block_apply`, and
+`DecoderLM`'s `init` / `forward` / `prefill` / `decode_step`.
 
 Differences from the reference, on purpose:
 
@@ -17,13 +18,14 @@ Differences from the reference, on purpose:
     (each layer sees views of the stacked tensors) where the reference
     scans with `lax.scan`; PyTorch runs eagerly. New caches are stacked
     back per group, as the reference's scan stacks them.
-  * No remat, no `_residual_constrain` (one process has no mesh), no
-    multi-token-prediction head and no frontends: training, the
-    parallelism slice and the other families bring them. The step
-    functions run under `torch.no_grad()`; training brings gradients.
-  * The `mla` and `ssm` mixers raise NotImplementedError naming the
-    remaining model families (ROADMAP slices 6c, 6d), as their cache
-    specs do; so does the multi-token-prediction head.
+  * No remat, no `_residual_constrain` (one process has no mesh) and
+    no frontends: training, the parallelism slice and the
+    encoder-decoder slice bring them. The step functions run under
+    `torch.no_grad()`; training brings gradients. `forward` returns
+    the multi-token-prediction head's logits (``mtp_logits``) as the
+    reference's does; serving never runs the head.
+  * MLA in training mode is `mla_forward` (the reference takes its
+    sequence-parallel `mla_forward_sp` only over a `model` mesh axis).
 """
 from __future__ import annotations
 
@@ -33,7 +35,7 @@ from dataclasses import dataclass
 import torch
 
 from repro_torch import tree
-from repro_torch.models import ffn, moe, rglru
+from repro_torch.models import ffn, mla, moe, rglru, ssm
 from repro_torch.models.layers import (apply_rope, embed, embedding_spec,
                                        proj_spec, rmsnorm, rmsnorm_spec,
                                        softcap, unembed)
@@ -41,8 +43,7 @@ from repro_torch.models.module import (Spec, init_params, stack_specs,
                                        torch_dtype)
 from repro_torch.parallel import collectives
 
-_LATER = "comes with the remaining model families (ROADMAP slice 6)"
-_MIXERS = ("attn", "attn_win", "rec")
+_MIXERS = ("attn", "attn_win", "mla", "rec", "ssm")
 _FFNS = ("dense", "dense_big", "moe", "none")
 
 
@@ -221,10 +222,12 @@ def block_cache_spec(cfg, kind: LayerKind, batch: int, seq_len: int) -> dict:
     if kind.mix == "attn_win":
         return attn_cache_spec(cfg, batch, seq_len,
                                window=cfg.hybrid.window)
+    if kind.mix == "mla":
+        return {"ckv": mla.mla_cache_spec(cfg, batch, seq_len)}
     if kind.mix == "rec":
         return rglru.rglru_cache_spec(cfg, batch)
-    if kind.mix in ("mla", "ssm"):
-        raise NotImplementedError(f"the {kind.mix} cache {_LATER}")
+    if kind.mix == "ssm":
+        return ssm.mamba2_cache_spec(cfg, batch)
     raise ValueError(kind)
 
 
@@ -232,9 +235,7 @@ def block_cache_spec(cfg, kind: LayerKind, batch: int, seq_len: int) -> dict:
 # Block = mixer + FFN
 # --------------------------------------------------------------------------
 def _check_kind(kind: LayerKind):
-    if kind.mix not in _MIXERS:
-        raise NotImplementedError(f"the {kind.mix} mixer {_LATER}")
-    if kind.ffn not in _FFNS:
+    if kind.mix not in _MIXERS or kind.ffn not in _FFNS:
         raise ValueError(kind)
 
 
@@ -244,8 +245,12 @@ def block_spec(cfg, kind: LayerKind) -> dict:
     s: dict = {"ln1": rmsnorm_spec(D)}
     if kind.mix in ("attn", "attn_win"):
         s["attn"] = attn_spec(cfg)
-    else:
+    elif kind.mix == "mla":
+        s["mla"] = mla.mla_spec(cfg)
+    elif kind.mix == "rec":
         s["rec"] = rglru.rglru_block_spec(cfg)
+    else:
+        s["ssm"] = ssm.mamba2_spec(cfg)
     if kind.ffn == "dense":
         s["ln2"] = rmsnorm_spec(D)
         s["ffn"] = ffn.ffn_spec(D, cfg.d_ff, cfg.act)
@@ -272,13 +277,31 @@ def block_apply(params, x, positions, cfg, kind: LayerKind, *, mode="train",
         a, new_cache = attn_apply(params["attn"], h, positions, cfg,
                                   window=window, mode=mode, cache=cache,
                                   pos=pos)
+    elif kind.mix == "mla":
+        if mode == "decode":
+            a, ckv = mla.mla_decode(params["mla"], h, cache["ckv"], pos, cfg)
+            new_cache = {"ckv": ckv}
+        elif mode == "prefill":
+            a, ckv = mla.mla_forward(params["mla"], h, positions, cfg,
+                                     return_cache=True)
+            new_cache = {"ckv": ckv}
+        else:
+            a = mla.mla_forward(params["mla"], h, positions, cfg)
+    elif kind.mix == "rec":
+        if mode == "decode":
+            a, new_cache = rglru.rglru_decode(params["rec"], h, cache, cfg)
+        elif mode == "prefill":
+            a, new_cache = rglru.rglru_forward(params["rec"], h, cfg,
+                                               return_cache=True)
+        else:
+            a = rglru.rglru_forward(params["rec"], h, cfg)
     elif mode == "decode":
-        a, new_cache = rglru.rglru_decode(params["rec"], h, cache, cfg)
+        a, new_cache = ssm.mamba2_decode(params["ssm"], h, cache, cfg)
     elif mode == "prefill":
-        a, new_cache = rglru.rglru_forward(params["rec"], h, cfg,
-                                           return_cache=True)
+        a, new_cache = ssm.mamba2_forward(params["ssm"], h, cfg,
+                                          return_cache=True)
     else:
-        a = rglru.rglru_forward(params["rec"], h, cfg)
+        a = ssm.mamba2_forward(params["ssm"], h, cfg)
     x = x + a
     if kind.ffn in ("dense", "dense_big"):
         h = rmsnorm(params["ln2"], x, eps, zero_centered=zc)
@@ -325,8 +348,14 @@ class DecoderLM:
         if not cfg.tie_embeddings:
             s["out_embed"] = embedding_spec(cfg.vocab_size, cfg.d_model)
         if cfg.mtp_depth:
-            raise NotImplementedError(f"the multi-token-prediction head "
-                                      f"{_LATER}")
+            kind = layer_plan(cfg)[-1]
+            s["mtp"] = {
+                "proj": Spec((2 * cfg.d_model, cfg.d_model),
+                             (None, "embed")),
+                "norm_h": rmsnorm_spec(cfg.d_model),
+                "norm_e": rmsnorm_spec(cfg.d_model),
+                "block": block_spec(cfg, kind),
+            }
         return s
 
     def cache_specs(self, batch: int, seq_len: int) -> list:
@@ -353,7 +382,9 @@ class DecoderLM:
     # -- shared trunk ------------------------------------------------------
     def _embed_in(self, params, tokens, embeddings=None):
         if embeddings is not None:
-            raise NotImplementedError(f"frontend embeddings {_LATER}")
+            raise NotImplementedError(
+                "frontend embeddings come with the encoder-decoder and "
+                "frontend slice (ROADMAP slice 6e)")
         cfg = self.cfg
         x = embed(params["embed"], tokens).to(torch_dtype(cfg.dtype))
         if cfg.scale_embeddings:
@@ -401,12 +432,35 @@ class DecoderLM:
     # -- public step functions ---------------------------------------------
     @torch.no_grad()
     def forward(self, params, tokens, *, embeddings=None):
-        """Full-sequence logits. Returns (logits, extras)."""
+        """Full-sequence logits. Returns (logits, extras): the MoE aux
+        loss and, with an MTP head, its logits (``mtp_logits``, one
+        row fewer)."""
         B, S = tokens.shape
         positions = self._positions(B, S, tokens.device)
         x = self._embed_in(params, tokens, embeddings)
         x, aux, _ = self._run_groups(params, x, positions, mode="train")
-        return self._logits(params, x), {"moe_aux": aux}
+        extras = {"moe_aux": aux}
+        if self.cfg.mtp_depth:
+            extras["mtp_logits"] = self._mtp(params, x, tokens, positions)
+        return self._logits(params, x), extras
+
+    def _mtp(self, params, h, tokens, positions):
+        """DeepSeek-style 1-depth multi-token prediction head: the trunk's
+        hidden state at t and the embedding of token t + 1, normed,
+        concatenated and projected, through one block of the last
+        layer's kind, to logits for token t + 2."""
+        cfg = self.cfg
+        mp = params["mtp"]
+        emb_next = embed(params["embed"], tokens[:, 1:]).to(h.dtype)
+        hh = rmsnorm(mp["norm_h"], h[:, :-1], cfg.norm_eps)
+        ee = rmsnorm(mp["norm_e"], emb_next, cfg.norm_eps)
+        z = torch.cat([hh, ee], dim=-1) @ mp["proj"]
+        kind = layer_plan(cfg)[-1]
+        z, _, _ = block_apply(mp["block"], z, positions[:, 1:], cfg, kind,
+                              mode="train")
+        z = rmsnorm(params["final_norm"], z, cfg.norm_eps)
+        table = params["embed"] if cfg.tie_embeddings else params["out_embed"]
+        return softcap(unembed(table, z), cfg.logit_softcap)
 
     @torch.no_grad()
     def prefill(self, params, tokens, *, embeddings=None, last_pos=None):

@@ -5,8 +5,10 @@ branches a single process takes: with no `model` mesh axis (M == 1)
 full-sequence attention is local chunked attention (the flash kernel),
 and decode is the local branch of the KV-sequence-parallel flash-decode
 — the per-request write of the new entry at `pos`, `decode_partials`
-over the whole cache, `finalize_partials` — and the hybrids' decode
-against a rolling window cache (`window_decode_attention`).
+over the whole cache, `finalize_partials`, with MLA's absorbed mode
+(`v_dims`: the values are the latent's first columns) — and the
+hybrids' decode against a rolling window cache
+(`window_decode_attention`).
 `merge_partials` and the shard_map branches (head-TP, context
 parallelism, the sharded decode) come with the parallelism slice
 (ROADMAP slice 8).
@@ -38,24 +40,31 @@ def _update(cache, new, p):
 
 
 def seqparallel_decode_attention(q, k_cache, v_cache, k_new, v_new, pos, *,
-                                 cap=0.0, sm_scale=None):
+                                 cap=0.0, sm_scale=None, v_dims=None):
     """One-token decode against the whole KV cache (the local branch).
 
     q: (B,KVH,G,Dk); caches: (B,S,KVH,D*); new entries: (B,KVH,D*);
     pos: scalar or (B,) int (index where the new entry is written;
     attention covers positions [0, pos]). Returns (out (B,KVH,G,Dv),
-    k_cache, v_cache). MLA's absorbed mode (`v_dims`) comes with the
-    remaining model families (ROADMAP slice 6).
+    k_cache, v_cache).
+
+    v_dims: MLA's absorbed mode — V is k_cache[..., :v_dims] (the
+    shared latent); v_cache and v_new are ignored and v_cache comes
+    back as None.
     """
     B, S = k_cache.shape[:2]
     pos = torch.as_tensor(pos, device=q.device).long().broadcast_to((B,))
     k_cache = _update(k_cache, k_new, pos)
-    v_cache = _update(v_cache, v_new, pos)
-    acc, m, l = decode_partials(q, k_cache, v_cache,
+    if v_dims is not None:
+        v_eff = k_cache[..., :v_dims]
+    else:
+        v_cache = _update(v_cache, v_new, pos)
+        v_eff = v_cache
+    acc, m, l = decode_partials(q, k_cache, v_eff,
                                 torch.arange(S, device=q.device), pos,
                                 cap=cap, sm_scale=sm_scale)
     out = finalize_partials(acc, l).to(q.dtype)
-    return out, k_cache, v_cache
+    return out, k_cache, (None if v_dims is not None else v_cache)
 
 
 def window_decode_attention(q, k_win, v_win, k_new, v_new, pos, window: int,

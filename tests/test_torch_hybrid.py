@@ -679,23 +679,53 @@ def test_chip_smoke_phase10_at_cpu_size(arch):
     layout = chip_smoke.flash_layout(tm.cfg)
     assert chip_smoke.family_flash_shapes(F)[arch] == \
         [layout + (1, n) for n in lens] + [layout + (2, 10)]
-    witness = out["route_witness"]
+    # batch 1 against the engine's batch of 4, step by step and block by
+    # block, in float32 too; the router's choices for the MoE alone
+    witness = out["batch_witness"]
+    tol = chip_smoke.LOGIT_TOL["float32"]
+    assert len(witness["rel_by_step"]) == F.new
+    assert witness["layers"] == tm.cfg.n_layers
+    assert len(witness["hidden_rel_by_layer_step1"]) == tm.cfg.n_layers
+    assert len(witness["hidden_rel_last_layer_by_step"]) == F.new - 1
+    assert witness["float32"]["rel_by_step"][1] <= tol
+    assert witness["hidden_first_over_tol"] is None
     if arch == ARCH:
-        assert witness is None
+        assert "flips_by_step" not in witness
     else:
-        # batch 1 against the engine's batch of 4, step by step
-        assert len(witness["rel_by_step"]) == F.new
         assert witness["flips_by_step"][0] == 0
-        assert witness["before_first_flip"] \
-            <= chip_smoke.LOGIT_TOL["float32"]
+        assert witness["before_first_flip"] <= tol
         assert witness["float32"]["flips_by_step"] == witness["flips_by_step"]
+    assert out["page_shapes"] == [
+        chip_smoke.page_key(*s)
+        for s in chip_smoke.family_page_shapes(F)[arch]]
+
+
+def test_phase2_holds_every_phase10_page():
+    """Phase 2 holds and times the page kernels at each page that phase
+    10's round trips move at full width: granite's K/V pages and
+    deepseek's latent pages (18,432 B, not a whole number of the copy
+    loop's 512 x 16-byte passes), in pools of pd_seq / page pages; the
+    hybrid and the SSM page none."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+
+    F = chip_smoke.FAMILIES
+    n = F.pd_seq // F.page
+    assert chip_smoke.family_page_shapes(F) == {
+        "granite-moe-1b-a400m": [(n, (16, 8, 64), "bfloat16")],
+        "recurrentgemma-2b": [], "mamba2-780m": [],
+        "deepseek-v3-671b": [(n, (16, 1, 576), "bfloat16")]}
+    assert (16 * 576 * 2) % (512 * 16) != 0
+    assert chip_smoke.page_key(n, (16, 1, 576), "bfloat16") == \
+        "128 pages of 16x1x576 bfloat16"
 
 
 def test_flash_shapes_hold_every_phase10_shape():
     """Phase 2 holds and times each prefill attention shape that phase
     10 launches at full width: FLASH_SHAPES lists them, keyed by the
-    model's head layout and window, and gemma-2b's main shape is the
-    serving path's layout."""
+    model's head layout and window (the attention-free SSM launches
+    none; MLA's head dim is its (Dk, Dv) pair), and gemma-2b's main
+    shape is the serving path's layout."""
     sys.path.insert(0, str(ROOT))
     import chip_smoke
     from repro_torch.configs.base import get_config
@@ -703,9 +733,15 @@ def test_flash_shapes_hold_every_phase10_shape():
     shapes = chip_smoke.family_flash_shapes(chip_smoke.FAMILIES)
     assert sorted(shapes) == sorted(chip_smoke.FAMILIES.archs)
     for arch, want in shapes.items():
-        assert want and set(want) <= set(chip_smoke.FLASH_SHAPES), arch
+        assert bool(want) == (not get_config(arch).is_attention_free), arch
+        assert set(want) <= set(chip_smoke.FLASH_SHAPES), arch
     assert chip_smoke.flash_layout(get_config("recurrentgemma-2b")) == \
         (10, 1, 256, 2048)
+    assert chip_smoke.flash_layout(get_config("mamba2-780m")) is None
+    assert chip_smoke.flash_layout(get_config("deepseek-v3-671b")) == \
+        chip_smoke.MLA_LAYOUT == (128, 128, (192, 128), 0)
+    assert chip_smoke.flash_key(chip_smoke.MLA_LAYOUT, "1x511") == \
+        "H128/KVH128/D192v128 1x511"
     assert chip_smoke.flash_layout(get_config(chip_smoke.SERVE.arch)) == \
         chip_smoke.FLASH_MAIN[:4]
     assert chip_smoke.flash_key((10, 1, 256, 2048), "1x3000") == \

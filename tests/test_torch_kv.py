@@ -269,7 +269,9 @@ def test_pad_caches_matches_reference():
 @pytest.mark.parametrize("arch,size", [
     ("gemma-2b", "reduced"), ("gemma-2b", "full"),
     ("granite-moe-1b-a400m", "reduced"), ("phi4-mini-3.8b", "full"),
-    ("recurrentgemma-2b", "reduced"), ("recurrentgemma-2b", "full")])
+    ("recurrentgemma-2b", "reduced"), ("recurrentgemma-2b", "full"),
+    ("mamba2-780m", "reduced"), ("mamba2-780m", "full"),
+    ("deepseek-v3-671b", "reduced"), ("deepseek-v3-671b", "full")])
 def test_cache_specs_match_reference(arch, size):
     import jax
     cfg = get_config(arch)
@@ -292,11 +294,15 @@ def test_cache_specs_match_reference(arch, size):
 
 
 def test_other_mixers_wait_for_their_slice():
-    cfg = reduced(get_config("mamba2-780m"))
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        build_model(cfg).cache_specs(2, 8)
+    """The encoder-decoder family waits for its slice (6e); the ssm and
+    mla mixers, which waited for theirs, build caches of the
+    reference's specs (`test_cache_specs_match_reference`)."""
     with pytest.raises(NotImplementedError, match="slice 6"):
         build_model(reduced(get_config("whisper-base")))
+    for arch in ("mamba2-780m", "deepseek-v3-671b"):
+        cache = build_model(reduced(get_config(arch))).init_cache(
+            2, 8, device="cpu")
+        assert ttree.leaves(cache)
 
 
 def test_tree_leaves_follow_jax_order():

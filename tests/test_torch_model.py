@@ -77,7 +77,8 @@ def _leaves_near(got, want, rel):
 
 def test_param_specs_match_reference_leaf_for_leaf():
     for arch in ("gemma-2b", "phi4-mini-3.8b", "codeqwen1.5-7b",
-                 "stablelm-12b", "granite-moe-1b-a400m", "recurrentgemma-2b"):
+                 "stablelm-12b", "granite-moe-1b-a400m", "recurrentgemma-2b",
+                 "mamba2-780m", "deepseek-v3-671b"):
         js = jax.tree.leaves(jbuild(jreduced(jget_config(arch)))
                              .param_specs(), is_leaf=jis_spec)
         tm = build_model(reduced(get_config(arch)))
@@ -90,13 +91,13 @@ def test_param_specs_match_reference_leaf_for_leaf():
     assert count_params(full.param_specs()) == 2_506_172_416
 
 
-# the configs the port builds, and the families it does not build yet
+# the configs the port builds, and the family it does not build yet
 BUILT = ("gemma-2b", "phi4-mini-3.8b", "codeqwen1.5-7b", "stablelm-12b",
-         "internvl2-2b", "granite-moe-1b-a400m", "recurrentgemma-2b")
+         "internvl2-2b", "granite-moe-1b-a400m", "recurrentgemma-2b",
+         "mamba2-780m", "deepseek-v3-671b")
 
 
-@pytest.mark.parametrize("arch", ["mamba2-780m", "deepseek-v3-671b",
-                                  "whisper-base"])
+@pytest.mark.parametrize("arch", ["whisper-base"])
 def test_other_families_raise_not_implemented(arch):
     with pytest.raises(NotImplementedError, match="slice 6"):
         build_model(reduced(get_config(arch))).param_specs()
