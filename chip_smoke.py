@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Drive the torch port's verbs datapath, its KV-cache transfer leg, its
 serving path, the T3 notification pipe, the disaggregated serving
-cluster, Solar block storage and the MoE, hybrid, SSM and MLA model
-families on one CUDA card, and hold every kernel of those paths against
-its plain PyTorch version.
+cluster, Solar block storage, the MoE, hybrid, SSM and MLA model
+families and training (with the encoder-decoder and the vision
+frontend) on one CUDA card, and hold every kernel of those paths
+against its plain PyTorch version.
 
     python3 chip_smoke.py              # from the root of a checkout
     python3 chip_smoke.py --rehearse   # on the CPU: the ring's call shapes
@@ -16,7 +17,8 @@ widths and prints the device CQ ring's calls by shape class). The same main path
 failover), `tests/test_torch_serve.py::
 test_chip_smoke_phase6_at_cpu_size_matches_reference_engine` and
 `tests/test_torch_{ring_pipe,cluster,storage}.py` (phases 7, 8, 9) and
-`tests/test_torch_{hybrid,ssm,mla}.py::test_chip_smoke_phase10_at_cpu_size`.
+`tests/test_torch_{hybrid,ssm,mla}.py::test_chip_smoke_phase10_at_cpu_size`
+and `tests/test_torch_train.py::test_chip_smoke_phase11_at_cpu_size`.
 
 Phases (any failure exits non-zero):
   1. the card (nvidia-smi name and power limit) and the kernel build;
@@ -125,7 +127,29 @@ Phases (any failure exits non-zero):
      request, decode per step, the RG-LRU and SSD scans inside the
      longest prefill and the expert loop inside a decode step (CUDA
      events), one profiled decode step, and each of those device steps
-     alone (kernels a call, cold ms, bound).
+     alone (kernels a call, cold ms, bound);
+ 11. training through `repro_torch.launch.train`'s `main`, each model at
+     full width on the synthetic stream, AdamW at the CLI's lr 3e-4, each
+     arch's loss on a held-out batch falling from the CLI's initial
+     parameters to the trained ones: (a) gemma-2b (2.5 B bf16
+     parameters, batch 4 x 128), 10 steps; one step's grads at
+     microbatches=2 bit-equal to the float32 sum of its halves' grads
+     over two, and against microbatches=1 (MB_TOL, on a `conditioned`
+     float32 copy: the random full-width models are chaotic); no
+     checkpoint at this width (parameters, float32 moments and grads:
+     ~30 GiB); (b) whisper-base (74 M) with 1500 seeded frame
+     embeddings of 512, batch 4 x 128: a `TrainController` run of 12
+     steps checkpointing every 4 and the same run failing at step 9 and
+     restoring (bf16 leaves through the checkpoint's ``|V2``), every
+     loss and the final state bit-equal; then prefill of 4 x 112 and 16
+     greedy decode steps against the teacher-forced forward (LOGIT_TOL
+     on the conditioned copy, measured on the trained parameters); (c)
+     internvl2-2b (256 seeded patch embeddings of 2048 and text to 512
+     tokens), 10 steps. Each arch's flash launches are counted (twice a
+     layer under remat) and keyed by shape; then a step split by CUDA
+     events (forward, backward, optimizer, flash's forward and its
+     plain-recompute backward), one profiled step (kernels, idle share)
+     and the peak memory.
 Phase 2 also holds flash_attention (its TMA/wgmma entry) and
 flash_attention_generic (its mma.sync entry) against their plain version
 at every prefill shape the main paths launch, FLASH_SHAPES: phases 6
@@ -133,7 +157,11 @@ and 8's (gemma's H 8 on 1 kv head of 256, B x S = 1 x 2 ... 1 x 4096
 and PDServer's 4 x 1024) and phase 10's (granite's H 16 on 8 kv heads
 of 64, recurrentgemma's H 10 on 1 kv head of 256 with its 2048 window,
 deepseek's MLA H 128 on 128 kv heads of Dk 192 / Dv 128, at exact
-lengths; SDPA's backend is named), each in bf16 and in float32 and
+lengths; SDPA's backend is named) and phase 11's (gemma's 4 x 128 and
+2 x 128, internvl2-2b's H 16 on 8 kv heads of 128 at 4 x 512, whisper's
+H 8 on 8 kv heads of 64: its decoder at 4 x 128 and 4 x 112, its
+encoder at 4 x 1500 and its cross-attention of 128 and 112 queries
+against 1500 frames, both non-causal), each in bf16 and in float32 and
 timed after four
 kinds of eviction beside the generic entry, the plain version and SDPA
 (a boolean mask where the window cuts); prints ptxas's
@@ -158,9 +186,11 @@ import gc
 import json
 import math
 import random
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from dataclasses import dataclass
 from pathlib import Path
@@ -225,10 +255,18 @@ SERVE = ServeSizes(arch="gemma-2b", reduce=False, max_batch=4, max_seq=4096,
 # deepseek-v3's exact prompt lengths and their PDServer batch of 2 x
 # 1024, and deepseek's forward at 1 x 512 with its MTP block's 1 x 511.
 # A head dim (Dk, Dv) is MLA's: keys of nope + rope (192), values of 128.
+# Phase 11's training shapes (`train_flash_shapes`): gemma-2b's 4 x 128
+# (its steps) and 2 x 128 (the microbatch check), internvl2-2b's 4 x 512
+# and whisper-base's decoder at 4 x 128 (its steps) and 4 x 112 (the
+# decode check's prefill); an entry of 8 also names the key count and the
+# causal flag: whisper's encoder, 4 x 1500 non-causal, and its cross-
+# attention, 128 or 112 queries against 1500 frames, non-causal.
 GEMMA_LAYOUT = (8, 1, 256, 0)
 GRANITE_LAYOUT = (16, 8, 64, 0)
 RGEMMA_LAYOUT = (10, 1, 256, 2048)
 MLA_LAYOUT = (128, 128, (192, 128), 0)
+WHISPER_LAYOUT = (8, 8, 64, 0)
+INTERNVL_LAYOUT = (16, 8, 128, 0)
 FLASH_SHAPES = tuple(
     [GEMMA_LAYOUT + bs for bs in ((1, 2), (1, 4), (1, 8), (1, 16), (1, 32),
                                   (1, 64), (1, 512), (1, 1024), (4, 1024),
@@ -240,7 +278,13 @@ FLASH_SHAPES = tuple(
     + [RGEMMA_LAYOUT + (2, 1024)]
     + [MLA_LAYOUT + (1, n) for n in (5, 300, 1500, 2100, 3000, 3900,
                                      512, 511)]
-    + [MLA_LAYOUT + (2, 1024)])
+    + [MLA_LAYOUT + (2, 1024)]
+    + [GEMMA_LAYOUT + bs for bs in ((4, 128), (2, 128))]
+    + [INTERNVL_LAYOUT + (4, 512)]
+    + [WHISPER_LAYOUT + bs for bs in ((4, 128), (4, 112), (4, 1500, 1500,
+                                                            False),
+                                      (4, 128, 1500, False),
+                                      (4, 112, 1500, False))])
 # the kernel row's main shape: gemma-2b's longest bucket
 FLASH_MAIN = GEMMA_LAYOUT + (1, 4096)
 # The largest |logit difference| a step of phase 6 may show against the
@@ -1834,6 +1878,15 @@ def flash_layout(cfg) -> tuple | None:
     return (cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim, w)
 
 
+def flash_entry(entry: tuple) -> tuple:
+    """(layout, batch, queries, keys, causal) of a FLASH_SHAPES entry:
+    six values are a causal self-attention (as many keys as queries),
+    eight name the key count and the causal flag too."""
+    h, kvh, d, w, B, S, *rest = entry
+    Sk, causal = rest if rest else (S, True)
+    return (h, kvh, d, w), B, S, Sk, causal
+
+
 def head_dims(d) -> tuple:
     """(Dk, Dv) of a layout's head dim."""
     return tuple(d) if isinstance(d, tuple) else (d, d)
@@ -1841,9 +1894,10 @@ def head_dims(d) -> tuple:
 
 def flash_key(layout: tuple, shape: str) -> str:
     """The key of a flash shape in phase 2's rows and the launch counts:
-    the layout and the `_build.BY_SHAPE` shape "BxS", as
-    "H16/KVH8/D64 1x300", "H10/KVH1/D256/W2048 1x3000" or
-    "H128/KVH128/D192v128 1x3900" (Dk 192, Dv 128)."""
+    the layout and the `_build.BY_SHAPE` shape (`ops.shape_key`), as
+    "H16/KVH8/D64 1x300", "H10/KVH1/D256/W2048 1x3000",
+    "H128/KVH128/D192v128 1x3900" (Dk 192, Dv 128) or, non-causal with
+    1500 keys, "H8/KVH8/D64 4x128x1500/nc"."""
     H, KVH, D, W = layout
     dk, dv = head_dims(D)
     d = f"{dk}" if dk == dv else f"{dk}v{dv}"
@@ -2015,45 +2069,49 @@ def phase_flash_kernels(torch, np, dev, Z, rng, T) -> dict:
         return primers[layout]
 
     by_shape, errs = {}, {TMA: [], GENERIC: []}
-    for h, kvh, d, w, B, S in FLASH_SHAPES:
-        key = flash_key((h, kvh, d, w), f"{B}x{S}")
+    for entry in FLASH_SHAPES:
+        (h, kvh, d, w), B, S, Sk, c = flash_entry(entry)
+        key = flash_key((h, kvh, d, w), fa_ops.shape_key(B, S, Sk, c))
+        mask_kw = dict(causal=c, window=w)
         dk, dv = head_dims(d)
-        q, k, v = rand(B, h, S, dk), rand(B, kvh, S, dk), rand(B, kvh, S, dv)
+        q, k, v = rand(B, h, S, dk), rand(B, kvh, Sk, dk), \
+            rand(B, kvh, Sk, dv)
         # the layout `chunked_attention` hands the kernel too: (B, S,
         # heads, D) tensors seen as (B, heads, S, D)
-        views = [rand(B, S, n, e).transpose(1, 2)
-                 for n, e in ((h, dk), (kvh, dk), (kvh, dv))]
+        views = [rand(B, n_s, n, e).transpose(1, 2)
+                 for n_s, n, e in ((S, h, dk), (Sk, kvh, dk), (Sk, kvh, dv))]
         check(fa_ops.route(q, k, v) == TMA == fa_ops.route(*views),
               f"{key} does not take {TMA}")
         del views
-        got = fa_ops.attention(q, k, v, window=w)
-        err, ulps = hold_bf16(got, q, k, v, f"bf16 {key}", window=w)
-        call = fa_ops.prepare(q, k, v, window=w)
-        generic = fa_ops.prepare(q, k, v, window=w, entry=GENERIC)
+        got = fa_ops.attention(q, k, v, **mask_kw)
+        err, ulps = hold_bf16(got, q, k, v, f"bf16 {key}", **mask_kw)
+        call = fa_ops.prepare(q, k, v, **mask_kw)
+        generic = fa_ops.prepare(q, k, v, entry=GENERIC, **mask_kw)
         generic.run()
         err_g = hold_bf16(generic.out, q, k, v, f"generic bf16 {key}",
-                          window=w)[0]
+                          **mask_kw)[0]
         errs[TMA].append(err)
         errs[GENERIC].append(err_g)
         f32 = [t.float() for t in (q, k, v)]
-        err32 = hold_f32(fa_ops.attention(*f32, window=w), *f32,
-                         f"float32 {key}", window=w)
+        err32 = hold_f32(fa_ops.attention(*f32, **mask_kw), *f32,
+                         f"float32 {key}", **mask_kw)
         del f32
         if w and S > w:                 # SDPA's window: a boolean mask
             i = torch.arange(S, device=dev)
             mask = (i[:, None] >= i[None]) & (i[:, None] - i[None] < w)
             sdpa_kw = dict(attn_mask=mask)
         else:
-            sdpa_kw = dict(is_causal=True)
+            sdpa_kw = dict(is_causal=c)
 
         def library():
             return F.scaled_dot_product_attention(q, k, v, enable_gqa=True,
                                                   **sdpa_kw)
-        # the causal (windowed) (q, k) pairs, a product of Dk and one of
-        # Dv each; the kernels' own P V work is three times its share
-        # (P as three bf16 terms)
-        flops = 2 * B * h * (dk + dv) * causal_pairs(S, w)
-        nbytes = (h * S * (dk + dv) + kvh * S * (dk + dv)) * 2 * B
+        # the (q, k) pairs scored — causal (windowed) or all of them — a
+        # product of Dk and one of Dv each; the kernels' own P V work is
+        # three times its share (P as three bf16 terms)
+        pairs = causal_pairs(S, w) if c else S * Sk
+        flops = 2 * B * h * (dk + dv) * pairs
+        nbytes = (h * S * (dk + dv) + kvh * Sk * (dk + dv)) * 2 * B
         t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / HBM_BYTES_PER_S
         # the kernel after each eviction, interleaved; the excess is
         # ranked on the primed reading, `rank_ms`
@@ -2064,13 +2122,13 @@ def phase_flash_kernels(torch, np, dev, Z, rng, T) -> dict:
         by_shape[key] = dict(
             entry=TMA, max_abs_err=err, max_half_ulps=ulps,
             max_abs_err_f32=err32,
-            split=fa_ops.plan(B, h, S, S, causal=True, window=w,
+            split=fa_ops.plan(B, h, S, Sk, causal=c, window=w,
                               sms=fa_ops.sm_count(q.device))[1],
             ms=ev["read"]["ms"], memset_ms=ev["memset"]["ms"],
             warm_ms=ev["none"]["ms"], primed_ms=ev["primed"]["ms"],
             rank_ms=ev["primed"]["ms"],
             generic_ms=cold(generic.run),
-            plain_ms=cold(lambda: fa_ref.reference(q, k, v, window=w)),
+            plain_ms=cold(lambda: fa_ref.reference(q, k, v, **mask_kw)),
             library_ms=cold(library),
             bound_ms=max(t_ops, t_bytes) * 1e3,
             bound_by="operations" if t_ops > t_bytes else "bytes",
@@ -4061,6 +4119,501 @@ def phase_storage(torch, np, dev, Q, rng, T) -> dict:
                 walks=walks, build_s=build_s, peak_gib=peak)
 
 
+# -- phase 11 ---------------------------------------------------------------------
+@dataclass(frozen=True)
+class TrainSizes:
+    reduce: bool        # reduced() widths (the CPU test), else full width
+    batch: int          # sequences a step (the training CLI's default)
+    seq: int            # tokens a sequence (the CLI's default)
+    vlm_seq: int        # internvl2-2b's tokens: its patches and text
+    steps: int          # steps of gemma-2b and internvl2-2b
+    lr: float           # AdamW's peak rate (the CLI's default)
+    whisper_steps: int  # whisper-base's steps, each run
+    ckpt_every: int     # whisper's checkpoint interval
+    fail_at: int        # the step whisper's second run fails at
+    decode: int         # whisper's greedy decode steps after its prefill
+
+
+TRAIN = TrainSizes(reduce=False, batch=4, seq=128, vlm_seq=512, steps=10,
+                   lr=3e-4, whisper_steps=12, ckpt_every=4, fail_at=9,
+                   decode=16)
+# the step of the held-out batch each arch's loss is evaluated on before
+# and after training: no run trains on it
+HELD_OUT = 1000
+TRAIN_ARCHS = ("gemma-2b", "whisper-base", "internvl2-2b")
+# The learning check (`learns`), on the `conditioned` copy of the CLI's
+# initial parameters, where the loss starts near log(vocab): after
+# Z.steps train steps the held-out loss must end below the control's, the
+# same steps with the rate negated (a climb up the same gradients), by at
+# least LEARN_MARGIN of the starting loss. A step whose gradients were
+# zero or unrelated to the loss moves the two runs alike up to second
+# order (a gap of ~0); one of the wrong sign ends above the control. On
+# the H100 the gaps are 1.01 % (gemma-2b), 0.46 % (whisper-base) and
+# 0.51 % (internvl2-2b); on the CPU test 5.9-66 %.
+LEARN_MARGIN = 0.0025
+# float32 grads of one step at microbatches=2 against microbatches=1 on
+# the same batch, max |difference| over the leaf's largest |grad|, on the
+# `conditioned` copy of gemma-2b's parameters: the two run their
+# products at other shapes (2 rows against 4), which round otherwise,
+# and even the conditioned full-width model carries that far (0.035 on
+# the H100; on the spec's parameters 1.58 in float32, 7.2 in bf16). The
+# accumulation itself is held bit for bit (`halves_bit_equal`).
+MB_TOL = 0.1
+
+
+def train_cfg(arch: str, Z):
+    from repro_torch.configs.base import get_config, reduced
+    cfg = get_config(arch)
+    return reduced(cfg) if Z.reduce else cfg
+
+
+def train_flash_shapes(Z) -> dict:
+    """{arch: [FLASH_SHAPES entries]}: every flash call phase 11 makes,
+    its main path's and its checks'. gemma-2b: its steps at batch x seq
+    and the microbatch check's half of that; internvl2-2b: batch x
+    vlm_seq; whisper-base: its decoder at batch x seq (the steps, and the
+    teacher-forced forward of the decode check) and batch x (seq -
+    decode) (the decode check's prefill), its encoder over the frames
+    and its cross-attention, both non-causal."""
+    out = {}
+    for arch in TRAIN_ARCHS:
+        cfg = train_cfg(arch, Z)
+        layout = flash_layout(cfg)
+        B = Z.batch
+        if cfg.family == "encdec":
+            Fr, P = cfg.frontend.n_tokens, Z.seq - Z.decode
+            out[arch] = [layout + (B, Z.seq), layout + (B, P),
+                         layout + (B, Fr, Fr, False),
+                         layout + (B, Z.seq, Fr, False),
+                         layout + (B, P, Fr, False)]
+        elif cfg.frontend.kind != "none":
+            out[arch] = [layout + (B, Z.vlm_seq)]
+        else:
+            out[arch] = [layout + (B, Z.seq), layout + (B // 2, Z.seq)]
+    return out
+
+
+def train_seq(arch: str, Z) -> int:
+    return Z.vlm_seq if arch == "internvl2-2b" else Z.seq
+
+
+def train_argv(arch: str, Z, dev, steps: int, *extra) -> list:
+    return ["--arch", arch, "--steps", str(steps), "--batch", str(Z.batch),
+            "--seq", str(train_seq(arch, Z)), "--lr", str(Z.lr),
+            "--device", str(dev),
+            "--log-every", "1", *(["--reduced"] if Z.reduce else []),
+            *extra]
+
+
+def flash_calls(cfg, remat: bool, steps: int = 1) -> int:
+    """Flash calls of `steps` train steps: each attention layer's forward,
+    again in the backward with remat (the decoder's only, for the
+    encoder-decoder)."""
+    per = 1 + remat
+    if cfg.family == "encdec":
+        return steps * (cfg.enc_layers + 2 * cfg.n_layers * per)
+    return steps * cfg.n_layers * per
+
+
+def conditioned(params, cfg):
+    """`params` with every attention's query and key projection scaled
+    to a fan-in of d_model and the embedding tables to 1/sqrt(d_model)
+    of their scale. The spec's init, as the reference's, draws a
+    (d_model, heads, head_dim) projection at 1/sqrt(heads) and a table
+    at 1: every softmax of a random full-width model, the loss's too, is
+    saturated (gemma-2b's first loss is 415), and the model is chaotic —
+    a float32 ulp of its parameters moves whisper-base's logits by 1.05
+    of scale (on the CPU, where this copy moves them by ~5e-7).
+    Different arithmetic for one function (decode against forward, two
+    microbatches against one) can agree only on such a copy."""
+    from repro_torch import tree
+    import re
+    qk = re.compile(r"(^|/)x?attn/w[qk]/w$")
+    emb = re.compile(r"(^|/)(out_)?embed/table$")
+
+    def scale(k, a):
+        if qk.search(k):
+            return a * math.sqrt(cfg.n_heads / cfg.d_model)
+        if emb.search(k):
+            return a / math.sqrt(cfg.d_model)
+        return a
+    return tree.unflatten(params, [scale(k, a) for k, a in
+                                   tree.flatten_with_keys(params)])
+
+
+def microbatch_grads(torch, cfg, dtype: str, params, batch,
+                     exact: bool = False) -> dict:
+    """One step's grads (`train_loop.make_grads_fn`) at microbatches=2
+    against microbatches=1 on `batch`, the model and its parameters in
+    `dtype`: the largest leaf difference over that leaf's largest |grad|
+    (`rel_max`) and the difference's norm over the grads' (`rel_l2`). With `exact`, whether
+    the two-microbatch grads are bit for bit the float32 sum of the two
+    halves' grads, each computed alone, over two (the accumulation)."""
+    from repro_torch import tree
+    from repro_torch.models.module import torch_dtype
+    from repro_torch.models.registry import build_model
+    from repro_torch.train import train_loop
+    c = dataclasses.replace(cfg, dtype=dtype)
+    model = build_model(c)
+    dt = torch_dtype(dtype)
+    p = tree.map(lambda a: a if a.dtype == torch.float32 else a.to(dt),
+                 params)
+
+    def grads(mb, b):
+        return train_loop.make_grads_fn(model, c, microbatches=mb)(p, b)[1]
+    g1, g2 = grads(1, batch), grads(2, batch)
+    rel = diff = sq = 0.0
+    for a, b in zip(tree.leaves(g1), tree.leaves(g2)):
+        d = a.float() - b
+        rel = max(rel, float(d.abs().max() / a.float().abs().max().clamp(
+            min=1e-30)))
+        diff += float(d.square().sum())
+        sq += float(a.float().square().sum())
+    out = dict(rel_max=rel, rel_l2=math.sqrt(diff / sq) if sq else 0.0)
+    if exact:
+        del g1
+        n = batch["tokens"].shape[0] // 2
+        ga, gb = (grads(1, {k: v[sl] for k, v in batch.items()})
+                  for sl in (slice(0, n), slice(n, None)))
+        out["halves_bit_equal"] = all(
+            torch.equal(g, a.float() / 2 + b.float() / 2) for g, a, b in
+            zip(tree.leaves(g2), tree.leaves(ga), tree.leaves(gb)))
+    return out
+
+
+def time_train_step(T, model, cfg, state, batch, opt_cfg) -> dict:
+    """One donated train step (`jit_train_step`) on the card split by
+    CUDA events: the loss (the forward), the AdamW update, and the rest
+    (the backward: the step's host-clock time less the two); the flash
+    kernel's forward calls and its plain-recompute backward (`ops.
+    _Attention.backward`, every call's span on the card's clock) and
+    that backward's share of the step. Then one step under
+    torch.profiler: kernels, device time, the idle share, and the flash
+    kernels' device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.train import train_loop
+    spans = {k: [] for k in ("forward", "optimizer", "flash_forward",
+                             "flash_backward")}
+    loss0, adamw0 = train_loop.make_loss_fn, train_loop.opt.adamw_update
+    fwd0, bwd0 = fa_ops._forward, fa_ops._Attention.backward
+
+    def make_loss_fn(*a, **kw):
+        fn = loss0(*a, **kw)
+        return lambda p, b: T.span(lambda: fn(p, b), spans["forward"])
+    train_loop.make_loss_fn = make_loss_fn
+    train_loop.opt.adamw_update = lambda *a, **kw: T.span(
+        lambda: adamw0(*a, **kw), spans["optimizer"])
+    fa_ops._forward = lambda *a: T.span(lambda: fwd0(*a),
+                                        spans["flash_forward"])
+    fa_ops._Attention.backward = staticmethod(
+        lambda ctx, g: T.span(lambda: bwd0(ctx, g), spans["flash_backward"]))
+    try:
+        step = train_loop.jit_train_step(model, cfg, opt_cfg)
+        p, o = state["params"], state["opt"]
+        step(p, o, batch)                       # warm
+        for v in spans.values():
+            v.clear()
+        total = T.wall(lambda: step(p, o, batch))
+    finally:
+        train_loop.make_loss_fn, train_loop.opt.adamw_update = loss0, adamw0
+        fa_ops._forward = fwd0
+        fa_ops._Attention.backward = staticmethod(bwd0)
+    ms = {k: T.spans_ms(v) for k, v in spans.items()}
+    out = dict(step_ms=total, forward_ms=ms["forward"],
+               optimizer_ms=ms["optimizer"],
+               backward_ms=total - ms["forward"] - ms["optimizer"],
+               flash_forward_calls=len(spans["flash_forward"]),
+               flash_forward_span_ms=ms["flash_forward"],
+               recompute_backward_calls=len(spans["flash_backward"]),
+               recompute_backward_ms=ms["flash_backward"],
+               recompute_backward_share=ms["flash_backward"] / total)
+    step = train_loop.jit_train_step(model, cfg, opt_cfg)
+    T.sync()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(p, o, batch)
+        T.sync()
+        wall = (time.perf_counter() - t0) * 1e3
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    device = sum(r[1] for r in rows)
+    flash = [r for r in rows if "flash" in r[0]]
+    rows.sort(key=lambda r: -r[1])
+    out["profile"] = dict(
+        wall_ms=wall, device_ms=device, kernels=sum(r[2] for r in rows),
+        idle_share=1 - device / wall if device else None,
+        flash_kernel_ms=sum(r[1] for r in flash),
+        flash_kernels=sum(r[2] for r in flash),
+        top=[(k[:60], round(t, 4), n) for k, t, n in rows[:6]])
+    return out
+
+
+def learns(torch, model, cfg, init, batch_fn, held_loss, steps: int,
+           opt_cfg) -> dict:
+    """The learning check, on the `conditioned` copy of `init()` (the
+    CLI's initial parameters), where the loss is not saturated: the
+    held-out loss before and after `steps` donated train steps on the
+    synthetic stream, and after the same steps with the rate negated (the
+    control). Returns the losses, the fall and the gap between the two
+    runs, each over the starting loss."""
+    from repro_torch.train import optimizer as optim
+    from repro_torch.train import train_loop
+    before = held_loss(conditioned(init(), cfg))
+    after = {}
+    for name, lr in (("descent", opt_cfg.lr), ("ascent", -opt_cfg.lr)):
+        c = dataclasses.replace(opt_cfg, lr=lr)
+        p = conditioned(init(), cfg)
+        o = optim.init_opt_state(p, c)
+        step = train_loop.jit_train_step(model, cfg, c)
+        for i in range(steps):
+            p, o, _ = step(p, o, batch_fn(i))
+        after[name] = held_loss(p)
+        del p, o
+    return dict(before=before, descent=after["descent"],
+                ascent=after["ascent"],
+                fall=(before - after["descent"]) / abs(before),
+                gap=(after["ascent"] - after["descent"]) / abs(before))
+
+
+def phase_train(torch, dev, Z, T, workdir) -> dict:
+    """Phase 11: training through `repro_torch.launch.train` (the CLI's
+    `main`), AdamW on the synthetic stream, every logged loss finite. The
+    launches counted are those of the CLI's runs alone; the checks after
+    them run outside the count, their flash calls tallied apart and, on
+    the card, checked against the layers (twice under remat). For each
+    arch: the loss on a held-out batch (step HELD_OUT, which no run
+    trains on) falls from the CLI's initial to its final parameters; the
+    learning check (`learns`: on the conditioned copy, the held-out loss
+    after training ends at least LEARN_MARGIN below its negated-rate
+    control's). (a) gemma-2b:
+    Z.steps steps; then one step's grads at microbatches=2
+    (`microbatch_grads`) on the trained parameters: bit-equal to the
+    float32 sum of its halves' grads over two in the model's dtype, and
+    within MB_TOL of microbatches=1 in float32 on the `conditioned` copy.
+    (b) whisper-base with 1500 seeded frame embeddings: a
+    `TrainController` run checkpointing every Z.ckpt_every steps, and the
+    same run failing at Z.fail_at and restoring its latest checkpoint
+    (bf16 leaves through the ``|V2`` format): every logged loss and the
+    final parameters and optimizer state bit-equal to the uninterrupted
+    run's; then `prefill` of batch x (seq - decode) tokens and Z.decode
+    greedy `decode_step`s against `forward`'s teacher-forced logits on
+    the conditioned copy of the trained parameters (`whisper_decode`,
+    within LOGIT_TOL). (c) internvl2-2b: its 256 seeded patch embeddings
+    spliced over the first rows of Z.vlm_seq tokens. (d) On the card,
+    after the CLI's runs: a step split (`time_train_step`), the peak
+    device memory. `workdir` holds the checkpoints."""
+    import os
+    from repro_torch import tree
+    from repro_torch.kernels import _build
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models.registry import build_model
+    from repro_torch.train import optimizer as optim
+    from repro_torch.train import train_loop
+    cuda = dev.type == "cuda"
+    launches, flash_by_shape, out = {}, {}, {}
+
+    def counted(cfg, fn):
+        """A run of the main path: its launches counted, by shape."""
+        shapes = {}
+        r = count_launches(_build, launches, fn, shapes)
+        for s, n in shapes.get("flash_attention", {}).items():
+            key = flash_key(flash_layout(cfg), s)
+            flash_by_shape[key] = flash_by_shape.get(key, 0) + n
+        return r, sum(shapes.get("flash_attention", {}).values())
+
+    def tally(fn):
+        """A check: its flash launches, kept out of the count."""
+        apart = {}
+        r = count_launches(_build, apart, fn)
+        return r, apart.get("flash_attention", 0)
+
+    def losses_of(hist):
+        return [float(m["loss"]) for _, m in hist]
+
+    def check_calls(arch, what, got, want):
+        check(not cuda or got == want,
+              f"phase 11 {arch}: {what} launched flash {got} times, "
+              f"not {want}")
+
+    for arch in TRAIN_ARCHS:
+        cfg = train_cfg(arch, Z)
+        model = build_model(cfg)
+        opt_cfg = optim.OptConfig(lr=Z.lr, warmup_steps=min(
+            100, (Z.whisper_steps if cfg.family == "encdec" else Z.steps)
+            // 10 + 1))
+        batch_fn = launch_train.make_batch_fn(cfg, Z.batch,
+                                              train_seq(arch, Z), device=dev)
+        held = batch_fn(HELD_OUT)
+
+        def init():
+            """The CLI's initial parameters (seed 0)."""
+            return model.init(torch.Generator(device=dev).manual_seed(0))
+
+        def held_loss(params):
+            with torch.no_grad():
+                return float(train_loop.make_loss_fn(model, cfg)(params,
+                                                                 held)[0])
+        if cuda:
+            free_device_memory(torch)
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        r = dict(n_params=cfg.param_count(), dtype=cfg.dtype,
+                 remat=cfg.remat)
+        if cfg.family == "encdec":
+            # (b): the uninterrupted run, then the one that fails
+            runs = {}
+            for name, extra in (("whole", ()),
+                                ("failed", ("--fail-at", str(Z.fail_at)))):
+                d = os.path.join(workdir, f"{arch}-{name}")
+                (state, hist), n = counted(cfg, lambda: launch_train.main(
+                    train_argv(arch, Z, dev, Z.whisper_steps, "--ckpt-dir", d,
+                               "--checkpoint-every", str(Z.ckpt_every),
+                               *extra)))
+                check_calls(arch, f"the {name} run", n,
+                            flash_calls(cfg, cfg.remat, len(hist)))
+                runs[name] = (state, hist)
+            (whole, hw), (failed, hf) = runs["whole"], runs["failed"]
+            resumed = Z.fail_at // Z.ckpt_every * Z.ckpt_every
+            check([s for s, _ in hf] == list(range(Z.fail_at))
+                  + list(range(resumed, Z.whisper_steps)),
+                  f"phase 11 {arch}: failed run's steps {[s for s, _ in hf]}")
+            by_step = dict(hw)
+            check(all(torch.equal(m["loss"], by_step[s]["loss"])
+                      for s, m in hf),
+                  f"phase 11 {arch}: a replayed loss differs from the "
+                  "uninterrupted run's")
+            check(all(a.dtype == b.dtype and torch.equal(a, b) for a, b in
+                      zip(tree.leaves(whole), tree.leaves(failed))),
+                  f"phase 11 {arch}: the restored run's final state "
+                  "differs from the uninterrupted run's")
+            losses = losses_of(hw)
+            r.update(restart=dict(
+                fail_at=Z.fail_at, resumed_from=resumed,
+                checkpoint_every=Z.ckpt_every, replayed=len(hf) - len(hw),
+                losses_bit_equal=True, state_bit_equal=True,
+                bf16_leaves=sum(t.dtype == torch.bfloat16
+                                for t in tree.leaves(whole))))
+            del failed, runs
+            state = whole
+        else:
+            (state, hist), n = counted(cfg, lambda: launch_train.main(
+                train_argv(arch, Z, dev, Z.steps)))
+            check_calls(arch, "its steps", n,
+                        flash_calls(cfg, cfg.remat, Z.steps))
+            losses = losses_of(hist)
+        r.update(losses=losses, train_s=time.perf_counter() - t0)
+        check(all(math.isfinite(x) for x in losses),
+              f"phase 11 {arch}: losses {losses} not finite")
+        (after, before), n = tally(lambda: (held_loss(state["params"]),
+                                            held_loss(init())))
+        check_calls(arch, "the held-out losses", n, flash_calls(cfg, False, 2))
+        check(math.isfinite(before) and after < before,
+              f"phase 11 {arch}: the held-out loss did not fall: {before} "
+              f"-> {after}")
+        r["held_out_loss"] = (before, after)
+        if cfg.family == "encdec":
+            # decode against the teacher-forced forward, on the
+            # conditioned copy of the trained parameters
+            r["decode"], n = tally(lambda: whisper_decode(
+                torch, model, cfg, conditioned(state["params"], cfg), Z,
+                dev))
+            check_calls(arch, "prefill and forward", n,
+                        2 * (cfg.enc_layers + 2 * cfg.n_layers))
+        if cuda:
+            # two more donated steps on the trained state
+            r["timing"] = time_train_step(T, model, cfg, state,
+                                          batch_fn(0), opt_cfg)
+            r["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        params = state.pop("params")
+        del state
+        if cuda:
+            free_device_memory(torch)
+        if arch == "gemma-2b":
+            # (a): microbatches=2 against 1 on one batch, in the model's
+            # dtype and in a float32 conditioned copy
+            batch = batch_fn(Z.steps)
+            runs = {cfg.dtype: (params, True),
+                    "float32 conditioned": (conditioned(params, cfg), False)}
+            r["microbatch"], n = tally(lambda: {
+                k: microbatch_grads(torch, cfg, k.split()[0], p, batch,
+                                    exact)
+                for k, (p, exact) in runs.items()})
+            check_calls(arch, "the microbatch check", n,
+                        (3 * len(runs) + 2) * flash_calls(cfg, cfg.remat))
+            check(r["microbatch"][cfg.dtype]["halves_bit_equal"],
+                  f"phase 11 {arch}: microbatches=2 is not the sum of its "
+                  "halves' grads over two")
+            rel = r["microbatch"]["float32 conditioned"]["rel_max"]
+            check(rel <= MB_TOL,
+                  f"phase 11 {arch}: float32 grads at microbatches=2 differ "
+                  f"from microbatches=1 by {rel:.4g} of scale on the "
+                  "conditioned copy")
+            del runs
+        del params
+        if cuda:
+            free_device_memory(torch)
+        r["learning"], n = tally(lambda: learns(
+            torch, model, cfg, init, batch_fn, held_loss, Z.steps, opt_cfg))
+        check_calls(arch, "the learning check", n,
+                    2 * flash_calls(cfg, cfg.remat, Z.steps)
+                    + flash_calls(cfg, False, 3))
+        L = r["learning"]
+        check(L["gap"] >= LEARN_MARGIN,
+              f"phase 11 {arch}: on the conditioned copy training ended "
+              f"{L['gap']:.4g} of the starting loss below the negated-rate "
+              f"control, not {LEARN_MARGIN}")
+        log(f"phase 11 {arch}: {r}")
+        out[arch] = r
+        if cuda:
+            free_device_memory(torch)
+    log(f"phase 11: kernel launches of the CLI's runs {launches}; flash "
+        f"launches by shape {flash_by_shape}")
+    check(launches.get("flash_attention", 0) > 0 or not cuda,
+          "phase 11 launched no flash kernel")
+    check(not launches.get("flash_attention_generic"),
+          f"phase 11 took the generic flash entry: {launches}")
+    return dict(out, launches=launches, flash_by_shape=flash_by_shape)
+
+
+def whisper_decode(torch, model, cfg, params, Z, dev) -> dict:
+    """whisper's prefill of batch x (seq - decode) tokens and Z.decode
+    greedy decode steps, against `forward`'s teacher-forced logits on the
+    prompt and the greedy tokens, at each step's position: each within
+    LOGIT_TOL of scale."""
+    from repro_torch.launch import train as launch_train
+    from repro_torch.serve.kvcache import pad_caches
+    P, S = Z.seq - Z.decode, Z.seq
+    batch = launch_train.make_batch_fn(cfg, Z.batch, P, device=dev)(
+        Z.whisper_steps)
+    emb = batch["embeddings"]
+    with torch.no_grad():
+        logits, caches = model.prefill(params, batch["tokens"],
+                                       embeddings=emb)
+        caches = pad_caches(caches, P, S, model.cache_specs(Z.batch, S))
+        steps, toks = [logits[:, 0]], []
+        for t in range(Z.decode):
+            tok = steps[-1].argmax(-1).to(torch.int32)[:, None]
+            toks.append(tok)
+            logits, caches = model.decode_step(params, tok, caches, P + t)
+            steps.append(logits[:, 0])
+        seq = torch.cat([batch["tokens"], *toks], dim=1)
+        full, _ = model.forward(params, seq, embeddings=emb)
+    tol = LOGIT_TOL[cfg.dtype]
+    rel = []
+    for t, got in enumerate(steps):
+        want = full[:, P - 1 + t].float()
+        rel.append(float((got.float() - want).abs().max()
+                         / want.abs().max()))
+    check(all(x <= tol for x in rel) and seq.shape == (Z.batch, S),
+          f"phase 11 whisper: decode logits differ from the teacher-"
+          f"forced forward by {max(rel):.4g} of scale (bound {tol:g})")
+    return dict(prompt=P, steps=Z.decode, rel_by_step=rel,
+                caches={k: list(v.shape) for k, v in caches[0].items()})
+
+
 class _Clock:
     """The rehearsal's stand-in for `Timer`: nothing to time on the CPU."""
 
@@ -4226,12 +4779,21 @@ def main() -> int:
         families[arch] = phase_family(torch, np, dev, FAMILIES, arch, rng, T)
         free_device_memory(torch)
         mark(f"phase 10 ({arch})")
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    work = tempfile.mkdtemp(prefix="phase11-", dir=_build.BUILD_DIR)
+    try:
+        train = phase_train(torch, dev, TRAIN, T, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    free_device_memory(torch)
+    mark("phase 11")
 
     # launches per C entry point on each main path's own run
     paths = {"datapath": main_launches, "kv_leg": kv["launches"],
              "serve": serve["launches"], "t3_pipe": t3["launches"],
              "cluster": cluster["launches"], "storage": storage["launches"]}
     paths.update({FAMILY_PATH[a]: r["launches"] for a, r in families.items()})
+    paths["train"] = train["launches"]
     kernels = []
     for r in rows.values():
         entry = r.pop("entry")
@@ -4244,7 +4806,8 @@ def main() -> int:
     flash["launches_by_shape"] = {
         p: dict(sorted(r["flash_by_shape"].items()))
         for p, r in [("serve", serve), ("cluster", cluster)]
-        + [(FAMILY_PATH[a], r) for a, r in families.items()]}
+        + [(FAMILY_PATH[a], r) for a, r in families.items()]
+        + [("train", train)]}
     excess, untimed = {}, set()
     for by in flash["launches_by_shape"].values():
         for shape, n in by.items():
@@ -4295,7 +4858,7 @@ def main() -> int:
     log(json.dumps({"chains": timing, "launches_per_flush": lpf,
                     "kv_leg": kv, "serve": serve, "t3_pipe": t3,
                     "cluster": cluster, "storage": storage,
-                    "families": families,
+                    "families": families, "train": train,
                     "seconds": time.perf_counter() - t_start}))
     log(smi)
     print(json.dumps({"kernels": kernels}))

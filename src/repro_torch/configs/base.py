@@ -7,8 +7,7 @@ structure (MoE stays MoE, the hybrid block pattern stays 2:1, ...).
 
 A copy of the reference's `repro.configs`. `ModelConfig.param_count` /
 `active_param_count` count the port's parameter specs
-(`models.registry.count_params_analytic`), so they raise for the one
-family the port does not build yet, the encoder-decoder.
+(`models.registry.count_params_analytic`).
 """
 from __future__ import annotations
 

@@ -58,6 +58,7 @@ def to_tensor(x, device, dtype=None) -> torch.Tensor:
     needed: callers that keep the result copy it themselves."""
     t = demote(x)
     if not isinstance(t, torch.Tensor):
+        shape = t.shape                 # ascontiguousarray makes 0-d 1-d
         t = np.ascontiguousarray(t)
         if not t.flags.writeable:       # read-only views (broadcasts)
             t = t.copy()
@@ -65,6 +66,7 @@ def to_tensor(x, device, dtype=None) -> torch.Tensor:
             t = torch.from_numpy(t.view(np.uint16)).view(torch.bfloat16)
         else:
             t = torch.from_numpy(t)
+        t = t.reshape(shape)
     return t.to(device=device, dtype=dtype)
 
 

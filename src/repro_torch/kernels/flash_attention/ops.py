@@ -31,7 +31,7 @@ Gradients: where an operand requires grad, `attention` is an autograd
 Function whose backward differentiates the plain version, recomputed on
 the operands' device (no backward kernel yet).
 `_build.LAUNCHES[entry]` counts the calls made on the card, and
-`_build.BY_SHAPE[entry]` the same by "B x Sq".
+`_build.BY_SHAPE[entry]` the same by `shape_key`.
 
 Differences from the reference's `kernels/flash_attention`, on purpose:
 
@@ -279,6 +279,15 @@ def prepare(q, k, v, *, causal=True, window=0, sm_scale=None, cap=0.0,
     return Call(lib, entry, args, out, (strides, scratch))
 
 
+def shape_key(B: int, Sq: int, Sk: int, causal: bool) -> str:
+    """A call's key in `_build.BY_SHAPE`: "BxSq" for a causal call with
+    as many keys as queries, "BxSqxSk" for another key count, and "/nc"
+    after either for a call with no causal mask (an encoder, a
+    cross-attention)."""
+    key = f"{B}x{Sq}" if Sk == Sq else f"{B}x{Sq}x{Sk}"
+    return key if causal else key + "/nc"
+
+
 def _forward(q, k, v, kw):
     """The kernel on a CUDA tensor, the plain version on a CPU one."""
     if q.device.type == "cpu":
@@ -287,7 +296,8 @@ def _forward(q, k, v, kw):
     if q.shape[2] == 0:
         return call.out
     call.run()
-    _build.count(call.entry, f"{q.shape[0]}x{q.shape[2]}")
+    _build.count(call.entry, shape_key(q.shape[0], q.shape[2], k.shape[2],
+                                       kw["causal"]))
     return call.out
 
 

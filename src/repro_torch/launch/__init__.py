@@ -1,1 +1,1 @@
-# Launch helpers of the torch port: the fabric device grid and the serving CLI.
+# Launch helpers of the torch port: the fabric device grid, the serving and training CLIs.

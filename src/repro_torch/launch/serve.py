@@ -14,7 +14,9 @@ decoders (gemma-2b, ...), the MoE decoders granite-moe-1b-a400m and
 deepseek-v3-671b (MLA; paged, prompts at their exact lengths), the
 hybrid recurrentgemma-2b and the SSM mamba2-780m (the dense engine:
 their window, conv and recurrent-state caches are not paged);
-`--reduced` shrinks any of them to smoke size. `--layers N` cuts the
+`--reduced` shrinks any of them to smoke size. whisper-base (the
+encoder-decoder) is refused: the engine, as the reference's, passes no
+frame embeddings. `--layers N` cuts the
 depth to N layers and keeps every width (deepseek-v3's 61 layers do not
 fit one card; 4 do, its 3 dense layers and one MoE layer, plus the MTP
 head), and prints the cut.
@@ -64,9 +66,15 @@ def main(argv=None):
     p.add_argument("--quantize-kv", action="store_true")
     args = p.parse_args(argv)
 
+    cfg = get_config(args.arch)
+    if cfg.family == "encdec":
+        raise NotImplementedError(
+            f"{cfg.name}: the serving engine passes no frame embeddings to "
+            "an encoder-decoder's prefill, as the reference's does not "
+            "(repro/serve/engine.py:260-264); train it with "
+            "repro_torch.launch.train")
     dev = tdevice.resolve(args.device)
     tdevice.set_default(dev)
-    cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduce_cfg(cfg)
     if args.layers and args.layers < cfg.n_layers:

@@ -1,1 +1,1 @@
-# Model layer of the torch port: specs, layers, attention and the decoder.
+# Model layer of the torch port: specs, layers, attention, the decoder and the encoder-decoder.

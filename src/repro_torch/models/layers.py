@@ -1,10 +1,14 @@
-"""Shared layers: norms, linear/einsum projections, embeddings, RoPE, acts.
+"""Shared layers: norms, linear/einsum projections, embeddings, RoPE,
+sinusoidal positions, acts.
 
-The port of the reference's `repro.models.layers` for the decoder the
-serving model runs. Parameters are nested dicts of tensors, as there;
-norms and RoPE compute in float32 and cast back, as there.
+The port of the reference's `repro.models.layers`. Parameters are
+nested dicts of tensors, as there; norms, RoPE and the sinusoidal
+positions compute in float32 (the norms' scale and bias are float32
+leaves) and cast back, as there.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -28,6 +32,20 @@ def rmsnorm(params, x, eps: float = 1e-5, *, zero_centered: bool = False):
     if zero_centered:          # gemma-style (1 + scale)
         scale = 1.0 + scale
     return (y * scale).to(dt)
+
+
+def layernorm_spec(dim: int) -> dict:
+    return {"scale": Spec((dim,), (None,), init="ones", dtype="float32"),
+            "bias": Spec((dim,), (None,), init="zeros", dtype="float32")}
+
+
+def layernorm(params, x, eps: float = 1e-5):
+    dt = x.dtype
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mu).square().mean(dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * params["scale"] + params["bias"]).to(dt)
 
 
 # --------------------------------------------------------------------------
@@ -66,7 +84,11 @@ def embedding_spec(vocab: int, dim: int) -> dict:
 
 
 def embed(params, tokens):
-    return params["table"][tokens.long()]
+    """The table's rows; `F.embedding`, whose backward sums a repeated
+    token's gradients in a fixed order on either device (an indexing
+    backward accumulates in a racing order on the CPU), so a replayed
+    train step is bit-equal."""
+    return F.embedding(tokens.long(), params["table"])
 
 
 def unembed(params, x):
@@ -111,6 +133,19 @@ def apply_rope(x, positions, theta: float):
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# Sinusoidal absolute positions (whisper)
+# --------------------------------------------------------------------------
+def sinusoidal_positions(positions, dim: int) -> torch.Tensor:
+    """positions: (...,) int -> (..., dim) float32 sinusoid embedding."""
+    half = dim // 2
+    inv = torch.exp(-torch.arange(half, dtype=torch.float32,
+                                  device=positions.device)
+                    * (math.log(10000.0) / max(1, half - 1)))
+    ang = positions.float()[..., None] * inv
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 def softcap(x, cap: float):

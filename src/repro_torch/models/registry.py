@@ -1,5 +1,6 @@
 """Model registry: config -> model (the decoder families: dense, MoE,
-MLA, hybrid, SSM), parameter accounting."""
+MLA, hybrid, SSM, the vision-language decoder; the encoder-decoder),
+parameter accounting."""
 from __future__ import annotations
 
 import numpy as np
@@ -10,11 +11,11 @@ from repro_torch.models import module as mod
 
 
 def build_model(cfg: ModelConfig):
-    """The port's model for `cfg`. The encoder-decoder family comes with
-    ROADMAP slice 6e."""
+    """The port's model for `cfg`: `EncDecLM` for the encoder-decoder
+    family, `DecoderLM` for every other."""
     if cfg.family == "encdec":
-        raise NotImplementedError(
-            "the encoder-decoder family comes with ROADMAP slice 6e")
+        from repro_torch.models.encdec import EncDecLM
+        return EncDecLM(cfg)
     from repro_torch.models.transformer import DecoderLM
     return DecoderLM(cfg)
 

@@ -12,17 +12,28 @@ prefill through the flash kernel, windowed or not; decode through the
 local flash-decode or the rolling window), `block_apply`, and
 `DecoderLM`'s `init` / `forward` / `prefill` / `decode_step`.
 
+`forward` is the training forward: it records gradients where the
+parameters require them (`train.train_loop` differentiates it), and with
+`cfg.remat` each layer of a training forward under grad mode is
+recomputed in the backward (`torch.utils.checkpoint`, the reference's
+`jax.checkpoint` with its default policy, `nothing_saveable`). `prefill`
+and `decode_step` run under `torch.no_grad()`. A frontend config
+(internvl2-2b's patches) splices its embeddings over the first token
+rows, as the reference does.
+
 Differences from the reference, on purpose:
 
   * `_run_groups` is a Python loop over the stacked layer dimension
-    (each layer sees views of the stacked tensors) where the reference
-    scans with `lax.scan`; PyTorch runs eagerly. New caches are stacked
-    back per group, as the reference's scan stacks them.
-  * No remat, no `_residual_constrain` (one process has no mesh) and
-    no frontends: training, the parallelism slice and the
-    encoder-decoder slice bring them. The step functions run under
-    `torch.no_grad()`; training brings gradients. `forward` returns
-    the multi-token-prediction head's logits (``mtp_logits``) as the
+    where the reference scans with `lax.scan`; PyTorch runs eagerly.
+    Each group's stacked leaves are unbound once into per-layer views,
+    so a backward stacks each leaf's gradient once (indexing layer by
+    layer would build a zero tensor of the whole stack per layer). New
+    caches are stacked back per group, as the reference's scan stacks
+    them.
+  * No `_residual_constrain` (one process has no mesh) and no
+    `perf.FLAGS.remat_policy` (the port has no `perf`): the
+    parallelism slice brings the mesh. `forward` returns the
+    multi-token-prediction head's logits (``mtp_logits``) as the
     reference's does; serving never runs the head.
   * MLA in training mode is `mla_forward` (the reference takes its
     sequence-parallel `mla_forward_sp` only over a `model` mesh axis).
@@ -31,8 +42,10 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
+from functools import partial
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import tree
 from repro_torch.models import ffn, mla, moe, rglru, ssm
@@ -381,16 +394,17 @@ class DecoderLM:
 
     # -- shared trunk ------------------------------------------------------
     def _embed_in(self, params, tokens, embeddings=None):
-        if embeddings is not None:
-            raise NotImplementedError(
-                "frontend embeddings come with the encoder-decoder and "
-                "frontend slice (ROADMAP slice 6e)")
+        """Token embeddings; a frontend config's `embeddings` (B, n, D)
+        replace the first n rows (the reference's splice)."""
         cfg = self.cfg
         x = embed(params["embed"], tokens).to(torch_dtype(cfg.dtype))
         if cfg.scale_embeddings:
             # the reference multiplies by a weakly typed scalar, which JAX
             # rounds to the model dtype first: so does this
             x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
+        if cfg.frontend.kind != "none" and embeddings is not None:
+            n = embeddings.shape[1]
+            x = torch.cat([embeddings.to(x.dtype), x[:, n:]], dim=1)
         return x
 
     def _run_groups(self, params, x, positions, *, mode, caches=None,
@@ -398,16 +412,21 @@ class DecoderLM:
         cfg = self.cfg
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         new_caches = []
+        remat = cfg.remat and mode == "train" and torch.is_grad_enabled()
         for gi, (subplan, count) in enumerate(self.groups):
-            gp = params["groups"][gi]
-            gc = caches[gi] if caches is not None else None
+            p_ls = unbind_layers(params["groups"][gi], count)
+            c_ls = (unbind_layers(caches[gi], count) if caches is not None
+                    else [None] * count)
+            fn = partial(superblock_apply, cfg=cfg, subplan=subplan,
+                         mode=mode, pos=pos)
             ncs = []
-            for li in range(count):
-                p_l = tree.map(lambda a, li=li: a[li], gp)
-                c_l = (tree.map(lambda a, li=li: a[li], gc)
-                       if gc is not None else None)
-                x, a, nc = superblock_apply(p_l, x, positions, cfg, subplan,
-                                            mode=mode, cache=c_l, pos=pos)
+            for p_l, c_l in zip(p_ls, c_ls):
+                if remat:
+                    x, a, nc = checkpoint(fn, p_l, x, positions, cache=c_l,
+                                          use_reentrant=False,
+                                          preserve_rng_state=False)
+                else:
+                    x, a, nc = fn(p_l, x, positions, cache=c_l)
                 aux_total = aux_total + a
                 ncs.append(nc)
             if ncs and tree.leaves(ncs[0]):
@@ -430,11 +449,10 @@ class DecoderLM:
                             device=device).broadcast_to((B, S))
 
     # -- public step functions ---------------------------------------------
-    @torch.no_grad()
     def forward(self, params, tokens, *, embeddings=None):
-        """Full-sequence logits. Returns (logits, extras): the MoE aux
-        loss and, with an MTP head, its logits (``mtp_logits``, one
-        row fewer)."""
+        """Full-sequence logits (training). Returns (logits, extras): the
+        MoE aux loss and, with an MTP head, its logits (``mtp_logits``,
+        one row fewer)."""
         B, S = tokens.shape
         positions = self._positions(B, S, tokens.device)
         x = self._embed_in(params, tokens, embeddings)
@@ -499,3 +517,12 @@ class DecoderLM:
 
 def _empty_stack(subplan):
     return {f"b{i}": {} for i in range(len(subplan))}
+
+
+def unbind_layers(stacked, count: int) -> list:
+    """The per-layer trees of a tree whose leaves stack `count` layers
+    on dim 0: each leaf unbound once, so autograd stacks its gradient
+    once for the group."""
+    cols = [a.unbind(0) for a in tree.leaves(stacked)]
+    return [tree.unflatten(stacked, [c[li] for c in cols])
+            for li in range(count)]

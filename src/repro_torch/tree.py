@@ -66,3 +66,35 @@ def map(fn: Callable, tree, *rest,
         out = [walk(c, *(y[i] for y in ys)) for i, c in enumerate(kids)]
         return out if kind is list else kind(out)
     return walk(tree, *rest)
+
+
+def unflatten(template, leaves: list):
+    """`template`'s containers holding `leaves` in `leaves` order (the
+    inverse of `leaves(template)`)."""
+    it = iter(leaves)
+    out = map(lambda _: next(it), template)
+    if next(it, it) is not it:
+        raise ValueError("more leaves than the template holds")
+    return out
+
+
+def flatten_with_keys(tree) -> list[tuple[str, Any]]:
+    """(keypath, leaf) pairs in `jax.tree.leaves` order, the keypath a
+    dict key or sequence index per level joined with ``/``: the key
+    strings of the reference's checkpoints (`repro.train.checkpoint`
+    `_keystr`), so a checkpoint crosses between the packages."""
+    out: list = []
+
+    def walk(x, path):
+        if x is None:
+            return
+        node = _children(x)
+        if node is None:
+            out.append(("/".join(path), x))
+            return
+        kind, keys, kids = node
+        names = keys if kind == "dict" else range(len(kids))
+        for name, c in zip(names, kids):
+            walk(c, path + [str(name)])
+    walk(tree, [])
+    return out

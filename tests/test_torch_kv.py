@@ -294,12 +294,21 @@ def test_cache_specs_match_reference(arch, size):
 
 
 def test_other_mixers_wait_for_their_slice():
-    """The encoder-decoder family waits for its slice (6e); the ssm and
-    mla mixers, which waited for theirs, build caches of the
-    reference's specs (`test_cache_specs_match_reference`)."""
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        build_model(reduced(get_config("whisper-base")))
-    for arch in ("mamba2-780m", "deepseek-v3-671b"):
+    """None waits any longer: the encoder-decoder family (slice 6e),
+    like the ssm and mla mixers before it, builds caches of the
+    reference's specs — its decoder's k / v and the frames' xk / xv —
+    and the ssm and mla mixers build theirs
+    (`test_cache_specs_match_reference`)."""
+    import jax
+    cfg = reduced(get_config("whisper-base"))
+    got = build_model(cfg).cache_specs(2, 8)
+    want = jbuild(jreduced(jget_config("whisper-base"))).cache_specs(2, 8)
+    assert [(s.shape, s.axes, s.init, s.dtype)
+            for s in ttree.leaves(got, is_leaf=is_spec)] == \
+        [(s.shape, s.axes, s.init, s.dtype)
+         for s in jax.tree.leaves(want, is_leaf=jis_spec)]
+    assert sorted(got[0]) == ["k", "v", "xk", "xv"]
+    for arch in ("mamba2-780m", "deepseek-v3-671b", "whisper-base"):
         cache = build_model(reduced(get_config(arch))).init_cache(
             2, 8, device="cpu")
         assert ttree.leaves(cache)

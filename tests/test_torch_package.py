@@ -50,7 +50,7 @@ def test_the_scan_covers_every_subpackage():
     subs = {p.relative_to(ROOT / "src" / "repro_torch").parts[0]
             for p in PORT_FILES if "repro_torch" in p.parts}
     assert {"configs", "core", "kernels", "launch", "models", "obs",
-            "parallel", "serve", "verbs"} <= subs
+            "parallel", "serve", "train", "verbs"} <= subs
     names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
     for mod in ("parallel/collectives", "models/attention",
                 "models/ffn", "models/layers", "models/transformer",
@@ -59,7 +59,10 @@ def test_the_scan_covers_every_subpackage():
                 "kernels/ring_pipe/ops", "kernels/ring_pipe/ref",
                 "kernels/list_walk/ops", "kernels/list_walk/ref",
                 "core/solar", "serve/pd_disagg", "serve/router",
-                "kernels/desc_ring/ops", "kernels/desc_ring/ref"):
+                "kernels/desc_ring/ops", "kernels/desc_ring/ref",
+                "models/encdec", "train/data", "train/optimizer",
+                "train/train_loop", "train/checkpoint", "train/fault",
+                "launch/train"):
         assert f"src/repro_torch/{mod}.py" in names, mod
     for probe in ("row_ring", "desc_ring", "latency"):
         assert f"tools/{probe}/probe.py" in names, probe
@@ -82,6 +85,10 @@ def test_import_needs_no_card_no_triton_and_pulls_in_no_jax():
             "import repro_torch.kernels.list_walk.ops\n"
             "import repro_torch.core.solar, repro_torch.serve.pd_disagg\n"
             "import repro_torch.serve.router\n"
+            "import repro_torch.models.encdec, repro_torch.launch.train\n"
+            "import repro_torch.train.data, repro_torch.train.optimizer\n"
+            "import repro_torch.train.train_loop\n"
+            "import repro_torch.train.checkpoint, repro_torch.train.fault\n"
             "from repro_torch.configs.base import get_config\n"
             "get_config('gemma-2b')\n"
             "assert not torch.cuda.is_available()\n"
@@ -129,6 +136,38 @@ def test_default_device_is_the_card_and_never_falls_back():
             == "cpu"
     finally:
         tdevice.set_default(prev)
+
+
+def test_training_defaults_to_the_card_and_never_falls_back(tmp_path):
+    """Without a card, the training CLI (its default `--device` is the
+    card), a checkpoint restore onto the default device (a template of
+    no tensors) and `EncDecLM.init` raise; asked for the CPU, they run."""
+    from repro_torch.launch import train as tlaunch
+    from repro_torch.train.checkpoint import Checkpointer
+    prev = tdevice.set_default("cuda")
+    try:
+        with pytest.raises(RuntimeError, match="cuda"):
+            tlaunch.main(["--arch", "gemma-2b", "--reduced", "--steps", "1"])
+        ck = Checkpointer(str(tmp_path), async_write=False)
+        ck.save(1, {"w": torch.ones(3)})
+        with pytest.raises(RuntimeError, match="cuda"):
+            ck.restore({"w": np.zeros(3, np.float32)})
+        assert ck.restore({"w": torch.zeros(3)})[1]["w"].device.type == "cpu"
+        model = build_model(reduced(get_config("whisper-base")))
+        with pytest.raises(RuntimeError, match="cuda"):
+            model.init(torch.Generator())
+        with pytest.raises(RuntimeError, match="cuda"):
+            model.init_cache(1, 4)
+        assert tree_leaves_on_cpu(model.init(torch.Generator(),
+                                             device="cpu"))
+    finally:
+        tdevice.set_default(prev)
+
+
+def tree_leaves_on_cpu(t) -> bool:
+    from repro_torch import tree
+    leaves = tree.leaves(t)
+    return bool(leaves) and all(x.device.type == "cpu" for x in leaves)
 
 
 def test_tree_from_numpy_keeps_bf16_bits():
