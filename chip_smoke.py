@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
 """Drive the torch port's verbs datapath, its KV-cache transfer leg, its
 serving path, the T3 notification pipe, the disaggregated serving
-cluster, Solar block storage, the MoE, hybrid, SSM and MLA model
-families and training (with the encoder-decoder and the vision
-frontend) on one CUDA card, and hold every kernel of those paths
-against its plain PyTorch version.
+cluster, Solar block storage, the MoE, hybrid, SSM, MLA and dense model
+families, training (with the encoder-decoder and the vision frontend)
+and context parallelism's per-rank work on one CUDA card, and hold
+every kernel of those paths against its plain PyTorch version.
 
     python3 chip_smoke.py              # from the root of a checkout
     python3 chip_smoke.py --rehearse   # on the CPU: the ring's call shapes
@@ -17,8 +17,10 @@ widths and prints the device CQ ring's calls by shape class). The same main path
 failover), `tests/test_torch_serve.py::
 test_chip_smoke_phase6_at_cpu_size_matches_reference_engine` and
 `tests/test_torch_{ring_pipe,cluster,storage}.py` (phases 7, 8, 9) and
-`tests/test_torch_{hybrid,ssm,mla}.py::test_chip_smoke_phase10_at_cpu_size`
-and `tests/test_torch_train.py::test_chip_smoke_phase11_at_cpu_size`.
+`tests/test_torch_{hybrid,ssm,mla}.py::test_chip_smoke_phase10_at_cpu_size`,
+`tests/test_torch_model.py::test_chip_smoke_phase10_at_cpu_size_dense`,
+`tests/test_torch_train.py::test_chip_smoke_phase11_at_cpu_size` and
+`tests/test_torch_context_parallel.py::test_chip_smoke_phase12_at_cpu_size`.
 
 Phases (any failure exits non-zero):
   1. the card (nvidia-smi name and power limit) and the kernel build;
@@ -103,7 +105,11 @@ Phases (any failure exits non-zero):
      moe-1b-a400m (24 layers, 32 experts top-8, 1.3 B bf16 parameters;
      paged, prompts at their exact lengths), recurrentgemma-2b (26
      layers, RG-LRU and window-2048 attention, 2.7 B; the dense engine),
-     mamba2-780m (48 SSD layers, 0.78 B; the dense engine) and, last,
+     mamba2-780m (48 SSD layers, 0.78 B; the dense engine), the dense
+     decoders codeqwen1.5-7b (32 layers, MHA of 32 heads of 128, qkv
+     bias, 8.2 B), phi4-mini-3.8b (32 layers, 24 on 8 kv heads, the tied
+     200,064-row table, 3.8 B) and stablelm-12b (40 layers, 32 on 8 kv
+     heads of 160, 12.1 B) — paged and bucketed, as phase 6 — and, last,
      deepseek-v3 (MLA, 256 experts top-8, its depth cut from 61 to 4
      layers — the 3 dense ones and one MoE — plus the MTP head: 26.7 B,
      50 GiB; paged at exact lengths), each on `ServeEngine(max_batch=4,
@@ -149,7 +155,21 @@ Phases (any failure exits non-zero):
      layer under remat) and keyed by shape; then a step split by CUDA
      events (forward, backward, optimizer, flash's forward and its
      plain-recompute backward), one profiled step (kernels, idle share)
-     and the peak memory.
+     and the peak memory;
+ 12. context parallelism, one rank after another: for gemma-2b (H 8 on
+     1 kv head of 256), phi4-mini-3.8b (H 24 on 8 of 128) and
+     recurrentgemma-2b (H 10 on 1 of 256, window 2048), the archs that
+     land in context parallelism on the production mesh's model axis of
+     16, a 1 x 4096 prompt cut into 16 query shards of 256: each rank's
+     flash call against the whole K/V at q_offset = 256 r
+     (`collectives._cp_rank`, what `_context_parallel_attention` runs
+     on rank r), held against the plain version at the offset, counted
+     under its own "@<offset>" shape key, timed beside SDPA at the
+     shard's shape; the shards' concatenation against the unsharded
+     call; then the sharded decode (16 shards of a decode_32k cache row
+     of gemma-2b: each rank's `collectives._decode_shard`, merged by
+     `collectives._merge` as `merge_partials` merges them) against the
+     whole-cache decode.
 Phase 2 also holds flash_attention (its TMA/wgmma entry) and
 flash_attention_generic (its mma.sync entry) against their plain version
 at every prefill shape the main paths launch, FLASH_SHAPES: phases 6
@@ -260,13 +280,21 @@ SERVE = ServeSizes(arch="gemma-2b", reduce=False, max_batch=4, max_seq=4096,
 # and whisper-base's decoder at 4 x 128 (its steps) and 4 x 112 (the
 # decode check's prefill); an entry of 8 also names the key count and the
 # causal flag: whisper's encoder, 4 x 1500 non-causal, and its cross-
-# attention, 128 or 112 queries against 1500 frames, non-causal.
+# attention, 128 or 112 queries against 1500 frames, non-causal. Phase
+# 10's dense decoders (codeqwen1.5-7b's MHA of 32 heads of 128,
+# phi4-mini-3.8b's 24 on 8 of 128, stablelm-12b's 32 on 8 of 160, a head
+# dim no other shape has) at their engine's buckets and PDServer's batch.
 GEMMA_LAYOUT = (8, 1, 256, 0)
 GRANITE_LAYOUT = (16, 8, 64, 0)
 RGEMMA_LAYOUT = (10, 1, 256, 2048)
 MLA_LAYOUT = (128, 128, (192, 128), 0)
 WHISPER_LAYOUT = (8, 8, 64, 0)
 INTERNVL_LAYOUT = (16, 8, 128, 0)
+CODEQWEN_LAYOUT = (32, 32, 128, 0)
+PHI4_LAYOUT = (24, 8, 128, 0)
+STABLELM_LAYOUT = (32, 8, 160, 0)
+# the dense decoders' engine prefills land on their power-of-two buckets
+DENSE_BUCKETS = ((1, 8), (1, 512), (1, 2048), (1, 4096), (2, 1024))
 FLASH_SHAPES = tuple(
     [GEMMA_LAYOUT + bs for bs in ((1, 2), (1, 4), (1, 8), (1, 16), (1, 32),
                                   (1, 64), (1, 512), (1, 1024), (4, 1024),
@@ -284,7 +312,9 @@ FLASH_SHAPES = tuple(
     + [WHISPER_LAYOUT + bs for bs in ((4, 128), (4, 112), (4, 1500, 1500,
                                                             False),
                                       (4, 128, 1500, False),
-                                      (4, 112, 1500, False))])
+                                      (4, 112, 1500, False))]
+    + [layout + bs for layout in (CODEQWEN_LAYOUT, PHI4_LAYOUT,
+                                  STABLELM_LAYOUT) for bs in DENSE_BUCKETS])
 # the kernel row's main shape: gemma-2b's longest bucket
 FLASH_MAIN = GEMMA_LAYOUT + (1, 4096)
 # The largest |logit difference| a step of phase 6 may show against the
@@ -1969,6 +1999,25 @@ def ptxas_report(text: str) -> dict:
     return {k: tuple(v) for k, v in out.items()}
 
 
+def flash_hold(torch, T, got, q, k, v, what, **kw) -> tuple:
+    """A bf16 flash result against the plain version: within the
+    reference tests' 2e-2 of the plain bf16 result and within half a
+    bf16 ulp of the plain float32 result (plus FLASH_EPS) at every
+    element. Returns (max |err| against the plain bf16 result, the
+    largest fraction of the half-ulp bound)."""
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    exp = fa_ref.reference(q, k, v, **kw)
+    r32 = fa_ref.reference(q.float(), k.float(), v.float(), **kw)
+    T.sync()
+    err = float((got.float() - exp.float()).abs().max())
+    ulps = float(bf16_half_ulps(torch, got, r32).max())
+    check(got.shape == exp.shape and torch.allclose(
+        got.float(), exp.float(), atol=2e-2, rtol=2e-2) and ulps <= 1.0,
+        f"flash_attention != plain, {what}: max |err| {err}, "
+        f"{ulps} of the half-ulp bound")
+    return err, ulps
+
+
 def phase_flash_kernels(torch, np, dev, Z, rng, T) -> dict:
     """flash_attention (the TMA/wgmma entry) and flash_attention_generic
     (the mma.sync entry) against their plain version at the main paths'
@@ -2023,17 +2072,7 @@ def phase_flash_kernels(torch, np, dev, Z, rng, T) -> dict:
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
     def hold_bf16(got, q, k, v, what, **kw) -> tuple:
-        """(max |err| against the plain bf16 result, max in half ulps)"""
-        exp = fa_ref.reference(q, k, v, **kw)
-        r32 = fa_ref.reference(q.float(), k.float(), v.float(), **kw)
-        T.sync()
-        err = float((got.float() - exp.float()).abs().max())
-        ulps = float(bf16_half_ulps(torch, got, r32).max())
-        check(got.shape == exp.shape and torch.allclose(
-            got.float(), exp.float(), atol=2e-2, rtol=2e-2) and ulps <= 1.0,
-            f"flash_attention != plain, {what}: max |err| {err}, "
-            f"{ulps} of the half-ulp bound")
-        return err, ulps
+        return flash_hold(torch, T, got, q, k, v, what, **kw)
 
     def hold_f32(got, q, k, v, what, **kw) -> float:
         exp = fa_ref.reference(q, k, v, **kw)
@@ -2221,9 +2260,28 @@ def phase_flash_kernels(torch, np, dev, Z, rng, T) -> dict:
         # the (B, S, H, D) layout the model hands
         grid += [dict(B=2, H=4, KVH=4, Sq=n, Sk=n, Dk=192, Dv=128,
                       strided=st) for n in (77, 129) for st in (False, True)]
+        # stablelm's head dim of 160 (a third column block of 32, Dv off
+        # a multiple of 64), and query offsets (a context-parallel
+        # shard's rows at q_offset + r): late shards whose key ranges
+        # split, a window across the offset, a ragged shard, an offset
+        # shard through the generic entry
+        grid += [dict(B=1, H=4, KVH=2, Sq=300, Sk=300, Dk=160, Dv=160),
+                 dict(B=1, H=8, KVH=2, Sq=128, Sk=1000, Dk=160, Dv=160,
+                      q_offset=700, strided=True),
+                 dict(B=1, H=8, KVH=1, Sq=256, Sk=4096, Dk=256, Dv=256,
+                      q_offset=3840),
+                 dict(B=1, H=8, KVH=1, Sq=256, Sk=1024, Dk=256, Dv=256,
+                      q_offset=256, strided=True),
+                 dict(B=2, H=4, KVH=2, Sq=100, Sk=700, Dk=64, Dv=64,
+                      q_offset=333, window=200),
+                 dict(B=1, H=6, KVH=2, Sq=77, Sk=500, Dk=128, Dv=128,
+                      q_offset=400, window=64, cap=20.0),
+                 dict(B=1, H=2, KVH=1, Sq=90, Sk=400, Dk=20, Dv=20,
+                      q_offset=250)]
         for c in grid:
             kw = {key: c[key] for key in ("causal", "window", "cap",
-                                          "sm_scale") if key in c}
+                                          "sm_scale", "q_offset")
+                  if key in c}
             if c.get("strided"):        # the layout chunked_attention hands
                 q = rand(c["B"], c["Sq"], c["H"], c["Dk"],
                          dtype=dtype).transpose(1, 2)
@@ -2249,7 +2307,8 @@ def phase_flash_kernels(torch, np, dev, Z, rng, T) -> dict:
             taken[entry] += 1
             if entry == GENERIC and dtype == bf16:
                 generic_cases.append({key: c[key] for key in c
-                                      if key in ("Dk", "Dv", "offset")})
+                                      if key in ("Dk", "Dv", "offset",
+                                                 "q_offset")})
             if dtype == bf16:
                 err, ulps = hold_bf16(got, q, k, v, f"edge case {c}", **kw)
                 worst_ulps = max(worst_ulps, ulps)
@@ -2259,11 +2318,12 @@ def phase_flash_kernels(torch, np, dev, Z, rng, T) -> dict:
                         c["B"], c["H"], c["Sq"], c["Sk"],
                         causal=kw.get("causal", True),
                         window=kw.get("window", 0),
-                        sms=fa_ops.sm_count(q.device))[1] > 1
+                        sms=fa_ops.sm_count(q.device),
+                        q_offset=kw.get("q_offset", 0))[1] > 1
             else:
                 hold_f32(got, q, k, v, f"edge case float32 {c}", **kw)
             cases += 1
-    check(taken[GENERIC] == 3 and splits >= 3,
+    check(taken[GENERIC] == 4 and splits >= 3,
           f"edge cases took {taken}, {splits} split the keys")
     log(f"phase 2: flash_attention edge shapes ({cases} cases: {taken} by "
         f"entry, bf16 through {GENERIC}: {generic_cases}; float32 at 2e-5; bf16 at 2e-2 and within half a bf16 ulp of "
@@ -2272,8 +2332,8 @@ def phase_flash_kernels(torch, np, dev, Z, rng, T) -> dict:
         "Sq < Sk, windows 32/128/100, cap 20 with scale 0.2, Dv != Dk, "
         "MLA's Dk 192 / Dv 128 at G 1, S 77/129, B 2, strided and not, "
         "strided (B,S,H,D) views, G 8 at S 8, Sq off 128, "
-        f"{splits} with split keys, D 20, Dv 24, a base off 16 bytes): "
-        "match")
+        f"{splits} with split keys, D 20, Dv 24, a base off 16 bytes, "
+        "D 160, query offsets 250-3840 with and without windows): match")
 
     # the generic entry's own shape: head dim 20, rows off 16 bytes
     q, k, v = rand(1, 2, 90, 20), rand(1, 1, 90, 20), rand(1, 1, 90, 20)
@@ -2604,7 +2664,9 @@ class FamilySizes:
 
 
 FAMILIES = FamilySizes(archs=("granite-moe-1b-a400m", "recurrentgemma-2b",
-                              "mamba2-780m", "deepseek-v3-671b"),
+                              "mamba2-780m", "codeqwen1.5-7b",
+                              "phi4-mini-3.8b", "stablelm-12b",
+                              "deepseek-v3-671b"),
                        reduce=False, max_batch=4, max_seq=4096, page=16,
                        prompts=SERVE.prompts, new=32, pd_batch=2,
                        pd_prompt=1024, pd_steps=16, pd_seq=2048, reps=3,
@@ -2613,7 +2675,9 @@ FAMILIES = FamilySizes(archs=("granite-moe-1b-a400m", "recurrentgemma-2b",
 # phase 10's main paths, by arch: the names of their rows in the kernels
 # line's launches_by_path
 FAMILY_PATH = {"granite-moe-1b-a400m": "moe", "recurrentgemma-2b": "hybrid",
-               "mamba2-780m": "ssm", "deepseek-v3-671b": "mla"}
+               "mamba2-780m": "ssm", "deepseek-v3-671b": "mla",
+               "codeqwen1.5-7b": "codeqwen", "phi4-mini-3.8b": "phi4",
+               "stablelm-12b": "stablelm"}
 
 
 def family_cfg(arch: str, F):
@@ -2646,9 +2710,12 @@ def family_prompts(cfg, F) -> tuple:
 def family_flash_shapes(F) -> dict:
     """{arch: [(H, KVH, D, window, batch, length), ...]}: every prefill
     attention shape phase 10's main paths launch (engine prefills at
-    exact lengths, the PDServer batch, an MTP model's forward and its
-    MTP block one token shorter); FLASH_SHAPES holds them. An SSM
-    launches none."""
+    exact lengths, or at their power-of-two buckets where the model is
+    `bucketable` — the dense decoders —, the PDServer batch, an MTP
+    model's forward and its MTP block one token shorter); FLASH_SHAPES
+    holds them. An SSM launches none."""
+    from repro_torch.models.registry import build_model
+    from repro_torch.serve.paged import bucket_len, bucketable
     out = {}
     for arch in F.archs:
         cfg = family_cfg(arch, F)
@@ -2656,7 +2723,10 @@ def family_flash_shapes(F) -> dict:
         if layout is None:
             out[arch] = []
             continue
-        out[arch] = [layout + (1, n) for n in family_prompts(cfg, F)] \
+        lens = family_prompts(cfg, F)
+        if bucketable(build_model(cfg)):
+            lens = sorted({bucket_len(n, F.max_seq) for n in lens})
+        out[arch] = [layout + (1, n) for n in lens] \
             + [layout + (F.pd_batch, F.pd_prompt)]
         if cfg.mtp_depth and F.mtp_len:
             out[arch] += [layout + (1, F.mtp_len), layout + (1, F.mtp_len - 1)]
@@ -2934,8 +3004,9 @@ def phase_family(torch, np, dev, F, arch, rng, T, params=None) -> dict:
     parameters; `params`, the reference's carried over, on the CPU), cut
     in depth where F.layers says, served by `ServeEngine(max_batch,
     max_seq, device_ring=True)` — paged and unbucketed for the MoE
-    decoders (granite's GQA, deepseek's MLA), dense for the hybrid and
-    the SSM, as `pageable` / `bucketable` decide — on `family_prompts`,
+    decoders (granite's GQA, deepseek's MLA), paged and bucketed for the
+    dense decoders (codeqwen, phi4-mini, stablelm), dense for the hybrid
+    and the SSM, as `pageable` / `bucketable` decide — on `family_prompts`,
     every step's logits held against the port's unpadded reference
     (spec-driven padding) teacher-forced on the engine's tokens; then
     the first request's reference at batch 1 against it
@@ -2952,11 +3023,11 @@ def phase_family(torch, np, dev, F, arch, rng, T, params=None) -> dict:
     from repro_torch import tree
     from repro_torch.kernels import _build
     from repro_torch.models import moe, rglru, ssm
-    from repro_torch.models.module import torch_dtype
+    from repro_torch.models.module import is_spec, torch_dtype
     from repro_torch.models.registry import build_model
     from repro_torch.models.transformer import layer_plan
     from repro_torch.serve.engine import ServeEngine
-    from repro_torch.serve.paged import bucketable, pageable
+    from repro_torch.serve.paged import bucket_len, bucketable, pageable
     from repro_torch.serve.pd_disagg import PDServer
 
     cuda = dev.type == "cuda"
@@ -2989,8 +3060,8 @@ def phase_family(torch, np, dev, F, arch, rng, T, params=None) -> dict:
     eng = ServeEngine(model, params, max_batch=F.max_batch,
                       max_seq=F.max_seq, page_tokens=F.page,
                       device_ring=True)
-    check(eng.paged == pageable(model) and not eng.bucketed
-          and not bucketable(model) and eng.ring.device,
+    check(eng.paged == pageable(model) and eng.bucketed == bucketable(model)
+          and eng.ring.device,
           f"{tag}: engine paged={eng.paged} bucketed={eng.bucketed}")
     logits_of, prefills, polled = record_engine(eng, _build)
     launches, shapes = {}, {}
@@ -3008,9 +3079,12 @@ def phase_family(torch, np, dev, F, arch, rng, T, params=None) -> dict:
         check(len(pool._free) == pool.n_pages - 1 and (pool.table == 0).all()
               and pool.pages_allocated == pool.pages_freed > 0,
               f"{tag}: pages not all back in the pool")
-    check(sorted(s for s, _ in prefills) == sorted(lens)
-          and eng.prefill_compiles == len(set(lens)),
-          f"{tag}: prefill lengths {prefills} are not the prompts' {lens}")
+    pre_lens = [bucket_len(n, F.max_seq) if eng.bucketed else n
+                for n in lens]
+    check(sorted(s for s, _ in prefills) == sorted(pre_lens)
+          and eng.prefill_compiles == len(set(pre_lens)),
+          f"{tag}: prefill lengths {prefills} are not the prompts' "
+          f"{pre_lens}")
     check(max(s["active"] for s in steps) == F.max_batch
           and steps[0]["cqes"] == len(prompts)
           and sum(s["prefills"] for s in steps) == len(prompts),
@@ -3040,13 +3114,18 @@ def phase_family(torch, np, dev, F, arch, rng, T, params=None) -> dict:
     witness, r0 = batch_witness(torch, model, params, prompts[0],
                                 results[rids[0]], F.max_seq, dev,
                                 F.max_batch)
-    # keyed on the model's size, not on the memory free at run time:
-    # deepseek's 26.7 B (100 GiB in float32) cannot, granite, the hybrid
-    # and mamba2 always can
+    # keyed on the model's size, not on the memory free at run time: a
+    # float32 copy of the parameters and two float32 copies of the
+    # reference's caches at the engine's batch (a decode step's input and
+    # output). deepseek's 26.7 B (100 GiB in float32), stablelm's 12.1 B
+    # and codeqwen's MHA caches (17 GiB a copy) cannot; granite, the
+    # hybrid, mamba2 and phi4-mini always can
     f32_bytes = 4 * cfg.param_count()
+    cache_bytes = 4 * sum(math.prod(sp.shape) for sp in tree.leaves(
+        model.cache_specs(F.max_batch, F.max_seq), is_leaf=is_spec))
     card_bytes = torch.cuda.get_device_properties(dev).total_memory \
         if cuda else None
-    if not cuda or 1.5 * f32_bytes <= 0.75 * card_bytes:
+    if not cuda or 1.5 * f32_bytes + 2 * cache_bytes <= 0.75 * card_bytes:
         m32 = build_model(dataclasses.replace(cfg, dtype="float32"))
         p32 = tree.map(lambda a: a.float() if a.is_floating_point()
                        else a, params)
@@ -3058,7 +3137,8 @@ def phase_family(torch, np, dev, F, arch, rng, T, params=None) -> dict:
         witness["float32"] = None
         log(f"{tag}: the batch witness runs in bf16 only: a float32 copy "
             f"of the parameters ({f32_bytes / 2**30:.1f} GiB) beside the "
-            f"bf16 ones does not fit 3/4 of the card's "
+            f"bf16 ones and two of the caches ({cache_bytes / 2**30:.1f} "
+            f"GiB each) do not fit 3/4 of the card's "
             f"{card_bytes / 2**30:.1f} GiB")
     g0 = torch.stack(logits_of[rids[0]])
     batch1 = float(((g0 - r0).abs().amax(-1) / r0.abs().amax(-1)).max())
@@ -3227,7 +3307,7 @@ def phase_family(torch, np, dev, F, arch, rng, T, params=None) -> dict:
     if cuda:
         target = (moe, "_moe_local") if cfg.moe is not None \
             else (rglru, "rglru_decode") if cfg.hybrid is not None \
-            else (ssm, "mamba2_decode")
+            else (ssm, "mamba2_decode") if cfg.family == "ssm" else None
         timing["decode_profile"] = profile_decode_step(torch, eng, F, T,
                                                        target)
         timing["device_steps"] = family_device_steps(
@@ -3252,6 +3332,263 @@ def phase_family(torch, np, dev, F, arch, rng, T, params=None) -> dict:
                 pd_pages=pd_pages, pd_token_bytes=token_bytes,
                 page_shapes=page_shapes, forward=fwd,
                 n_layers=cfg.n_layers)
+
+
+# -- phase 12, context parallelism -------------------------------------------------
+@dataclass(frozen=True)
+class CpSizes:
+    archs: tuple        # configs whose prefill lands in context parallelism
+    reduce: bool        # reduced() widths (the CPU test), else full width
+    batch: int          # prompts
+    seq: int            # tokens a prompt
+    model: int          # the mesh's model axis: ranks a prompt is cut over
+    decode_arch: str    # the config of the sharded decode's cache row
+    decode_seq: int     # that cache row's length (decode_32k's)
+    decode_pos: int     # where the new entry lands; attended [0, pos]
+    dtype: str          # of q, k, v and the caches
+
+
+# the production mesh's model axis of 16: the reference's collectives
+# docstring names phi4 (H 24), gemma (H 8) and recurrentgemma (H 10) as
+# landing in context parallelism there (neither KVH nor H divides 16)
+CP = CpSizes(archs=("gemma-2b", "phi4-mini-3.8b", "recurrentgemma-2b"),
+             reduce=False, batch=1, seq=4096, model=16,
+             decode_arch="gemma-2b", decode_seq=KV.seq,
+             decode_pos=KV.prefill, dtype="bfloat16")
+
+
+def _cp_cfg(arch, C):
+    from repro_torch.configs.base import get_config, reduced
+    cfg = get_config(arch)
+    return reduced(cfg) if C.reduce else cfg
+
+
+def phase_cp(torch, np, dev, C, rng, T) -> dict:
+    """Phase 12: what each rank of a `model` axis of C.model computes in
+    `collectives._context_parallel_attention` (`collectives._cp_rank`),
+    one rank after another in one process (one card runs no collective): for
+    each arch of C.archs at full width, a seeded C.batch x C.seq prompt's
+    queries, keys and values in the model's layout, and for every rank
+    coordinate r the flash call on its C.seq / C.model query rows against
+    the whole K/V at q_offset = r C.seq / C.model (the kernel's offset
+    path; the counted main path). Each shard is held against the plain
+    version at its offset (`flash_hold`: phase 2's bound), and the
+    concatenated shards against the unsharded call (reported: the split
+    plans differ by shape, so the two need not be bit-equal). Then the
+    sharded decode over C.model shards of C.decode_arch's decode_32k
+    cache row (`_cp_decode`). On the card each shard is timed
+    (cold) beside its plain version, SDPA at the same shard shape (a
+    boolean mask at the offset) and its bound."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.launch.mesh import production_shape
+    from repro_torch.models.attention import (chunked_attention,
+                                              decode_partials,
+                                              finalize_partials)
+    from repro_torch.models.module import torch_dtype
+    from repro_torch.parallel import collectives
+
+    cuda = dev.type == "cuda"
+    shape, axes = production_shape()
+    check(C.reduce or dict(zip(axes, shape))["model"] == C.model,
+          f"phase 12: model axis {C.model} is not the production mesh's")
+    gen = torch.Generator(device=dev).manual_seed(int(rng.integers(1 << 31)))
+    dt = torch_dtype(C.dtype)
+    B, S, M = C.batch, C.seq, C.model
+    n = S // M
+    check(S % M == 0, f"phase 12: {S} tokens do not split over {M}")
+
+    def rand(*shape_):
+        return torch.randn(shape_, generator=gen, device=dev).to(dt)
+
+    launches, flash_by_shape, by_shape, archs = {}, {}, {}, {}
+    for arch in C.archs:
+        cfg = _cp_cfg(arch, C)
+        H, KVH, D, W = flash_layout(cfg)
+        G = H // KVH
+        check(KVH % M != 0 and H % M != 0,
+              f"phase 12: {arch} (H {H}, KVH {KVH}) does not land in "
+              f"context parallelism on model = {M}")
+        kw = dict(causal=True, window=W)
+        q, k, v = rand(B, S, KVH, G, D), rand(B, S, KVH, D), \
+            rand(B, S, KVH, D)
+        whole = chunked_attention(q, k, v, **kw)       # not counted
+        shards, shapes = [], {}
+        count_launches(_build, launches, lambda: [shards.append(
+            collectives._cp_rank(q, k, v, r, M, **kw)) for r in range(M)],
+            shapes)
+        layout = (H, KVH, D, W)
+        flash_by_shape.update({flash_key(layout, sk): c for sk, c in
+                               shapes.get("flash_attention", {}).items()})
+        if cuda:
+            check(sorted(shapes.get("flash_attention", {}).items()) == sorted(
+                (fa_ops.shape_key(B, n, S, True, r * n), 1)
+                for r in range(M)),
+                f"phase 12: {arch}'s offset launches by shape {shapes}")
+        # the kernel's (B, H, S, D) views of the same tensors
+        kh, vh = k.transpose(1, 2), v.transpose(1, 2)
+        errs, ulps, rows = [], [], []
+        for r, o in enumerate(shards):
+            qs = q[:, r * n:(r + 1) * n].reshape(B, n, H, D).transpose(1, 2)
+            got = o.reshape(B, n, H, D).transpose(1, 2)
+            what = f"{arch} shard {r} of {M} (q_offset {r * n})"
+            if dt == torch.bfloat16:
+                e, u = flash_hold(torch, T, got, qs, kh, vh, what,
+                                  q_offset=r * n, **kw)
+            else:
+                want = fa_ref.reference(qs, kh, vh, q_offset=r * n, **kw)
+                e, u = float((got - want).abs().max()), 0.0
+                check(torch.allclose(got, want, atol=2e-5, rtol=2e-5),
+                      f"flash_attention != plain, {what}: {e}")
+            errs.append(e)
+            ulps.append(u)
+            if cuda:
+                rows.append(_cp_shard_times(torch, F, fa_ops, fa_ref, T, qs,
+                                            kh, vh, r * n, W, dev))
+        cat = torch.cat(shards, dim=1)
+        d_whole = float((cat.float() - whole.float()).abs().max())
+        for r, row in enumerate(rows):
+            key = flash_key(layout, fa_ops.shape_key(B, n, S, True, r * n))
+            by_shape[key] = dict(row, entry="flash_attention",
+                                 max_abs_err=errs[r],
+                                 max_half_ulps=ulps[r])
+        archs[arch] = dict(
+            layout=flash_key(layout, f"{B}x{S}"), shards=M, rows=n,
+            max_abs_err=max(errs), max_half_ulps=max(ulps),
+            concat_vs_unsharded=d_whole,
+            ms_by_shard=[r_["ms"] for r_ in rows],
+            sdpa_ms_by_shard=[r_["library_ms"] for r_ in rows],
+            plain_ms_by_shard=[r_["plain_ms"] for r_ in rows],
+            bound_ms_by_shard=[r_["bound_ms"] for r_ in rows],
+            sdpa_backend=rows[0]["library_backend"] if rows else None)
+        log(f"phase 12: {arch} {archs[arch]['layout']} over model = {M}: "
+            f"{M} shards of {n} rows held against the plain version at "
+            f"their offsets (max |err| {max(errs):.4g}, worst "
+            f"{max(ulps):.3f} of the half-ulp bound); concatenated vs the "
+            f"unsharded call: max |diff| {d_whole:.4g}; kernel ms by shard "
+            f"{[round(x, 4) for x in archs[arch]['ms_by_shard']]}; SDPA "
+            f"({archs[arch]['sdpa_backend']}) "
+            f"{[round(x, 4) for x in archs[arch]['sdpa_ms_by_shard']]}; "
+            f"bound {[round(x, 4) for x in archs[arch]['bound_ms_by_shard']]}")
+        del q, k, v, whole, shards, cat, kh, vh
+    if cuda:
+        check(launches.get("flash_attention", 0) == M * len(C.archs)
+              and not launches.get("flash_attention_generic"),
+              f"phase 12: launches {launches}")
+    decode = _cp_decode(torch, dev, C, gen, dt, collectives, decode_partials,
+                        finalize_partials, T)
+    return dict(launches=launches, flash_by_shape=flash_by_shape,
+                by_shape=by_shape, archs=archs, decode=decode)
+
+
+def _cp_shard_times(torch, F, fa_ops, fa_ref, T, qs, kh, vh, off, W, dev):
+    """One shard's cold kernel, plain and SDPA times and its bound: the
+    (q, k) pairs its rows score (causal from q_offset, inside the
+    window) over the bf16 tensor-core rate; the bytes of its rows' q and
+    output and of the keys and values those rows reach."""
+    B, H, n, D = qs.shape
+    KVH, S = kh.shape[1], kh.shape[2]
+    call = fa_ops.prepare(qs, kh, vh, causal=True, window=W, q_offset=off)
+    qpos = off + torch.arange(n, device=dev)[:, None]
+    kpos = torch.arange(S, device=dev)[None, :]
+    mask = kpos <= qpos
+    if W:
+        mask &= kpos > qpos - W
+    pairs = int(mask.sum())
+    k_lo = max(0, off - W + 1) if W else 0
+    keys = off + n - k_lo
+    flops = 4 * B * H * D * pairs
+    nbytes = (2 * H * n + 2 * KVH * keys) * D * 2 * B
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / HBM_BYTES_PER_S
+
+    def cold(fn):
+        return T.ms(fn, iters=10, cold=True, median=True)
+    ms = cold(call.run)
+    return dict(ms=ms, rank_ms=ms,
+                plain_ms=cold(lambda: fa_ref.reference(
+                    qs, kh, vh, causal=True, window=W, q_offset=off)),
+                library_ms=cold(lambda: F.scaled_dot_product_attention(
+                    qs, kh, vh, attn_mask=mask, enable_gqa=True)),
+                library_backend=sdpa_backend(torch, qs, kh, vh,
+                                             attn_mask=mask,
+                                             enable_gqa=True),
+                bound_ms=max(t_ops, t_bytes) * 1e3,
+                bound_by="operations" if t_ops > t_bytes else "bytes",
+                split=fa_ops.plan(B, H, n, S, causal=True, window=W,
+                                  sms=fa_ops.sm_count(dev), q_offset=off)[1],
+                gflop=flops / 1e9)
+
+
+def _cp_decode(torch, dev, C, gen, dt, collectives, decode_partials,
+               finalize_partials, T) -> dict:
+    """The sharded decode over C.model shards of one decode_32k cache
+    row, one rank after another: each rank's partials over its rows of
+    the updated cache (`collectives._decode_shard`), merged by the
+    port's merge (`collectives._merge`, its max and sums over the
+    stacked shards where `merge_partials` all-reduces them), against
+    the whole-cache decode: float32 within 1e-5 of its scale, and the
+    output in the caches' dtype within one of its ulps of the entry's
+    (`seqparallel_decode_attention` with no mesh)."""
+    cfg = _cp_cfg(C.decode_arch, C)
+    KVH, G, D = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, \
+        cfg.resolved_head_dim
+    S, M, p = C.decode_seq, C.model, C.decode_pos
+
+    def rand(*shape_):
+        return torch.randn(shape_, generator=gen, device=dev).to(dt)
+    q, kc, vc = rand(1, KVH, G, D), rand(1, S, KVH, D), rand(1, S, KVH, D)
+    kn, vn = rand(1, KVH, D), rand(1, KVH, D)
+    pos = torch.full((1,), p, dtype=torch.long, device=dev)
+    k2, v2 = collectives._update(kc, kn, pos), collectives._update(vc, vn, pos)
+
+    def whole():
+        acc, _, l = decode_partials(q, k2, v2, torch.arange(S, device=dev),
+                                    pos)
+        return finalize_partials(acc, l)
+
+    def stacked(t, op):
+        return t.amax(0) if op == "max" else t.sum(0)
+
+    def sharded():
+        acc, m, l = (torch.stack(x) for x in zip(*(
+            collectives._decode_shard(q, k2, v2, pos, r, M)
+            for r in range(M))))
+        return finalize_partials(*collectives._merge(acc, m, l, stacked))
+    w_out, s_out = whole(), sharded()
+    T.sync()
+    scale = float(w_out.abs().max())
+    err = float((s_out - w_out).abs().max())
+    check(err <= 1e-5 * scale, f"phase 12: the merged decode differs from "
+          f"the whole-cache decode by {err:.4g} (scale {scale:.4g})")
+    # the entry's output and the merged one, both rounded to dt: apart by
+    # at most one ulp of the larger where dt is narrower than float32 (they
+    # round from float32 values within 1e-5 of the scale, which may
+    # straddle a rounding boundary); in float32 the bound above holds them
+    entry, ek, ev = collectives.seqparallel_decode_attention(q, kc, vc, kn, vn,
+                                                             pos)
+    check(torch.equal(ek, k2) and torch.equal(ev, v2),
+          "phase 12: the decode entry's caches differ from the update")
+    a, b = entry.float(), s_out.to(dt).float()
+    _, e = torch.frexp(torch.maximum(a.abs(), b.abs()))
+    ulp = torch.ldexp(torch.full_like(a, torch.finfo(dt).eps), e - 1)
+    ulps = float(((a - b).abs() / ulp).max())
+    check(dt == torch.float32 or ulps <= 1.0, f"phase 12: the merged "
+          f"decode in {dt} is {ulps:.3g} ulps from the entry's")
+    out = dict(arch=C.decode_arch, seq=S, shards=M, pos=p,
+               max_abs_err=err, scale=scale,
+               out_max_ulps=ulps,
+               out_ulps_bound=None if dt == torch.float32 else 1.0,
+               whole_ms=T.wall(whole), sharded_ms=T.wall(sharded))
+    log(f"phase 12: sharded decode of a {C.decode_arch} cache row of {S} "
+        f"(KVH {KVH}, G {G}, D {D}) at position {p} over {M} shards: "
+        f"merged float32 output within {err:.4g} of the whole-cache "
+        f"decode (scale {scale:.4g}, bound 1e-5 of it); in {dt} within "
+        f"{ulps:.3g} ulps of the entry's; whole "
+        f"{out['whole_ms']:.3f} ms, {M} shards and the merge "
+        f"{out['sharded_ms']:.3f} ms (host clock, one process)")
+    return out
 
 
 # -- phase 2, the T3 pipe's gather and the list walk ----------------------------
@@ -4787,6 +5124,9 @@ def main() -> int:
         shutil.rmtree(work, ignore_errors=True)
     free_device_memory(torch)
     mark("phase 11")
+    cp = phase_cp(torch, np, dev, CP, rng, T)
+    free_device_memory(torch)
+    mark("phase 12")
 
     # launches per C entry point on each main path's own run
     paths = {"datapath": main_launches, "kv_leg": kv["launches"],
@@ -4794,6 +5134,8 @@ def main() -> int:
              "cluster": cluster["launches"], "storage": storage["launches"]}
     paths.update({FAMILY_PATH[a]: r["launches"] for a, r in families.items()})
     paths["train"] = train["launches"]
+    paths["cp"] = cp["launches"]
+    rows["flash_attention"]["by_shape"].update(cp.pop("by_shape"))
     kernels = []
     for r in rows.values():
         entry = r.pop("entry")
@@ -4807,7 +5149,7 @@ def main() -> int:
         p: dict(sorted(r["flash_by_shape"].items()))
         for p, r in [("serve", serve), ("cluster", cluster)]
         + [(FAMILY_PATH[a], r) for a, r in families.items()]
-        + [("train", train)]}
+        + [("train", train), ("cp", cp)]}
     excess, untimed = {}, set()
     for by in flash["launches_by_shape"].values():
         for shape, n in by.items():
@@ -4858,7 +5200,7 @@ def main() -> int:
     log(json.dumps({"chains": timing, "launches_per_flush": lpf,
                     "kv_leg": kv, "serve": serve, "t3_pipe": t3,
                     "cluster": cluster, "storage": storage,
-                    "families": families, "train": train,
+                    "families": families, "train": train, "cp": cp,
                     "seconds": time.perf_counter() - t_start}))
     log(smi)
     print(json.dumps({"kernels": kernels}))

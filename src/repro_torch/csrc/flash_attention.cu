@@ -13,6 +13,15 @@
 // body. The Pallas kernel widens q, k and v to float32 before its two
 // dots; every path below keeps those dots in float32 arithmetic.
 //
+// Query offset. Every entry takes `q_offset`: query row r of a call sits
+// at absolute position q_offset + r for the causal and window masks (keys
+// sit at 0 .. Sk - 1), while output rows stay local. A context-parallel
+// shard passes its rank's first row (the reference's
+// models/attention.py::chunked_attention(q_offset=), lines 59-99, whose
+// CP path is parallel/collectives.py:110); the Pallas kernel has no
+// offset. Every key bound a row's position sets (the tile scan, the split
+// plan, the edge tiles, the masks) reads q_offset + row, clamped by Sk.
+//
 // What differs from the TPU kernel, by design. On the TPU the third grid
 // axis (nk) runs in order and carries (m, l, acc) in VMEM scratch from one
 // step to the next. Blocks on Hopper run in no order, so a block owns a
@@ -201,7 +210,7 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       const bf16* __restrict__ v, bf16* __restrict__ o,
                       Strides st, int H, int G, int Sq, int Sk, int Dk,
                       int Dv, float sm_scale, float cap, int causal,
-                      int window, int vec) {
+                      int window, int qoff, int vec) {
   extern __shared__ uint4 smem16[];
   const int dkw = round_up(Dk, 16);     // staged width of q and k
   const int dkp = dkw + 8;              // row strides (elements)
@@ -221,9 +230,11 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   stage_bf16(Qs, dkp, qb, st.q[2], st.q[3], q0, kBQ, Sq, Dk, dkw, vec & 1);
 
-  // this thread's rows of the tile: r, r + 8; columns 8 n + 2 t + {0, 1}
+  // this thread's rows of the tile: r, r + 8 (local rows row0, row1, at
+  // absolute positions qpos0, qpos1); columns 8 n + 2 t + {0, 1}
   const int r = warp * 16 + g;
-  const int qpos0 = q0 + r, qpos1 = qpos0 + 8;
+  const int row0 = q0 + r, row1 = row0 + 8;
+  const int qpos0 = qoff + row0, qpos1 = qpos0 + 8;
   float acc[NV][4];
 #pragma unroll
   for (int n = 0; n < NV; ++n)
@@ -236,8 +247,8 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int k0 = kj * kBK;
     // structural skip (uniform across the block): tiles are dead for
     // every row of the q-tile past the diagonal, and before the window
-    if (causal && k0 > q0 + kBQ - 1) break;
-    if (window && k0 + kBK - 1 <= q0 - window) continue;
+    if (causal && k0 > qoff + q0 + kBQ - 1) break;
+    if (window && k0 + kBK - 1 <= qoff + q0 - window) continue;
     __syncthreads();                 // the last tile's readers are done
     stage_bf16(Ks, dkp, kb, st.k[2], st.k[3], k0, kBK, Sk, Dk, dkw,
                vec & 2);
@@ -351,11 +362,11 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int e = 0; e < 2; ++e) {
       const int col = 8 * n + 2 * t + e;
       if (col >= Dv) continue;
-      if (qpos0 < Sq)
-        ob[(int64_t)qpos0 * st.o[2] + (int64_t)col * st.o[3]] =
+      if (row0 < Sq)
+        ob[(int64_t)row0 * st.o[2] + (int64_t)col * st.o[3]] =
             __float2bfloat16(acc[n][e] / den0);
-      if (qpos1 < Sq)
-        ob[(int64_t)qpos1 * st.o[2] + (int64_t)col * st.o[3]] =
+      if (row1 < Sq)
+        ob[(int64_t)row1 * st.o[2] + (int64_t)col * st.o[3]] =
             __float2bfloat16(acc[n][2 + e] / den1);
     }
 }
@@ -364,7 +375,7 @@ template <int NV>
 int launch_bf16(const void* q, const void* k, const void* v, void* o,
                 const Strides& st, int B, int H, int G, int Sq, int Sk,
                 int Dk, int Dv, float sm_scale, float cap, int causal,
-                int window, int vec, cudaStream_t stream) {
+                int window, int qoff, int vec, cudaStream_t stream) {
   const size_t smem = sizeof(bf16) * ((size_t)(kBQ + kBK) *
                                           (round_up(Dk, 16) + 8) +
                                       (size_t)kBK * (NV * 8 + 8));
@@ -376,7 +387,7 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
   kernel<<<grid, kMmaThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(o), st, H, G, Sq, Sk,
-      Dk, Dv, sm_scale, cap, causal, window, vec);
+      Dk, Dv, sm_scale, cap, causal, window, qoff, vec);
   return (int)cudaGetLastError();
 }
 
@@ -400,15 +411,18 @@ constexpr float kLog2e = 1.4426950408889634f;
 
 // The k-tiles [lo, hi) that hold a live key for some real row of the
 // 128-row q-tile at q0 (the reference's predicates, flash_attention.py
-// :66-75, over the tile's first and last rows); hi <= lo: none.
+// :66-75, over the tile's first and last rows at their absolute
+// positions qoff + row, the key bound clamped by Sk); hi <= lo: none.
 __host__ __device__ __forceinline__ void k_tiles(int q0, int Sq, int Sk,
                                                  int causal, int window,
-                                                 int& lo, int& hi) {
-  const int last = (q0 + kRows < Sq ? q0 + kRows : Sq) - 1;
+                                                 int qoff, int& lo,
+                                                 int& hi) {
+  const int first = qoff + q0;
+  const int last = qoff + (q0 + kRows < Sq ? q0 + kRows : Sq) - 1;
   hi = (Sk + kBK - 1) / kBK;
   if (causal && last / kBK + 1 < hi) hi = last / kBK + 1;
   lo = 0;
-  if (window && q0 - window + 1 > 0) lo = (q0 - window + 1) / kBK;
+  if (window && first - window + 1 > 0) lo = (first - window + 1) / kBK;
 }
 
 // Blocks a q-tile with live k-tiles [lo, hi) takes: one for each
@@ -428,6 +442,7 @@ struct FlashParams {
   int max_split;       // the most blocks one q-tile takes
   float sm_scale, cap;
   int causal, window;
+  int qoff;            // absolute position of query row 0
   int64_t os[4];       // output element strides (b, h, s, d)
   float* part;         // split partials: acc [split][bh][row][Dv], then
                        // (m, l) [split][bh][row]; rows nq * kRows a plane
@@ -661,6 +676,7 @@ __device__ __forceinline__ void pv_mma<4>(float (&acc)[128],
   wgmma_rs_n256(acc, a, dv);
 }
 
+// qpos: the row's absolute position (qoff + row)
 __device__ __forceinline__ bool key_live(int qpos, int kpos,
                                          const FlashParams& p) {
   return kpos < p.Sk && (!p.causal || qpos >= kpos) &&
@@ -691,7 +707,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
   // per key segment its live range meets
   int idx = blockIdx.x, qt = 0, bh = 0, split = 0, ns = 1, lo = 0, hi = 0;
   for (int r = p.nq - 1; r >= 0; --r) {
-    k_tiles(r * kRows, p.Sq, p.Sk, p.causal, p.window, lo, hi);
+    k_tiles(r * kRows, p.Sq, p.Sk, p.causal, p.window, p.qoff, lo, hi);
     ns = n_splits(lo, hi, p.chunk);
     if (idx < p.BH * ns) {
       qt = r;
@@ -754,6 +770,9 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
     const int rbeg = q0 + 64 * cw;                 // its first row
     const int rend = (rbeg + 64 < p.Sq ? rbeg + 64 : p.Sq) - 1;
     const int row0 = rbeg + 16 * warp + g, row1 = row0 + 8;
+    // the same rows' absolute positions, which the masks read
+    const int abeg = p.qoff + rbeg, aend = p.qoff + rend;
+    const int apos0 = p.qoff + row0, apos1 = apos0 + 8;
     const int nks = (p.Dk + 15) / 16;              // k-steps of Q K^T
     const uint32_t qs = smem_u32(Qs) + cw * (kQBlock / 2);
 
@@ -768,8 +787,8 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
       const int k0 = (t0 + i) * kBK;
       mbar_wait(&full[s], (i / kStages) & 1);
       // a tile dead for all of this warpgroup's rows costs nothing
-      const bool live = rend >= rbeg && !(p.causal && k0 > rend) &&
-                        !(p.window && k0 + kBK - 1 <= rbeg - p.window);
+      const bool live = rend >= rbeg && !(p.causal && k0 > aend) &&
+                        !(p.window && k0 + kBK - 1 <= abeg - p.window);
       if (live) {
         // S = Q K^T, 64 x 64, from shared memory
         float sc[32];
@@ -791,8 +810,8 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
 
         // masks only on tiles the diagonal, the window edge or the
         // ragged Sk tail cross; masked scores are -inf, so their p is 0
-        const bool edge = (p.causal && k0 + kBK - 1 > rbeg) ||
-                          (p.window && k0 <= rend - p.window) ||
+        const bool edge = (p.causal && k0 + kBK - 1 > abeg) ||
+                          (p.window && k0 <= aend - p.window) ||
                           k0 + kBK > p.Sk;
         float mx0 = -INFINITY, mx1 = -INFINITY;
 #pragma unroll
@@ -807,8 +826,8 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
             }
             if (edge) {
               const int kpos = k0 + 8 * j + 2 * t + e;
-              if (!key_live(row0, kpos, p)) x0 = -INFINITY;
-              if (!key_live(row1, kpos, p)) x1 = -INFINITY;
+              if (!key_live(apos0, kpos, p)) x0 = -INFINITY;
+              if (!key_live(apos1, kpos, p)) x1 = -INFINITY;
             }
             sc[4 * j + e] = x0;
             sc[4 * j + 2 + e] = x1;
@@ -931,7 +950,7 @@ flash_merge_kernel(bf16* __restrict__ o, const FlashParams p) {
   const int qt = blockIdx.x / (kRows / kMergeRows);
   const int bh = blockIdx.y;
   int lo, hi;
-  k_tiles(qt * kRows, p.Sq, p.Sk, p.causal, p.window, lo, hi);
+  k_tiles(qt * kRows, p.Sq, p.Sk, p.causal, p.window, p.qoff, lo, hi);
   const int ns = n_splits(lo, hi, p.chunk);
   const int r = qt * kRows + (blockIdx.x % (kRows / kMergeRows)) *
                 kMergeRows + threadIdx.x / 32;
@@ -1012,7 +1031,8 @@ template <int NV>
 int launch_sm90(const void* q, const void* k, const void* v, void* o,
                 const Strides& st, int B, int H, int KVH, int Sq, int Sk,
                 int Dk, int Dv, float sm_scale, float cap, int causal,
-                int window, int chunk, float* part, cudaStream_t stream) {
+                int window, int qoff, int chunk, float* part,
+                cudaStream_t stream) {
   CUtensorMap qm, km, vm;
   int err = tensor_map(&qm, q, st.q, Dk, Sq, H, B, kRows);
   if (err == 0) err = tensor_map(&km, k, st.k, Dk, Sk, KVH, B, kBK);
@@ -1033,13 +1053,14 @@ int launch_sm90(const void* q, const void* k, const void* v, void* o,
   p.cap = cap;
   p.causal = causal;
   p.window = window;
+  p.qoff = qoff;
   for (int i = 0; i < 4; ++i) p.os[i] = st.o[i];
   p.part = part;
   long long blocks = 0;
   p.max_split = 1;
   for (int r = 0; r < p.nq; ++r) {
     int lo, hi;
-    k_tiles(r * kRows, Sq, Sk, causal, window, lo, hi);
+    k_tiles(r * kRows, Sq, Sk, causal, window, qoff, lo, hi);
     const int ns = n_splits(lo, hi, chunk);
     blocks += (long long)p.BH * ns;
     if (ns > p.max_split) p.max_split = ns;
@@ -1125,7 +1146,7 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ o,
                      Strides st, int H, int G, int Sq, int Sk, int Dk,
                      int Dv, float sm_scale, float cap, int causal,
-                     int window) {
+                     int window, int qoff) {
   extern __shared__ float4 smem4[];
   const int dkp = round_up(Dk, 4) + 4;  // padded: float4 rows, distinct banks
   const int dvp = round_up(Dv, 4);
@@ -1158,8 +1179,8 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int dk4 = round_up(Dk, 4) / 4;
   for (int kj = 0; kj < nk; ++kj) {
     const int k0 = kj * kBK;
-    if (causal && k0 > q0 + kBQ - 1) break;
-    if (window && k0 + kBK - 1 <= q0 - window) continue;
+    if (causal && k0 > qoff + q0 + kBQ - 1) break;
+    if (window && k0 + kBK - 1 <= qoff + q0 - window) continue;
     __syncthreads();                 // the last tile's readers are done
     stage(Ks, dkp, kb, st.k[2], st.k[3], k0, kBK, Sk, Dk);
     stage(Vs, dvp, vb, st.v[2], st.v[3], k0, kBK, Sk, Dv);
@@ -1197,7 +1218,7 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     // masks, the online softmax update, P into shared memory
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const int qpos = q0 + ty + 16 * i;
+      const int qpos = qoff + q0 + ty + 16 * i;
       bool ok[4];
       float mx = kNeg;
 #pragma unroll
@@ -1279,7 +1300,7 @@ template <int DC>
 int launch_f32(const void* q, const void* k, const void* v, void* o,
                const Strides& st, int B, int H, int G, int Sq, int Sk,
                int Dk, int Dv, float sm_scale, float cap, int causal,
-               int window, cudaStream_t stream) {
+               int window, int qoff, cudaStream_t stream) {
   const int dkp = round_up(Dk, 4) + 4, dvp = round_up(Dv, 4);
   const size_t smem = sizeof(float) * ((size_t)(kBQ + kBK) * dkp +
                                        (size_t)kBK * dvp + (size_t)kBQ * kPP);
@@ -1291,7 +1312,7 @@ int launch_f32(const void* q, const void* k, const void* v, void* o,
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), st, H, G, Sq, Sk,
-      Dk, Dv, sm_scale, cap, causal, window);
+      Dk, Dv, sm_scale, cap, causal, window, qoff);
   return (int)cudaGetLastError();
 }
 
@@ -1319,7 +1340,8 @@ Strides unpack(const int64_t* strides) {
 
 // dtype: 0 float32 (CUDA cores), 1 bfloat16 (the TMA / wgmma path).
 // strides: 16 int64 on the host, the (b, h, s, d) element strides of q,
-// k, v and o in that order. bfloat16 only: `chunk` is the length in
+// k, v and o in that order. `q_offset` >= 0: the absolute position of
+// query row 0 for the masks. bfloat16 only: `chunk` is the length in
 // k-tiles of the key segments a q-tile is split at (the caller's plan),
 // `partials` float32 scratch of max_split * B * H * ceil(Sq / 128) * 128 *
 // (Dv + 2) elements, or null where no q-tile meets two segments.
@@ -1327,9 +1349,10 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                void* o, const int64_t* strides, int dtype,
                                int B, int H, int KVH, int Sq, int Sk, int Dk,
                                int Dv, float sm_scale, float cap, int causal,
-                               int window, int chunk, void* partials,
-                               void* stream) {
-  if (!shape_ok(B, H, KVH, Sq, Sk, Dk, Dv) || (dtype != 0 && dtype != 1))
+                               int window, int q_offset, int chunk,
+                               void* partials, void* stream) {
+  if (!shape_ok(B, H, KVH, Sq, Sk, Dk, Dv) || (dtype != 0 && dtype != 1) ||
+      q_offset < 0 || (int64_t)q_offset + Sq >= (1ll << 31))
     return (int)cudaErrorInvalidValue;
   if (Sq == 0) return 0;
   const Strides st = unpack(strides);
@@ -1338,12 +1361,12 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
   if (dtype == 0) {
     if (Dv <= 64)
       return launch_f32<1>(q, k, v, o, st, B, H, G, Sq, Sk, Dk, Dv, sm_scale,
-                           cap, causal, window, s);
+                           cap, causal, window, q_offset, s);
     if (Dv <= 128)
       return launch_f32<2>(q, k, v, o, st, B, H, G, Sq, Sk, Dk, Dv, sm_scale,
-                           cap, causal, window, s);
+                           cap, causal, window, q_offset, s);
     return launch_f32<4>(q, k, v, o, st, B, H, G, Sq, Sk, Dk, Dv, sm_scale,
-                         cap, causal, window, s);
+                         cap, causal, window, q_offset, s);
   }
   if (Sk == 0 || chunk <= 0 || !sm90_ok(q, st.q, Dk) ||
       !sm90_ok(k, st.k, Dk) || !sm90_ok(v, st.v, Dv) || st.o[3] != 1 ||
@@ -1353,12 +1376,14 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
   float* part = static_cast<float*>(partials);
   if (Dv <= 64)
     return launch_sm90<1>(q, k, v, o, st, B, H, KVH, Sq, Sk, Dk, Dv,
-                          sm_scale, cap, causal, window, chunk, part, s);
+                          sm_scale, cap, causal, window, q_offset, chunk,
+                          part, s);
   if (Dv <= 128)
     return launch_sm90<2>(q, k, v, o, st, B, H, KVH, Sq, Sk, Dk, Dv,
-                          sm_scale, cap, causal, window, chunk, part, s);
+                          sm_scale, cap, causal, window, q_offset, chunk,
+                          part, s);
   return launch_sm90<4>(q, k, v, o, st, B, H, KVH, Sq, Sk, Dk, Dv, sm_scale,
-                        cap, causal, window, chunk, part, s);
+                        cap, causal, window, q_offset, chunk, part, s);
 }
 
 // bfloat16 through mma.sync, for the shapes the TMA path cannot take; the
@@ -1368,8 +1393,11 @@ extern "C" int flash_attention_generic(const void* q, const void* k,
                                        const int64_t* strides, int B, int H,
                                        int KVH, int Sq, int Sk, int Dk,
                                        int Dv, float sm_scale, float cap,
-                                       int causal, int window, void* stream) {
-  if (!shape_ok(B, H, KVH, Sq, Sk, Dk, Dv)) return (int)cudaErrorInvalidValue;
+                                       int causal, int window, int q_offset,
+                                       void* stream) {
+  if (!shape_ok(B, H, KVH, Sq, Sk, Dk, Dv) || q_offset < 0 ||
+      (int64_t)q_offset + Sq >= (1ll << 31))
+    return (int)cudaErrorInvalidValue;
   if (Sq == 0) return 0;
   const Strides st = unpack(strides);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -1379,12 +1407,12 @@ extern "C" int flash_attention_generic(const void* q, const void* k,
                   (vec_ok(v, st.v, Dv) ? 4 : 0);
   if (Dv <= 64)
     return launch_bf16<8>(q, k, v, o, st, B, H, G, Sq, Sk, Dk, Dv, sm_scale,
-                          cap, causal, window, vec, s);
+                          cap, causal, window, q_offset, vec, s);
   if (Dv <= 128)
     return launch_bf16<16>(q, k, v, o, st, B, H, G, Sq, Sk, Dk, Dv,
-                           sm_scale, cap, causal, window, vec, s);
+                           sm_scale, cap, causal, window, q_offset, vec, s);
   return launch_bf16<32>(q, k, v, o, st, B, H, G, Sq, Sk, Dk, Dv, sm_scale,
-                         cap, causal, window, vec, s);
+                         cap, causal, window, q_offset, vec, s);
 }
 
 extern "C" const char* kernel_error_string(int code) {

@@ -22,7 +22,10 @@ flash_attention` (the `pl.pallas_call` at line 110). On a CUDA tensor
     where rows are off 16 bytes.
 
 Both keep float32 statistics and accumulator, GQA by `h // G`, causal
-and window masks, tanh softcap. Its bound on the card is operations:
+and window masks, tanh softcap, and a query offset: with `q_offset`,
+query row r sits at absolute position q_offset + r for the masks (a
+context-parallel shard's rows; the reference's
+`chunked_attention(q_offset=)`), the output rows staying local. Its bound on the card is operations:
 4 B H S^2 D / 2 causal FLOPs over the bf16 tensor-core rate (0.069 ms
 for gemma-2b at S = 4096); the three-term P makes the kernels' own work
 twice that. On a CPU tensor `attention` is the plain version in
@@ -61,10 +64,10 @@ from repro_torch.kernels.flash_attention import ref
 
 _P, _INT, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIG = {
-    "flash_attention": [_P] * 5 + [_INT] * 8 + [_F, _F] + [_INT] * 3
+    "flash_attention": [_P] * 5 + [_INT] * 8 + [_F, _F] + [_INT] * 4
     + [_P, _P],
-    "flash_attention_generic": [_P] * 5 + [_INT] * 7 + [_F, _F, _INT, _INT,
-                                                         _P],
+    "flash_attention_generic": [_P] * 5 + [_INT] * 7 + [_F, _F]
+    + [_INT] * 3 + [_P],
 }
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
@@ -112,14 +115,18 @@ def route(q, k, v) -> str:
     return "flash_attention_generic"
 
 
-def k_tiles(q0: int, Sq: int, Sk: int, causal: bool, window: int):
+def k_tiles(q0: int, Sq: int, Sk: int, causal: bool, window: int,
+            q_offset: int = 0):
     """The k-tiles [lo, hi) holding a live key for some real row of the
-    TMA path's q-tile at q0 (the kernel's `k_tiles`); hi <= lo: none."""
-    last = min(q0 + ROWS, Sq) - 1
+    TMA path's q-tile at q0 (the kernel's `k_tiles`): its rows sit at
+    q_offset + q0 ... , the key bound clamped by Sk; hi <= lo: none."""
+    first = q_offset + q0
+    last = q_offset + min(q0 + ROWS, Sq) - 1
     hi = -(-Sk // KEYS)
     if causal:
         hi = min(hi, last // KEYS + 1)
-    lo = (q0 - window + 1) // KEYS if window and q0 - window + 1 > 0 else 0
+    lo = (first - window + 1) // KEYS if window and first - window + 1 > 0 \
+        else 0
     return lo, hi
 
 
@@ -131,8 +138,8 @@ def n_splits(lo: int, hi: int, chunk: int) -> int:
     return -(-hi // chunk) - lo // chunk if hi > lo else 1
 
 
-def _tiles(Sq, Sk, causal, window) -> list:
-    return [k_tiles(r * ROWS, Sq, Sk, causal, window)
+def _tiles(Sq, Sk, causal, window, q_offset=0) -> list:
+    return [k_tiles(r * ROWS, Sq, Sk, causal, window, q_offset)
             for r in range(-(-Sq // ROWS))]
 
 
@@ -141,17 +148,18 @@ def _pow2(n: int) -> int:
 
 
 @functools.lru_cache(maxsize=512)
-def _chunk(B, H, Sq, Sk, causal, window, sms) -> int:
+def _chunk(B, H, Sq, Sk, causal, window, sms, q_offset=0) -> int:
     """Of the chunks max_n / k (k = 1 .. 16), the one whose blocks, dealt
     to `sms` SMs in launch order one at a time (each costing its k-tiles
     plus one for its q-tile's load and epilogue; a split adding one for
     the merge), finish first."""
-    top = max(hi - lo for lo, hi in _tiles(Sq, Sk, causal, window))
+    top = max(hi - lo for lo, hi in _tiles(Sq, Sk, causal, window,
+                                           q_offset))
 
     def finish(chunk) -> int:
         free = [0] * sms
         blocks = schedule(B, H, Sq, Sk, causal=causal, window=window,
-                          chunk=chunk)
+                          chunk=chunk, q_offset=q_offset)
         for *_, t0, t1 in blocks:
             heapq.heappush(free, heapq.heappop(free) + 1 + t1 - t0)
         return max(free) + any(b[3] > 1 for b in blocks)
@@ -170,7 +178,8 @@ def _segment(lo, hi, chunk, s, ns) -> tuple[int, int]:
     return max(seg, lo), min(seg + chunk, hi)
 
 
-def plan(B, H, Sq, Sk, *, causal, window, sms) -> tuple[int, int]:
+def plan(B, H, Sq, Sk, *, causal, window, sms,
+         q_offset=0) -> tuple[int, int]:
     """(chunk, max_split) of a TMA-path launch. A q-tile whose live
     k-tiles meet several segments [j chunk, (j + 1) chunk) of the key
     axis takes a block per segment, and the merge combines them;
@@ -179,19 +188,22 @@ def plan(B, H, Sq, Sk, *, causal, window, sms) -> tuple[int, int]:
     (`_chunk` of Sq and Sk rounded up to powers of two), so a prompt and
     the same prompt padded to its bucket split every row's keys alike
     and get bit-equal rows: at short prompts the blocks fill the SMs, at
-    long ones nothing is split."""
+    long ones nothing is split. A `q_offset` call plans for its own
+    offset (a late shard's rows reach far more keys than the first's)."""
     chunk = _chunk(B, H, _pow2(Sq), _pow2(Sk), bool(causal), int(window),
-                   sms)
+                   sms, int(q_offset))
     return chunk, max(n_splits(lo, hi, chunk)
-                      for lo, hi in _tiles(Sq, Sk, causal, window))
+                      for lo, hi in _tiles(Sq, Sk, causal, window,
+                                           q_offset))
 
 
-def schedule(B, H, Sq, Sk, *, causal, window, chunk) -> list[tuple]:
+def schedule(B, H, Sq, Sk, *, causal, window, chunk,
+             q_offset=0) -> list[tuple]:
     """The blocks of a TMA-path launch in launch order, as the kernel
     decodes `blockIdx.x`: (q-tile, b*H + h, split, splits, first k-tile,
     end k-tile), q-tiles longest (last) first."""
     blocks = []
-    tiles = _tiles(Sq, Sk, causal, window)
+    tiles = _tiles(Sq, Sk, causal, window, q_offset)
     for r in reversed(range(len(tiles))):
         lo, hi = tiles[r]
         ns = n_splits(lo, hi, chunk)
@@ -236,7 +248,7 @@ class Call:
 
 
 def prepare(q, k, v, *, causal=True, window=0, sm_scale=None, cap=0.0,
-            entry=None) -> Call:
+            q_offset=0, entry=None) -> Call:
     """The output and the arguments of the one C call `attention` makes
     for CUDA operands (validated by `_check` first); `entry` names
     another bf16 entry than `route`'s (`chip_smoke.py` times the generic
@@ -250,6 +262,8 @@ def prepare(q, k, v, *, causal=True, window=0, sm_scale=None, cap=0.0,
                          f"{MAX_HEAD_DIM}")
     if B * H > 65535 or max(Sq, Sk) >= 2 ** 31:
         raise ValueError(f"B*H={B * H} or S={max(Sq, Sk)} out of range")
+    if q_offset < 0 or q_offset + Sq >= 2 ** 31:
+        raise ValueError(f"q_offset {q_offset} out of range")
     out = torch.empty((B, Sq, H, Dv), dtype=q.dtype,
                       device=q.device).transpose(1, 2)
     strides = np.asarray([*_strides(q), *_strides(k), *_strides(v),
@@ -259,7 +273,7 @@ def prepare(q, k, v, *, causal=True, window=0, sm_scale=None, cap=0.0,
     head = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             strides.ctypes.data)
     shape = (B, H, KVH, Sq, Sk, Dk, Dv, float(sm_scale), float(cap or 0.0),
-             int(bool(causal)), int(window or 0))
+             int(bool(causal)), int(window or 0), int(q_offset))
     stream = _build.stream_ptr(q.device)
     scratch = None
     if entry == "flash_attention_generic":
@@ -269,7 +283,8 @@ def prepare(q, k, v, *, causal=True, window=0, sm_scale=None, cap=0.0,
         if q.dtype == torch.bfloat16 and Sq:
             chunk, max_split = plan(B, H, Sq, Sk, causal=bool(causal),
                                     window=int(window or 0),
-                                    sms=sm_count(q.device))
+                                    sms=sm_count(q.device),
+                                    q_offset=int(q_offset))
             if max_split > 1:
                 rows = B * H * -(-Sq // ROWS) * ROWS
                 scratch = torch.empty(max_split * rows * (Dv + 2),
@@ -279,13 +294,16 @@ def prepare(q, k, v, *, causal=True, window=0, sm_scale=None, cap=0.0,
     return Call(lib, entry, args, out, (strides, scratch))
 
 
-def shape_key(B: int, Sq: int, Sk: int, causal: bool) -> str:
+def shape_key(B: int, Sq: int, Sk: int, causal: bool,
+              q_offset: int = 0) -> str:
     """A call's key in `_build.BY_SHAPE`: "BxSq" for a causal call with
-    as many keys as queries, "BxSqxSk" for another key count, and "/nc"
+    as many keys as queries, "BxSqxSk" for another key count, "/nc"
     after either for a call with no causal mask (an encoder, a
-    cross-attention)."""
+    cross-attention), and "@<q_offset>" last for a call whose queries
+    start at a non-zero position (a context-parallel shard)."""
     key = f"{B}x{Sq}" if Sk == Sq else f"{B}x{Sq}x{Sk}"
-    return key if causal else key + "/nc"
+    key = key if causal else key + "/nc"
+    return f"{key}@{q_offset}" if q_offset else key
 
 
 def _forward(q, k, v, kw):
@@ -297,7 +315,7 @@ def _forward(q, k, v, kw):
         return call.out
     call.run()
     _build.count(call.entry, shape_key(q.shape[0], q.shape[2], k.shape[2],
-                                       kw["causal"]))
+                                       kw["causal"], kw["q_offset"]))
     return call.out
 
 
@@ -327,17 +345,22 @@ class _Attention(torch.autograd.Function):
                 None)
 
 
-def attention(q, k, v, *, causal=True, window=0, sm_scale=None, cap=0.0):
+def attention(q, k, v, *, causal=True, window=0, sm_scale=None, cap=0.0,
+              q_offset=0):
     """q: (B,H,Sq,Dk); k: (B,KVH,Sk,Dk); v: (B,KVH,Sk,Dv) -> (B,H,Sq,Dv)
     in q's dtype (float32 or bfloat16), query head h reading kv head
-    h // (H // KVH). The default `sm_scale` is 1/sqrt(Dk). Where grad
+    h // (H // KVH), query row r at position q_offset + r for the masks.
+    The default `sm_scale` is 1/sqrt(Dk). Where grad
     mode is on and an operand requires grad, the result carries a
     `grad_fn` (`_Attention`) on either device; otherwise the call makes
     no autograd record."""
     _check(q, k, v)
+    if q_offset < 0:
+        raise ValueError(f"q_offset {q_offset} is negative")
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
-    kw = dict(causal=causal, window=window, sm_scale=sm_scale, cap=cap)
+    kw = dict(causal=causal, window=window, sm_scale=sm_scale, cap=cap,
+              q_offset=int(q_offset))
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return _Attention.apply(q, k, v, kw)

@@ -14,8 +14,11 @@ import torch
 NEG = -1e30
 
 
-def reference(q, k, v, *, causal=True, window=0, sm_scale=None, cap=0.0):
-    """q: (B,H,Sq,D); k/v: (B,KVH,Sk,D*) -> (B,H,Sq,Dv) in q's dtype."""
+def reference(q, k, v, *, causal=True, window=0, sm_scale=None, cap=0.0,
+              q_offset=0):
+    """q: (B,H,Sq,D); k/v: (B,KVH,Sk,D*) -> (B,H,Sq,Dv) in q's dtype;
+    query row r at position q_offset + r for the masks (keys at 0 ..
+    Sk - 1), as the reference's `chunked_attention(q_offset=)`."""
     B, H, Sq, D = q.shape
     KVH, Sk = k.shape[1], k.shape[2]
     G = H // KVH
@@ -26,7 +29,7 @@ def reference(q, k, v, *, causal=True, window=0, sm_scale=None, cap=0.0):
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kr.float()) * sm_scale
     if cap:
         s = cap * torch.tanh(s / cap)
-    qpos = torch.arange(Sq, device=q.device)[:, None]
+    qpos = q_offset + torch.arange(Sq, device=q.device)[:, None]
     kpos = torch.arange(Sk, device=q.device)[None, :]
     mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
     if causal:

@@ -1,1 +1,1 @@
-# Launch helpers of the torch port: the fabric device grid, the serving and training CLIs.
+# Launch helpers of the torch port: meshes, the serving and training CLIs.

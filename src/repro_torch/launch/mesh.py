@@ -1,18 +1,82 @@
-"""The verbs fabric's device grid.
+"""Meshes: the production meshes, any named mesh, and the verbs fabric's
+device grid. Functions, never module-level constants, so importing this
+module touches no device or process-group state.
 
-`make_fabric_mesh(pods, devices_per_pod)` is the counterpart of the
-reference's `repro.launch.mesh.make_fabric_mesh` over
-``jax.devices()``: a ``(pods, devices_per_pod)`` grid of CUDA
-`torch.device`s when the machine has exactly that many cards, else
-``None`` — the logical-routing rig (one card, or the CPU), where fabric
-addressing is identical and only the device hop differs. A function,
-never a module-level constant, so importing this module touches no
-device state. `make_mesh` and `make_production_mesh` come with the
-parallelism slice (ROADMAP).
+`make_mesh(shape, axes)` and `make_production_mesh(*, multi_pod)` are
+the counterparts of the reference's `repro.launch.mesh.make_mesh` and
+`make_production_mesh` over `torch.distributed.device_mesh.
+init_device_mesh` with `mesh_dim_names`: a `DeviceMesh` of prod(shape)
+ranks, one a process. Nothing tells a program of its cluster, so the
+caller initialises the default process group first (its address, world
+size and rank; the gloo backend on the CPU, NCCL on cards) and the
+mesh's device type is the package default's (`repro_torch.device`).
+`abstract_mesh(shape, axes)` is the same axes and sizes with no ranks
+behind them (the reference's `jax.sharding.AbstractMesh`): what the
+sharding rules resolve against where no collective runs.
+
+`make_fabric_mesh(pods, devices_per_pod)` is the counterpart of
+`make_fabric_mesh` over ``jax.devices()``: a ``(pods,
+devices_per_pod)`` grid of CUDA `torch.device`s when the machine has
+exactly that many cards, else ``None`` — the logical-routing rig (one
+card, or the CPU), where fabric addressing is identical and only the
+device hop differs.
 """
 from __future__ import annotations
 
+import math
+from collections import OrderedDict
+from dataclasses import dataclass
+
 import torch
+
+from repro_torch import device as tdevice
+
+
+@dataclass(frozen=True)
+class AbstractMesh:
+    """Mesh axes and sizes without ranks: `axis_names` and `shape`
+    (name -> size), as a `jax.sharding.AbstractMesh` reads."""
+    sizes: tuple
+    axis_names: tuple
+
+    @property
+    def shape(self) -> OrderedDict:
+        return OrderedDict(zip(self.axis_names, self.sizes))
+
+
+def abstract_mesh(shape: tuple, axes: tuple) -> AbstractMesh:
+    if len(shape) != len(axes):
+        raise ValueError(f"mesh shape {shape} and axes {axes} differ in rank")
+    return AbstractMesh(tuple(int(n) for n in shape), tuple(axes))
+
+
+def make_mesh(shape: tuple, axes: tuple, *, device_type: str | None = None):
+    """A `DeviceMesh` of `shape` named `axes` over the default process
+    group, which must hold prod(shape) ranks."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    n = math.prod(shape)
+    if not dist.is_initialized() or dist.get_world_size() != n:
+        raise RuntimeError(
+            f"a mesh of {tuple(shape)} needs the default process group "
+            f"initialised with {n} ranks (init_process_group with an "
+            "address, world size and rank)")
+    return init_device_mesh(device_type or tdevice.device_type(),
+                            tuple(shape), mesh_dim_names=tuple(axes))
+
+
+def production_shape(*, multi_pod: bool = False) -> tuple:
+    """(shape, axes) of the production mesh: (16, 16) over (data,
+    model), or (2, 16, 16) over (pod, data, model)."""
+    if multi_pod:
+        return (2, 16, 16), ("pod", "data", "model")
+    return (16, 16), ("data", "model")
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device_type: str | None = None):
+    return make_mesh(*production_shape(multi_pod=multi_pod),
+                     device_type=device_type)
 
 
 def make_fabric_mesh(pods: int, devices_per_pod: int = 1):

@@ -65,19 +65,16 @@ def chunked_attention(q, k, v, *, causal=True, window=0, cap=0.0,
     """Online-softmax attention through the flash kernel.
 
     q: (B,Sq,KVH,G,Dk); k/v: (B,Sk,KVH,D*) -> (B,Sq,KVH,G,Dv) in q's
-    dtype. A non-zero `q_offset` (context parallelism's shard offset)
-    raises: it comes with the parallelism slice."""
+    dtype. `q_offset` (context parallelism's shard offset) places query
+    row r at position q_offset + r for the causal and window masks; the
+    kernel takes it as it is."""
     del q_chunk, kv_chunk, block_skip      # the kernel's tiles are fixed
-    if q_offset:
-        raise NotImplementedError(
-            "a non-zero q_offset (context-parallel attention) comes with "
-            "the parallelism slice (ROADMAP slice 8)")
     B, Sq, KVH, G, Dk = q.shape
     H = KVH * G
     qh = q.reshape(B, Sq, H, Dk).transpose(1, 2)   # (B,H,Sq,Dk), a view
     out = fa_ops.attention(qh, k.transpose(1, 2), v.transpose(1, 2),
                            causal=causal, window=window, cap=cap,
-                           sm_scale=sm_scale)       # (B,H,Sq,Dv)
+                           sm_scale=sm_scale, q_offset=q_offset)
     return out.transpose(1, 2).reshape(B, Sq, KVH, G, out.shape[-1])
 
 

@@ -1,1 +1,1 @@
-# Single-process attention strategies of the torch port (the M == 1 branches).
+# Attention strategies and partial-softmax merging, the mesh rules, the int8 reduction.

@@ -41,7 +41,11 @@ from repro_torch.device import resolve
 
 def _to_numpy(leaf) -> np.ndarray:
     if isinstance(leaf, torch.Tensor):
+        # .cpu() copies a card tensor; a CPU tensor is copied here, so
+        # the writer never reads what later in-place updates make of it
         t = leaf.detach().cpu()
+        if leaf.device.type == "cpu":
+            t = t.clone()
         if t.dtype == torch.bfloat16:
             return t.view(torch.int16).numpy().view("V2")
         return t.numpy()

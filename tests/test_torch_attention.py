@@ -202,11 +202,26 @@ def test_chunked_attention_matches_reference(S, KVH, G, D, kw, dtype):
     assert torch.equal(got, tcoll.attend(tq, tk, tv, **kw))
 
 
+def test_chunked_attention_q_offset_matches_reference():
+    """A query offset (context parallelism's shard offset) is taken as
+    the reference takes it, query row r at q_offset + r for the masks."""
+    rng = np.random.default_rng(4)
+    (jq, tq) = _pair(rng, (1, 4, 1, 2, 8), "float32")
+    (jk, tk), (jv, tv) = (_pair(rng, (1, 12, 1, 8), "float32")
+                          for _ in range(2))
+    for kw in (dict(causal=True), dict(causal=True, window=5)):
+        want = jattn.chunked_attention(jq, jk, jv, q_offset=8, **kw)
+        got = tattn.chunked_attention(tq, tk, tv, q_offset=8, **kw)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   atol=2e-5, rtol=2e-5)
+
+
 def test_chunked_attention_q_offset_raises():
+    """A negative query offset raises."""
     t = torch.zeros((1, 4, 1, 2, 8))
-    k = torch.zeros((1, 4, 1, 8))
-    with pytest.raises(NotImplementedError, match="parallelism"):
-        tattn.chunked_attention(t, k, k, q_offset=4)
+    k = torch.zeros((1, 12, 1, 8))
+    with pytest.raises(ValueError, match="q_offset"):
+        tattn.chunked_attention(t, k, k, q_offset=-4)
 
 
 @pytest.mark.parametrize("pos_kind", ["scalar", "per_request"])

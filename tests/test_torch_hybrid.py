@@ -702,10 +702,11 @@ def test_chip_smoke_phase10_at_cpu_size(arch):
 
 def test_phase2_holds_every_phase10_page():
     """Phase 2 holds and times the page kernels at each page that phase
-    10's round trips move at full width: granite's K/V pages and
-    deepseek's latent pages (18,432 B, not a whole number of the copy
-    loop's 512 x 16-byte passes), in pools of pd_seq / page pages; the
-    hybrid and the SSM page none."""
+    10's round trips move at full width: granite's K/V pages, the dense
+    decoders' (codeqwen's 32 kv heads of 128, phi4-mini's 8 of 128,
+    stablelm's 8 of 160) and deepseek's latent pages (18,432 B, not a
+    whole number of the copy loop's 512 x 16-byte passes), in pools of
+    pd_seq / page pages; the hybrid and the SSM page none."""
     sys.path.insert(0, str(ROOT))
     import chip_smoke
 
@@ -714,6 +715,9 @@ def test_phase2_holds_every_phase10_page():
     assert chip_smoke.family_page_shapes(F) == {
         "granite-moe-1b-a400m": [(n, (16, 8, 64), "bfloat16")],
         "recurrentgemma-2b": [], "mamba2-780m": [],
+        "codeqwen1.5-7b": [(n, (16, 32, 128), "bfloat16")],
+        "phi4-mini-3.8b": [(n, (16, 8, 128), "bfloat16")],
+        "stablelm-12b": [(n, (16, 8, 160), "bfloat16")],
         "deepseek-v3-671b": [(n, (16, 1, 576), "bfloat16")]}
     assert (16 * 576 * 2) % (512 * 16) != 0
     assert chip_smoke.page_key(n, (16, 1, 576), "bfloat16") == \

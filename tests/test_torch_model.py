@@ -2,7 +2,9 @@
 
 `reduced(gemma-2b)` in float32 (3 layers, d_model 64, 4 query heads on
 1 kv head, head_dim 16, GeGLU, tied embeddings, zero-centred RMSNorm,
-scaled embeddings): the parameter specs, the layers, and the decoder's
+scaled embeddings) and the other dense configs reduced the same way —
+codeqwen1.5-7b (qkv bias), phi4-mini-3.8b (tied table), stablelm-12b —
+each on 2 kv heads: the parameter specs, the layers, and each decoder's
 `forward`, `prefill(last_pos)` and `decode_step` on the reference's own
 parameters carried over by `convert.params_from_numpy`.
 
@@ -17,6 +19,8 @@ whole model at 1e-3 of that scale: the random network amplifies the
 per-block difference about tenfold a layer. Both are looser than the
 1e-5 first asked of the model; greedy tokens are held exactly."""
 import dataclasses
+import sys
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -52,11 +56,18 @@ def _cpu():
     tdevice.set_default(prev)
 
 
-@pytest.fixture(scope="module")
-def both():
-    jm = jbuild(jreduced(jget_config("gemma-2b")))
+# the dense decoders: gemma-2b, and the three configs whose features no
+# other family takes through a test — codeqwen's qkv bias, phi4-mini's
+# tied table, stablelm's untied one (its head_dim of 160 is a full-width
+# shape, held on the card)
+DENSE = ("gemma-2b", "codeqwen1.5-7b", "phi4-mini-3.8b", "stablelm-12b")
+
+
+@pytest.fixture(scope="module", params=DENSE)
+def both(request):
+    jm = jbuild(jreduced(jget_config(request.param)))
     jp = jm.init(jax.random.PRNGKey(0))
-    tm = build_model(reduced(get_config("gemma-2b")))
+    tm = build_model(reduced(get_config(request.param)))
     tp = params_from_numpy(jax.tree.map(np.asarray, jp), "cpu", model=tm)
     return jm, jp, tm, tp
 
@@ -392,3 +403,35 @@ def test_bf16_decoder_carries_one_ulp_to_the_logits():
     print(f"one ulp on one embedding entry moves the logits by {d:.4g} "
           f"against a largest |logit| of {top:.4g}")
     assert d > 0.25 * top
+
+
+@pytest.mark.parametrize("arch", DENSE[1:])
+def test_chip_smoke_phase10_at_cpu_size_dense(arch):
+    """`chip_smoke.py`'s phase 10 for the dense decoders at a toy size on
+    the CPU with the reference's parameters: the paged, bucketed engine
+    on six prompts (prefills at their power-of-two buckets), every
+    step's logits held against the unpadded reference, tokens agreeing;
+    PDServer against the dense greedy decode; the flash shapes phase 2
+    holds for it are the buckets and the PDServer batch."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    import chip_smoke
+
+    jm = jbuild(jreduced(jget_config(arch)))
+    tm = build_model(reduced(get_config(arch)))
+    tp = params_from_numpy(jax.tree.map(np.asarray, jm.init(
+        jax.random.PRNGKey(2))), "cpu", model=tm)
+    F = chip_smoke.FamilySizes(archs=(arch,), reduce=True, max_batch=4,
+                               max_seq=64, page=8,
+                               prompts=(5, 9, 17, 30, 40, 50), new=5,
+                               pd_batch=2, pd_prompt=10, pd_steps=3,
+                               pd_seq=48, reps=1, seed=0)
+    out = chip_smoke.phase_family(torch, np, torch.device("cpu"), F, arch,
+                                  np.random.default_rng(0),
+                                  chip_smoke._Clock(), params=tp)
+    assert out["launches"] == {} and out["peak_gib"] is None
+    assert out["token_agreement"] == 1.0
+    assert out["logit_rel_err"] <= chip_smoke.LOGIT_TOL["float32"]
+    assert np.asarray(out["pd_tokens"]).shape == (2, 4)
+    layout = chip_smoke.flash_layout(tm.cfg)
+    assert chip_smoke.family_flash_shapes(F)[arch] == \
+        [layout + (1, n) for n in (8, 16, 32, 64)] + [layout + (2, 10)]

@@ -62,7 +62,8 @@ def test_the_scan_covers_every_subpackage():
                 "kernels/desc_ring/ops", "kernels/desc_ring/ref",
                 "models/encdec", "train/data", "train/optimizer",
                 "train/train_loop", "train/checkpoint", "train/fault",
-                "launch/train"):
+                "launch/train", "launch/mesh", "parallel/sharding",
+                "parallel/compress"):
         assert f"src/repro_torch/{mod}.py" in names, mod
     for probe in ("row_ring", "desc_ring", "latency"):
         assert f"tools/{probe}/probe.py" in names, probe
@@ -89,6 +90,8 @@ def test_import_needs_no_card_no_triton_and_pulls_in_no_jax():
             "import repro_torch.train.data, repro_torch.train.optimizer\n"
             "import repro_torch.train.train_loop\n"
             "import repro_torch.train.checkpoint, repro_torch.train.fault\n"
+            "import repro_torch.parallel.sharding\n"
+            "import repro_torch.parallel.compress\n"
             "from repro_torch.configs.base import get_config\n"
             "get_config('gemma-2b')\n"
             "assert not torch.cuda.is_available()\n"
