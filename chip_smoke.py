@@ -3,7 +3,8 @@
 serving path, the T3 notification pipe, the disaggregated serving
 cluster, Solar block storage, the MoE, hybrid, SSM, MLA and dense model
 families, training (with the encoder-decoder and the vision frontend)
-and context parallelism's per-rank work on one CUDA card, and hold
+and the per-rank work of context, sequence and expert parallelism on
+one CUDA card, and hold
 every kernel of those paths against its plain PyTorch version.
 
     python3 chip_smoke.py              # from the root of a checkout
@@ -19,8 +20,9 @@ test_chip_smoke_phase6_at_cpu_size_matches_reference_engine` and
 `tests/test_torch_{ring_pipe,cluster,storage}.py` (phases 7, 8, 9) and
 `tests/test_torch_{hybrid,ssm,mla}.py::test_chip_smoke_phase10_at_cpu_size`,
 `tests/test_torch_model.py::test_chip_smoke_phase10_at_cpu_size_dense`,
-`tests/test_torch_train.py::test_chip_smoke_phase11_at_cpu_size` and
-`tests/test_torch_context_parallel.py::test_chip_smoke_phase12_at_cpu_size`.
+`tests/test_torch_train.py::test_chip_smoke_phase11_at_cpu_size`,
+`tests/test_torch_context_parallel.py::test_chip_smoke_phase12_at_cpu_size`
+and `tests/test_torch_seq_parallel.py::test_chip_smoke_phase13_at_cpu_size`.
 
 Phases (any failure exits non-zero):
   1. the card (nvidia-smi name and power limit) and the kernel build;
@@ -162,14 +164,37 @@ Phases (any failure exits non-zero):
      land in context parallelism on the production mesh's model axis of
      16, a 1 x 4096 prompt cut into 16 query shards of 256: each rank's
      flash call against the whole K/V at q_offset = 256 r
-     (`collectives._cp_rank`, what `_context_parallel_attention` runs
-     on rank r), held against the plain version at the offset, counted
+     (`collectives._cp_block` on the rank's query rows, what
+     `_context_parallel_attention`'s body runs on rank r), held against the plain version at the offset, counted
      under its own "@<offset>" shape key, timed beside SDPA at the
      shard's shape; the shards' concatenation against the unsharded
      call; then the sharded decode (16 shards of a decode_32k cache row
-     of gemma-2b: each rank's `collectives._decode_shard`, merged by
-     `collectives._merge` as `merge_partials` merges them) against the
-     whole-cache decode.
+     of gemma-2b: each rank's `collectives._decode_shard` on its block
+     of the cache, the new entry written at p - s0, merged by
+     `collectives._merge` as `merge_partials` merges them; what
+     `_sharded_decode`'s body runs on rank r) against the whole-cache
+     decode, the blocks' writes against the whole update;
+ 13. sequence and expert parallelism, one rank after another, on the
+     production mesh's model axis of 16 (1 x 4096 tokens, bf16, seeded
+     weights at the conditioned scale): granite-moe-1b-a400m's
+     `attn_apply_sp` and MoE layer through `_moe_a2a` and
+     `_moe_replicated` (32 experts, 2 a rank); deepseek-v3's
+     `mla_forward_sp` (8 heads a rank, flash at Dk 192 / Dv 128), its
+     MoE through `_moe_a2a` (256 experts, 16 a rank, 22.5 GB of bf16
+     weights), its shared expert (weight-gathered) and its first dense
+     FFN (d_ff 18432, Megatron-SP); stablelm-12b's `attn_apply_sp`,
+     head-TP prefill attention (KV repeated) and dense FFN; codeqwen's
+     grouped head-TP prefill attention and the "heads" decode layout
+     over 2 kv heads a rank of a 32,768-row cache row. Each rank's
+     pieces between the collectives (the code the sharded branches run)
+     are timed on the card's clock, the collectives done as stacked
+     tensor ops; the unsharded block is timed beside the ranks' sum;
+     the same pieces in float32 (the MoE at a capacity factor of 8,
+     which drops nothing) held against the unsharded block within
+     SP_HOLD of its scale; the MoE's drop share at the config's own
+     factor and each rank's `_experts_ffn` beside its bound; every
+     per-rank flash shape held and timed beside SDPA and its bound,
+     counted on the path "sp".
 Phase 2 also holds flash_attention (its TMA/wgmma entry) and
 flash_attention_generic (its mma.sync entry) against their plain version
 at every prefill shape the main paths launch, FLASH_SHAPES: phases 6
@@ -3365,7 +3390,7 @@ def _cp_cfg(arch, C):
 
 def phase_cp(torch, np, dev, C, rng, T) -> dict:
     """Phase 12: what each rank of a `model` axis of C.model computes in
-    `collectives._context_parallel_attention` (`collectives._cp_rank`),
+    `collectives._context_parallel_attention` (`collectives._cp_block`),
     one rank after another in one process (one card runs no collective): for
     each arch of C.archs at full width, a seeded C.batch x C.seq prompt's
     queries, keys and values in the model's layout, and for every rank
@@ -3417,7 +3442,8 @@ def phase_cp(torch, np, dev, C, rng, T) -> dict:
         whole = chunked_attention(q, k, v, **kw)       # not counted
         shards, shapes = [], {}
         count_launches(_build, launches, lambda: [shards.append(
-            collectives._cp_rank(q, k, v, r, M, **kw)) for r in range(M)],
+            collectives._cp_block(q[:, r * n:(r + 1) * n], k, v, r * n, **kw))
+            for r in range(M)],
             shapes)
         layout = (H, KVH, D, W)
         flash_by_shape.update({flash_key(layout, sk): c for sk, c in
@@ -3524,13 +3550,16 @@ def _cp_shard_times(torch, F, fa_ops, fa_ref, T, qs, kh, vh, off, W, dev):
 def _cp_decode(torch, dev, C, gen, dt, collectives, decode_partials,
                finalize_partials, T) -> dict:
     """The sharded decode over C.model shards of one decode_32k cache
-    row, one rank after another: each rank's partials over its rows of
-    the updated cache (`collectives._decode_shard`), merged by the
-    port's merge (`collectives._merge`, its max and sums over the
-    stacked shards where `merge_partials` all-reduces them), against
-    the whole-cache decode: float32 within 1e-5 of its scale, and the
-    output in the caches' dtype within one of its ulps of the entry's
-    (`seqparallel_decode_attention` with no mesh)."""
+    row, one rank after another, as `_sharded_decode`'s body runs it:
+    each rank's `collectives._decode_shard` on its block of the cache
+    (the new entry written at p - s0 where it falls in the block, then
+    the partials over the block), merged by the port's merge
+    (`collectives._merge`, its max and sums over the stacked shards
+    where `merge_partials` all-reduces them). The blocks' writes,
+    concatenated, equal the whole-cache update; the merged output is
+    held against the whole-cache decode: float32 within 1e-5 of its
+    scale, and in the caches' dtype within one of its ulps of the
+    entry's (`seqparallel_decode_attention` with no mesh)."""
     cfg = _cp_cfg(C.decode_arch, C)
     KVH, G, D = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, \
         cfg.resolved_head_dim
@@ -3551,13 +3580,23 @@ def _cp_decode(torch, dev, C, gen, dt, collectives, decode_partials,
     def stacked(t, op):
         return t.amax(0) if op == "max" else t.sum(0)
 
+    n = S // M
+    blocks = []
+
     def sharded():
-        acc, m, l = (torch.stack(x) for x in zip(*(
-            collectives._decode_shard(q, k2, v2, pos, r, M)
-            for r in range(M))))
+        shards = [collectives._decode_shard(
+            q, kc[:, r * n:(r + 1) * n], vc[:, r * n:(r + 1) * n], kn, vn,
+            pos, r * n, cap=0.0, sm_scale=None, v_dims=None)
+            for r in range(M)]
+        blocks[:] = [s[3:] for s in shards]
+        acc, m, l = (torch.stack(x) for x in zip(*(s[:3] for s in shards)))
         return finalize_partials(*collectives._merge(acc, m, l, stacked))
     w_out, s_out = whole(), sharded()
     T.sync()
+    check(torch.equal(torch.cat([b[0] for b in blocks], 1), k2)
+          and torch.equal(torch.cat([b[1] for b in blocks], 1), v2),
+          "phase 12: the shards' writes at p - s0 differ from the whole "
+          "cache's update")
     scale = float(w_out.abs().max())
     err = float((s_out - w_out).abs().max())
     check(err <= 1e-5 * scale, f"phase 12: the merged decode differs from "
@@ -3589,6 +3628,511 @@ def _cp_decode(torch, dev, C, gen, dt, collectives, decode_partials,
         f"{out['whole_ms']:.3f} ms, {M} shards and the merge "
         f"{out['sharded_ms']:.3f} ms (host clock, one process)")
     return out
+
+
+# -- phase 13, sequence and expert parallelism ------------------------------------
+@dataclass(frozen=True)
+class SpSizes:
+    archs: tuple        # the configs whose bodies run (SP_BODIES' keys)
+    reduce: bool        # reduced() widths (the CPU test), else full width
+    seq: int            # tokens of the one prompt (batch 1)
+    model: int          # the mesh's model axis: the ranks run in turn
+    decode_seq: int     # the heads-layout decode's cache row length
+    decode_pos: int     # where its new entry lands; attended [0, pos]
+    hold_cf: float      # the MoE hold's capacity factor (drops nothing)
+
+
+# each config's bodies, run one rank at a time on the production mesh's
+# model axis of 16 (fsdp=False, 1 x 4096 tokens)
+SP_BODIES = {
+    "granite-moe-1b-a400m": ("attn_sp", "moe_a2a", "moe_replicated"),
+    "deepseek-v3-671b": ("mla_sp", "moe_a2a", "ffn_shared", "ffn_dense"),
+    "stablelm-12b": ("attn_sp", "attend_tp", "ffn_dense"),
+    "codeqwen1.5-7b": ("attend_tp", "decode_heads"),
+}
+SP = SpSizes(archs=tuple(SP_BODIES), reduce=False, seq=4096, model=16,
+             decode_seq=KV.seq, decode_pos=KV.prefill, hold_cf=8.0)
+# a body's assembled float32 output against the unsharded block's, as a
+# fraction of the latter's largest |value| (set before the first card
+# run, as PERF.md records): the same function summed in another order,
+# and flash split by other plans for other head counts, differ by ~1e-6
+SP_HOLD = 1e-4
+# timed runs of each body after a warm-up: a rank's ms is their median
+SP_RUNS = 3
+
+
+class _AsF32:
+    """Expert weights (E, ., .) read one expert at a time in float32:
+    `moe._moe_local`'s `ex[name][e]`, with no float32 copy of all E."""
+
+    def __init__(self, t):
+        self.t = t
+
+    def __getitem__(self, e):
+        return self.t[e].float()
+
+
+def _sp_weights(torch, specs, dev, gen, dt):
+    """Seeded tensors for a spec tree, each drawn at 1/sqrt(the dim its
+    product contracts) — the conditioned scale: no softmax saturates —
+    in `dt` (a leaf whose spec names a dtype keeps it); norms at one,
+    zero-init leaves at zero."""
+    from repro_torch.models.module import tree_map_specs, torch_dtype
+
+    def draw(s):
+        d = torch_dtype(s.dtype) if s.dtype else dt
+        if s.init in ("zeros", "ones"):
+            return torch.full(s.shape, float(s.init == "ones"), dtype=d,
+                              device=dev)
+        fan = {"expert": s.shape[1] if len(s.shape) == 3 else 1,
+               "heads": s.shape[0] * s.shape[1]}.get(s.axes[0], s.shape[0])
+        return (torch.randn(s.shape, generator=gen, device=dev,
+                            dtype=torch.float32) / math.sqrt(fan)).to(d)
+    return tree_map_specs(draw, specs)
+
+
+def _sp_exchange(torch, how, M):
+    """The collective between two per-rank stages, on the list of the M
+    ranks' outputs, as stacked tensor ops: the inputs of the next stage
+    (or the ranks' final blocks)."""
+    kind = how[0]
+    if kind == "none":
+        return lambda outs: outs
+    if kind == "gather":            # all_gather(tiled) on dim how[1]
+        return lambda outs: [torch.cat(outs, how[1])] * M
+    if kind == "scatter":           # psum_scatter(tiled) on dim how[1]
+        return lambda outs: list(sum(outs).chunk(M, how[1]))
+    if kind == "psum":
+        return lambda outs: [sum(outs)] * M
+    if kind == "a2a":               # all_to_all(split how[1], concat how[2])
+        return lambda outs: [torch.cat([o.chunk(M, how[1])[r] for o in outs],
+                                       how[2]) for r in range(M)]
+    raise ValueError(how)
+
+
+def _sp_rank_ms(T, fn) -> float:
+    """`fn`'s device ms between two CUDA events (0 on the CPU)."""
+    spans = []
+    T.span(fn, spans)
+    return T.spans_ms(spans)
+
+
+def _sp_run(torch, T, M, stages, timed: bool):
+    """Run a body's stages rank by rank: each stage's fn(r, input_r) on
+    every rank, then its exchange. Returns (the ranks' final blocks,
+    each rank's device ms by stage)."""
+    inputs, ms = [None] * M, [[] for _ in range(M)]
+    for fn, how in stages:
+        outs = []
+        for r in range(M):
+            if timed:
+                spans = []
+                outs.append(T.span(lambda r=r: fn(r, inputs[r]), spans))
+                ms[r].append(T.spans_ms(spans))
+            else:
+                outs.append(fn(r, inputs[r]))
+        inputs = _sp_exchange(torch, how, M)(outs)
+    return inputs, ms
+
+
+def _sp_body(torch, cfg, body, Z, p, dt, x, aux):
+    """One body at dtype `dt`: (stages, assemble, whole, per-rank flash
+    layout or None, extra). `p` holds the body's weights (any dtype:
+    cast here), `x` the (1, S, D) hidden states, `aux` what the body
+    shares between its runs (positions, routing, the decode's tensors)."""
+    from repro_torch.models import ffn, mla, moe, transformer as tr
+    from repro_torch.models.attention import chunked_attention
+    from repro_torch.parallel import collectives
+    M, S = Z.model, x.shape[1]
+    n = S // M
+    x = x.to(dt)
+    pos = aux["pos"]
+    cast = (lambda t: t.to(dt))
+    if body == "attn_sp":
+        H, KVH = cfg.n_heads, cfg.n_kv_heads
+        H_loc, G = H // M, H // KVH
+        kv_sharded = KVH % M == 0
+        w = {k: cast(v["w"]) for k, v in p["attn"].items()}
+
+        def rank(r, _):
+            h = slice(r * H_loc, (r + 1) * H_loc)
+            kv = slice(r * KVH // M, (r + 1) * KVH // M) if kv_sharded \
+                else slice(None)
+            return tr.attn_sp_rank(x, pos, w["wq"][:, h], w["wk"][:, kv],
+                                   w["wv"][:, kv], w["wo"][h], r, cfg,
+                                   kv_sharded)
+        kvh = KVH // M if kv_sharded else max(1, H_loc // G)
+        attn = {k: {"w": v} for k, v in w.items()}
+        return ([(rank, ("scatter", 1))], lambda b: torch.cat(b, 1),
+                lambda: tr.attn_apply(attn, x, pos, cfg)[0],
+                (H_loc, kvh, cfg.resolved_head_dim, 0), {})
+    if body == "mla_sp":
+        a = cfg.mla
+        w = {k: (cast(v) if not isinstance(v, dict) else v)
+             for k, v in p["mla"].items()}
+        H_loc = cfg.n_heads // M
+
+        def latents(r, _):
+            return mla.sp_latents(w, x[:, r * n:(r + 1) * n],
+                                  pos[:, r * n:(r + 1) * n], cfg)
+
+        def heads(r, lat):
+            h = slice(r * H_loc, (r + 1) * H_loc)
+            return mla.sp_heads(lat, pos, w["w_uq"][:, h], w["w_uk"][:, h],
+                                w["w_uv"][:, h], w["w_o"][h], cfg)
+        dims = (a.qk_nope_head_dim + a.qk_rope_head_dim, a.v_head_dim)
+        return ([(latents, ("gather", 1)), (heads, ("scatter", 1))],
+                lambda b: torch.cat(b, 1),
+                lambda: mla.mla_forward(w, x, pos, cfg),
+                (H_loc, H_loc, dims, 0), {})
+    if body in ("ffn_shared", "ffn_dense"):
+        fp = p["moe"]["shared"] if body == "ffn_shared" else p["ffn_dense"]
+        wg = cast(fp["gate"]["w"]) if "gate" in fp else None
+        wu, wd = cast(fp["up"]["w"]), cast(fp["down"]["w"])
+        whole = {k: {"w": cast(v["w"])} for k, v in fp.items()}
+        if aux["weight_gathered"][body]:
+            stages = [(lambda r, _: ffn._ffn_core(
+                x[:, r * n:(r + 1) * n], wg, wu, wd, cfg.act), ("none",))]
+            branch = "weight-gathered"
+        else:
+            f = wu.shape[1] // M
+
+            def cols(r, _):
+                c = slice(r * f, (r + 1) * f)
+                return ffn._ffn_core(x, None if wg is None else wg[:, c],
+                                     wu[:, c], wd[c], cfg.act)
+            stages = [(cols, ("scatter", 1))]
+            branch = "megatron-sp"
+        return (stages, lambda b: torch.cat(b, 1),
+                lambda: ffn.ffn_apply(whole, x, cfg.act), None,
+                {"branch": branch})
+    if body in ("moe_a2a", "moe_replicated"):
+        m, k = cfg.moe, cfg.moe.top_k
+        E, D = m.n_experts, cfg.d_model
+        E_loc = E // M
+        wgt, idx = aux["route"]
+        ex = p["moe"]["experts"]
+        f32 = dt == torch.float32
+
+        def experts(r):
+            sl = slice(r * E_loc, (r + 1) * E_loc)
+            return [cast(ex[nm][sl]) for nm in ("gate", "up", "down")]
+        local = {"experts": {nm: (_AsF32(t) if f32 else t)
+                             for nm, t in ex.items()}}
+        whole = (lambda: moe._moe_local(local, x, wgt, idx, cfg))
+        if body == "moe_replicated":
+            C = aux["capacity"](S)
+
+            def rank(r, _):
+                return moe.replicated_rank(x, wgt.to(dt), idx, *experts(r),
+                                           r, E_loc, C, cfg)
+            return ([(rank, ("psum",))], lambda b: b[0], whole, None,
+                    {"capacity": C})
+        C = aux["capacity"](n)
+        slots = [None] * M
+
+        def dispatch(r, _):
+            disp, slots[r] = moe.dispatch(x[0, r * n:(r + 1) * n],
+                                          idx[0, r * n:(r + 1) * n], E, C, k)
+            return disp
+
+        def ffn_rank(r, disp):
+            return moe._experts_ffn(*experts(r), disp, cfg.act)
+
+        def combine(r, out):
+            return moe.combine(out, slots[r], wgt[0, r * n:(r + 1) * n].to(dt),
+                               k)[None]
+        return ([(dispatch, ("a2a", 0, 1)), (ffn_rank, ("a2a", 1, 0)),
+                 (combine, ("none",))], lambda b: torch.cat(b, 1), whole,
+                None, {"capacity": C, "slots": slots, "E": E, "D": D})
+    if body == "attend_tp":
+        q, kk, v = (aux["qkv"][i].to(dt) for i in range(3))
+        B, _, KVH, G, Dh = q.shape
+        ql, kl, vl = collectives._head_tp_layout(q, kk, v, M)
+        nh = ql.shape[2] // M
+
+        def rank(r, _):
+            h = slice(r * nh, (r + 1) * nh)
+            return chunked_attention(ql[:, :, h], kl[:, :, h], vl[:, :, h],
+                                     causal=True)
+        grouped = KVH % M == 0
+        lay = (KVH // M * G, KVH // M, Dh, 0) if grouped else \
+            (KVH * G // M, KVH * G // M, Dh, 0)
+        return ([(rank, ("none",))],
+                lambda b: torch.cat(b, 2).reshape(B, S, KVH, G, -1),
+                lambda: chunked_attention(q, kk, v, causal=True),
+                lay, {"layout": "grouped" if grouped else "repeated"})
+    if body == "decode_heads":
+        q, kc, vc, kn, vn = (t.to(dt) for t in aux["decode"])
+        dpos = aux["decode_pos"]
+        kvh = kc.shape[2] // M
+
+        def rank(r, _):
+            h = slice(r * kvh, (r + 1) * kvh)
+            return collectives._local_decode(
+                q[:, h], kc[:, :, h], vc[:, :, h], kn[:, h], vn[:, h], dpos,
+                cap=0.0, sm_scale=None, v_dims=None)[0]
+        return ([(rank, ("none",))], lambda b: torch.cat(b, 1),
+                lambda: collectives.seqparallel_decode_attention(
+                    q, kc, vc, kn, vn, dpos)[0], None, {})
+    raise ValueError(body)
+
+
+def _sp_flash_row(torch, F, fa_ops, fa_ref, T, layout, B, S, dev, gen):
+    """A per-rank flash shape (causal, offset 0) on seeded operands: held
+    against the plain version (`flash_hold`) and timed cold beside the
+    plain version, SDPA and its bound — the (q, k) pairs it scores over
+    the bf16 tensor-core rate, or its q, k, v and output bytes."""
+    H, KVH, D, _ = layout
+    dk, dv = head_dims(D)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=dev,
+                           dtype=torch.float32).to(torch.bfloat16)
+    q, k, v = rand(B, H, S, dk), rand(B, KVH, S, dk), rand(B, KVH, S, dv)
+    call = fa_ops.prepare(q, k, v, causal=True)
+    got = fa_ops.attention(q, k, v, causal=True)
+    err, ulps = flash_hold(torch, T, got, q, k, v,
+                           flash_key(layout, f"{B}x{S}"), causal=True)
+    pairs = causal_pairs(S, 0)
+    flops = 2 * B * H * pairs * (dk + dv)
+    nbytes = B * S * (H * dk + KVH * dk + KVH * dv + H * dv) * 2
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / HBM_BYTES_PER_S
+
+    def cold(fn):
+        return T.ms(fn, iters=10, cold=True, median=True)
+    ms = cold(call.run)
+    sdpa = dict(is_causal=True, enable_gqa=H != KVH)
+    return dict(entry=fa_ops.route(q, k, v), ms=ms, rank_ms=ms,
+                plain_ms=cold(lambda: fa_ref.reference(q, k, v,
+                                                       causal=True)),
+                library_ms=cold(lambda: F.scaled_dot_product_attention(
+                    q, k, v, **sdpa)),
+                library_backend=sdpa_backend(torch, q, k, v, **sdpa),
+                bound_ms=max(t_ops, t_bytes) * 1e3,
+                bound_by="operations" if t_ops > t_bytes else "bytes",
+                max_abs_err=err, max_half_ulps=ulps, gflop=flops / 1e9)
+
+
+def phase_sp(torch, np, dev, Z, rng, T) -> dict:
+    """Phase 13: sequence and expert parallelism one rank at a time. One
+    card runs no collective, so for each config of Z.archs at full width
+    and each of its bodies (SP_BODIES), the M = Z.model ranks' per-rank
+    pieces — the code the sharded branches run between their
+    collectives (`transformer.attn_sp_rank`, `mla.sp_latents` /
+    `sp_heads`, `ffn._ffn_core`, `moe.dispatch` / `_experts_ffn` /
+    `combine` / `replicated_rank`, `collectives._head_tp_layout` then
+    the flash call on a rank's heads, `collectives._local_decode`) — run in turn in bf16 on a seeded 1 x Z.seq prompt
+    (the counted main path, each rank's device ms), the collectives done
+    as stacked tensor ops (`_sp_exchange`). The unsharded block is timed
+    beside the M ranks' sum. The same pieces then run in float32 (the
+    MoE at capacity factor Z.hold_cf, which drops nothing), and the
+    assembled output is held against the unsharded block in float32
+    within SP_HOLD of its scale. The MoE reports its share of dropped
+    assignments at the config's own factor and each rank's
+    `_experts_ffn` beside its bound. Each per-rank flash shape is held
+    against the plain version and timed beside SDPA and its bound."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.launch.mesh import production_shape
+    from repro_torch.models import ffn as ffn_mod
+    from repro_torch.models import mla as mla_mod
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import transformer as tr
+    from repro_torch.configs.base import get_config, reduced
+    from repro_torch.launch.mesh import abstract_mesh
+    from repro_torch.parallel import collectives, sharding
+
+    cuda = dev.type == "cuda"
+    shape, axes = production_shape()
+    M, S = Z.model, Z.seq
+    check(Z.reduce or dict(zip(axes, shape))["model"] == M,
+          f"phase 13: model axis {M} is not the production mesh's")
+    gen = torch.Generator(device=dev).manual_seed(int(rng.integers(1 << 31)))
+    bf16 = torch.bfloat16
+    launches, flash_by_shape, layouts, bodies = {}, {}, {}, {}
+    for arch in Z.archs:
+        cfg = reduced(get_config(arch)) if Z.reduce else get_config(arch)
+        specs = {"mla": mla_mod.mla_spec(cfg)} if cfg.use_mla else \
+            {"attn": tr.attn_spec(cfg)}
+        if cfg.moe is not None:
+            specs["moe"] = moe_mod.moe_spec(cfg)
+        specs["ffn_dense"] = ffn_mod.ffn_spec(
+            cfg.d_model, cfg.moe.d_ff_dense if cfg.moe else cfg.d_ff,
+            cfg.act)
+        p = _sp_weights(torch, specs, dev, gen, bf16)
+        x = torch.randn((1, S, cfg.d_model), generator=gen, device=dev,
+                        dtype=torch.float32).to(bf16)
+        aux = {"pos": torch.arange(S, device=dev, dtype=torch.int32)[None]}
+        if cfg.moe is not None:
+            aux["route"] = moe_mod.route(p["moe"], x, cfg)[:2]
+        H, KVH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+        aux["qkv"] = [torch.randn(sh, generator=gen, device=dev) for sh in (
+            (1, S, KVH, H // KVH, hd), (1, S, KVH, hd), (1, S, KVH, hd))]
+        aux["decode"] = [torch.randn(sh, generator=gen, device=dev)
+                         for sh in ((1, KVH, H // KVH, hd),
+                                    (1, Z.decode_seq, KVH, hd),
+                                    (1, Z.decode_seq, KVH, hd),
+                                    (1, KVH, hd), (1, KVH, hd))]
+        aux["decode_pos"] = torch.full((1,), Z.decode_pos, dtype=torch.long,
+                                       device=dev)
+        # the port's own gates at this width: each body must be the
+        # branch the port takes, and the FFN's body the one it picks
+        mesh = abstract_mesh((1, M), ("data", "model"))
+        ffns = {"ffn_dense": p["ffn_dense"]}
+        if cfg.moe is not None and cfg.moe.n_shared:
+            ffns["ffn_shared"] = p["moe"]["shared"]
+        with sharding.use_mesh(mesh, fsdp=False, seq_parallel=True,
+                               decode_layout="heads"):
+            takes = {"attn_sp": tr.takes_attn_sp(cfg, S),
+                     "mla_sp": cfg.use_mla and tr.takes_mla_sp(cfg, S),
+                     "attend_tp": collectives.attend_branch(
+                         S, KVH, H // KVH) == "head_tp",
+                     "decode_heads": tr.decode_heads_layout(cfg)}
+            takes.update({b: tr.takes_ffn_sp(cfg, S, fp["up"]["w"].shape[-1],
+                                             bias="b" in fp["up"])
+                          for b, fp in ffns.items()})
+            aux["weight_gathered"] = {b: ffn_mod.weight_gathered(fp, x)
+                                      for b, fp in ffns.items()}
+            if cfg.moe is not None:
+                takes["moe_a2a"] = moe_mod.moe_branch(cfg, S) == "a2a"
+        if cfg.moe is not None:
+            with sharding.use_mesh(mesh, fsdp=False, moe_impl="replicated"):
+                takes["moe_replicated"] = \
+                    moe_mod.moe_branch(cfg, S) == "replicated"
+        for body in SP_BODIES[arch]:
+            name = f"{arch}/{body}"
+            check(takes[body], f"phase 13: {name} is not the "
+                  f"branch the port takes at model = {M}")
+            res = {}
+
+            def cap(tokens, cf):
+                with sharding.use_mesh(abstract_mesh((1, M),
+                                                     ("data", "model")),
+                                       capacity_factor=cf):
+                    return moe_mod._capacity(tokens, cfg)
+            aux["capacity"] = lambda t: cap(t, None)
+            stages, assemble, whole, lay, extra = _sp_body(
+                torch, cfg, body, Z, p, bf16, x, aux)
+            if lay is not None:
+                layouts[name] = lay
+            shapes = {}
+            _sp_run(torch, T, M, stages, timed=False)      # warm-up
+            blocks, ms = count_launches(_build, launches, lambda: _sp_run(
+                torch, T, M, stages, timed=True), shapes)
+            # each rank's stage ms: the median of SP_RUNS timed runs
+            runs = [ms] + [_sp_run(torch, T, M, stages, timed=True)[1]
+                           for _ in range(SP_RUNS - 1)]
+            ms = [[statistics.median(run[r][i] for run in runs)
+                   for i in range(len(stages))] for r in range(M)]
+            if lay is not None:
+                flash_by_shape.update({flash_key(lay, sk): c for sk, c in
+                                       shapes.get("flash_attention",
+                                                  {}).items()})
+                res["flash_launches"] = dict(shapes.get("flash_attention",
+                                                        {}))
+                res["flash_layout"] = flash_key(lay, f"1x{S}")
+            got = assemble(blocks)
+            whole()                                         # warm-up
+            whole_ms = statistics.median(_sp_rank_ms(T, whole)
+                                         for _ in range(SP_RUNS))
+            rank_ms = [sum(r) for r in ms]
+            res.update(rank_ms=rank_ms, stage_ms=ms,
+                       median_rank_ms=statistics.median(rank_ms),
+                       max_rank_ms=max(rank_ms), ranks_sum_ms=sum(rank_ms),
+                       unsharded_ms=whole_ms, shape=list(got.shape),
+                       finite=bool(torch.isfinite(got.float()).all()), **{
+                           k: v for k, v in extra.items()
+                           if k in ("branch", "layout", "capacity")})
+            check(res["finite"], f"phase 13: {name} is not finite")
+            if body.startswith("moe"):
+                res.update(_sp_moe_report(torch, cfg, Z, extra, ms, aux,
+                                          body, M, S))
+            del stages, blocks, got
+            # the hold: the same pieces in float32 against the block
+            if body.startswith("moe"):
+                aux["capacity"] = lambda t: cap(t, Z.hold_cf)
+            stages, assemble, whole, _, _ = _sp_body(
+                torch, cfg, body, Z, p, torch.float32, x, aux)
+            got = assemble(_sp_run(torch, T, M, stages, timed=False)[0])
+            want = whole()
+            scale = float(want.abs().max())
+            err = float((got - want).abs().max())
+            res.update(hold_max_abs_err=err, hold_scale=scale,
+                       hold_bound=SP_HOLD * scale)
+            check(got.shape == want.shape and err <= SP_HOLD * scale,
+                  f"phase 13: {name}'s assembled float32 output differs "
+                  f"from the unsharded block by {err:.4g} (scale "
+                  f"{scale:.4g}, bound {SP_HOLD} of it)")
+            del stages, got, want
+            bodies[name] = res
+            log(f"phase 13: {name} over model = {M}: rank ms median "
+                f"{res['median_rank_ms']:.4f} max {res['max_rank_ms']:.4f}, "
+                f"sum {res['ranks_sum_ms']:.4f} vs unsharded "
+                f"{whole_ms:.4f}; float32 hold {err:.3g} of scale "
+                f"{scale:.3g} (bound {SP_HOLD:g} of it)"
+                + (f"; drop share {res['drop_share']:.4f} at capacity "
+                   f"factor {cfg.moe.capacity_factor}" if "drop_share" in res
+                   else "") + (f"; {extra['branch']}" if "branch" in extra
+                               else ""))
+        del p, x, aux
+        if cuda:
+            free_device_memory(torch)
+    # every per-rank flash shape, held and timed on seeded operands
+    by_shape = {}
+    if cuda:
+        for name, lay in layouts.items():
+            key = flash_key(lay, fa_ops.shape_key(1, S, S, True))
+            if key not in by_shape:
+                by_shape[key] = _sp_flash_row(torch, F, fa_ops, fa_ref, T,
+                                              lay, 1, S, dev, gen)
+                log(f"phase 13: flash {key} ({by_shape[key]['entry']}): "
+                    f"{by_shape[key]['ms']:.4f} ms, plain "
+                    f"{by_shape[key]['plain_ms']:.4f}, SDPA "
+                    f"{by_shape[key]['library_ms']:.4f} "
+                    f"({by_shape[key]['library_backend']}), bound "
+                    f"{by_shape[key]['bound_ms']:.4f} "
+                    f"({by_shape[key]['bound_by']})")
+        check(launches.get("flash_attention", 0) == M * len(layouts)
+              and not launches.get("flash_attention_generic"),
+              f"phase 13: flash launches {launches}")
+    return dict(launches=launches, flash_by_shape=flash_by_shape,
+                by_shape=by_shape, bodies=bodies, model=M, seq=S)
+
+
+def _sp_moe_report(torch, cfg, Z, extra, ms, aux, body, M, S) -> dict:
+    """The MoE's share of dropped assignments at the config's own
+    capacity factor (the timed run) and, for `_moe_a2a`, each rank's
+    `_experts_ffn` ms beside its bound: its E/M experts' weights and its
+    slots in and out over the memory rate, or its products over the bf16
+    tensor-core rate."""
+    from repro_torch.models import moe as moe_mod
+    m = cfg.moe
+    k, E = m.top_k, m.n_experts
+    E_loc, C = E // M, extra["capacity"]
+    _, idx = aux["route"]
+    if body == "moe_a2a":
+        dropped = sum(int((s == E * C).sum()) for s in extra["slots"])
+        D, Fe = cfg.d_model, m.d_ff_expert
+        slots = E_loc * M * C
+        flops = 2 * 3 * slots * D * Fe
+        nbytes = (E_loc * 3 * D * Fe + 2 * slots * D) * 2
+        t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / HBM_BYTES_PER_S
+        return dict(drop_share=dropped / (S * k),
+                    experts_ms=[r[1] for r in ms],
+                    experts_bound_ms=max(t_ops, t_bytes) * 1e3,
+                    experts_bound_by="operations" if t_ops > t_bytes
+                    else "bytes", slots_per_expert=M * C)
+    dropped = 0
+    flat = idx.reshape(-1)
+    for r in range(M):
+        loc = (flat >= r * E_loc) & (flat < (r + 1) * E_loc)
+        ids = torch.where(loc, flat - r * E_loc, E_loc)
+        _, keep = moe_mod._dispatch_indices(ids, None, E_loc + 1, C)
+        dropped += int((~keep & loc).sum())
+    return dict(drop_share=dropped / (S * k))
 
 
 # -- phase 2, the T3 pipe's gather and the list walk ----------------------------
@@ -5127,6 +5671,9 @@ def main() -> int:
     cp = phase_cp(torch, np, dev, CP, rng, T)
     free_device_memory(torch)
     mark("phase 12")
+    sp = phase_sp(torch, np, dev, SP, rng, T)
+    free_device_memory(torch)
+    mark("phase 13")
 
     # launches per C entry point on each main path's own run
     paths = {"datapath": main_launches, "kv_leg": kv["launches"],
@@ -5135,7 +5682,9 @@ def main() -> int:
     paths.update({FAMILY_PATH[a]: r["launches"] for a, r in families.items()})
     paths["train"] = train["launches"]
     paths["cp"] = cp["launches"]
+    paths["sp"] = sp["launches"]
     rows["flash_attention"]["by_shape"].update(cp.pop("by_shape"))
+    rows["flash_attention"]["by_shape"].update(sp.pop("by_shape"))
     kernels = []
     for r in rows.values():
         entry = r.pop("entry")
@@ -5149,7 +5698,7 @@ def main() -> int:
         p: dict(sorted(r["flash_by_shape"].items()))
         for p, r in [("serve", serve), ("cluster", cluster)]
         + [(FAMILY_PATH[a], r) for a, r in families.items()]
-        + [("train", train), ("cp", cp)]}
+        + [("train", train), ("cp", cp), ("sp", sp)]}
     excess, untimed = {}, set()
     for by in flash["launches_by_shape"].values():
         for shape, n in by.items():
@@ -5201,6 +5750,7 @@ def main() -> int:
                     "kv_leg": kv, "serve": serve, "t3_pipe": t3,
                     "cluster": cluster, "storage": storage,
                     "families": families, "train": train, "cp": cp,
+                    "sp": sp,
                     "seconds": time.perf_counter() - t_start}))
     log(smi)
     print(json.dumps({"kernels": kernels}))

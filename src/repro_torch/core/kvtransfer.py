@@ -10,12 +10,13 @@ fabric's cross-pod `_lower_payload`). The staged baseline re-replicates
 first (the QP hash-collision analogue: all bytes ride one path per
 data-row, stripe-factor more wire traffic).
 
-In one process `tx_engine.transmit` is the identity, so a cross-pod
-SEND delivers the sender's own tensors, by reference, as the reference
-does without a pod axis. Torch tensors are mutable: a sender must not
-write a tree in place after posting it (ROADMAP Queue 3).
-`make_transfer_step`, the lowered payload path for the dry-run, comes
-with the parallelism slice.
+With no mesh `tx_engine.transmit` is the identity, so a cross-pod SEND
+delivers the sender's own tensors, by reference, as the reference does
+without a pod axis. Torch tensors are mutable: a sender must not write a
+tree in place after posting it (ROADMAP Queue 3). `make_transfer_step`
+is the payload path of the SEND without the control plane: under a mesh
+with a pod axis, the permute of `tx_engine.transmit` (or the staged
+baseline's).
 """
 from __future__ import annotations
 
@@ -26,6 +27,7 @@ import numpy as np
 import torch
 
 from repro_torch import tree, verbs
+from repro_torch.core import tx_engine
 from repro_torch.core.descriptors import TransferPlan
 from repro_torch.obs import metrics
 
@@ -341,3 +343,12 @@ class KVTransferEngine:
     def transfer_staged(self, caches):
         """Naive baseline (replicate-then-move)."""
         return self._send(caches, staged=True)
+
+    def make_transfer_step(self, staged: bool = False):
+        """A cache -> cache function (dry-run / benchmarks): the payload
+        path of the SEND, without the control plane."""
+        send = tx_engine.transmit_staged if staged else tx_engine.transmit
+
+        def step(caches):
+            return send(caches, self.spec_tree, self.plan)
+        return step

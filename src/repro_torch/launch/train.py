@@ -13,7 +13,7 @@ The reference's flags (`--arch --steps --batch --seq --lr --microbatches
 and `--device` (default: the card). Parameters are drawn from a
 `torch.Generator` seeded with 0 on the run's device; the step donates
 them and the optimizer state (`jit_train_step`: updated in place).
-`--mesh` raises: the sharded step comes with ROADMAP slice 8.
+`--mesh` raises: the sharded step comes with ROADMAP slice 8e.
 
 A frontend config gets seeded embeddings of (batch, n_tokens, d_input)
 in every batch, a pure function of the step as the tokens are: whisper-
@@ -86,8 +86,8 @@ def main(argv=None):
     args = p.parse_args(argv)
     if args.mesh:
         raise NotImplementedError(
-            "--mesh: the sharded train step comes with the parallelism "
-            "slice (ROADMAP slice 8)")
+            "--mesh: the sharded train step comes with training on a "
+            "mesh (ROADMAP slice 8e)")
 
     dev = tdevice.resolve(args.device)
     tdevice.set_default(dev)

@@ -1,13 +1,26 @@
 """Dense feed-forward blocks (GLU variants + plain MLP).
 
-The port of the reference's `repro.models.ffn` without its Megatron-SP
-variants (`sp=True`: the weight-gathered and sequence-parallel
-shard_map bodies): one process has no `model` mesh axis, and they come
-with the parallelism slice (ROADMAP slice 8).
+The port of the reference's `repro.models.ffn`. `ffn_apply(sp=True)` is
+the explicit Megatron-SP variant for an input sequence-sharded over the
+`model` mesh axis, and picks the cheaper of two `sharding.shard_map`
+bodies as the reference does (`w_bytes < act_bytes`):
+
+  * `_ffn_apply_wg`, weight-gathered: the tokens stay on their rank, the
+    (small) weights are all-gathered whole once; no activation moves;
+  * `_ffn_apply_sp`, Megatron-SP: the tokens are all-gathered over
+    `model`, each rank computes its `mlp` columns' partial output, and
+    the partials are reduce-scattered back to the sequence blocks.
+
+Both run the same per-rank piece, `_ffn_core`, on what their
+collectives leave on the rank.
 """
 from __future__ import annotations
 
+from functools import partial
+
 from repro_torch.models.layers import act_fn, linear, linear_spec
+from repro_torch.parallel import sharding
+from repro_torch.parallel.sharding import P
 
 
 def ffn_spec(d_model: int, d_ff: int, act: str, *, bias: bool = False) -> dict:
@@ -23,10 +36,79 @@ def ffn_spec(d_model: int, d_ff: int, act: str, *, bias: bool = False) -> dict:
     }
 
 
-def ffn_apply(params, x, act: str):
+def ffn_apply(params, x, act: str, *, sp: bool = False):
+    if sp:
+        return _ffn_apply_wg(params, x, act) if weight_gathered(params, x) \
+            else _ffn_apply_sp(params, x, act)
     f = act_fn(act)
     if "gate" in params:
         h = f(linear(params["gate"], x)) * linear(params["up"], x)
     else:
         h = f(linear(params["up"], x))
     return linear(params["down"], h)
+
+
+def weight_gathered(params, x) -> bool:
+    """The reference's choice of the cheaper gather: Megatron-SP moves
+    the activations (2 x tokens x D bytes on the wire), the ZeRO-style
+    variant the weights once (3 x D x F); small-F FFNs (shared experts)
+    are far cheaper weight-gathered."""
+    B, S, D = x.shape
+    bs = sharding.axis_size(sharding.batch_axes_prefix(B))
+    F = params["up"]["w"].shape[-1]
+    n_mats = 3 if "gate" in params else 2
+    return n_mats * D * F < 2 * (B // bs) * S * D
+
+
+def _ffn_core(x, wg, wu, wd, act: str):
+    """The FFN of x through these weights (whole or a rank's columns;
+    wg None without a gate): a partial sum over F where they are
+    columns."""
+    f = act_fn(act)
+    h = f(x @ wg) * (x @ wu) if wg is not None else f(x @ wu)
+    return h @ wd
+
+
+# the reference's names: a weight fully de-sharded inside shard_map
+# (the model axis too), and ZeRO-style over every non-model axis
+_gather_all = partial(sharding.gather_param, keep_model=False)
+_gather_w = sharding.gather_param
+
+
+def _ffn_sharded(params, x, act: str, gather, x_body):
+    """The shared frame of both SP bodies: x sequence-sharded over
+    `model`, the weights by their param specs, `gather` de-sharding
+    each weight block and `x_body(x_l, y_fn)` moving the activations."""
+    B = x.shape[0]
+    has_gate = "gate" in params
+    b = sharding.batch_axes_prefix(B) or None
+    xspec = P(b, "model", None)
+    up, down = params["up"]["w"], params["down"]["w"]
+    # spec (and gather) by the `up` shape, as the reference does for gate
+    gspec = sharding.resolve_spec(("embed", "mlp"), up.shape, "param")
+    dspec = sharding.resolve_spec(("mlp", "embed"), down.shape, "param")
+
+    def body(x_l, wg, wu, wd):
+        wu = gather(wu, ("embed", "mlp"))
+        wd = gather(wd, ("mlp", "embed"))
+        wg = gather(wg, ("embed", "mlp")) if has_gate else None
+        return x_body(x_l, lambda x_: _ffn_core(x_, wg, wu, wd, act))
+
+    wg = params["gate"]["w"] if has_gate else up
+    return sharding.shard_map(body, (xspec, gspec, gspec, dspec),
+                              xspec)(x, wg, up, down)
+
+
+def _ffn_apply_wg(params, x, act: str):
+    """Weight-gathered token-local FFN: x stays sequence-sharded; the
+    weights are all-gathered once; zero activation collectives."""
+    return _ffn_sharded(params, x, act, _gather_all,
+                        lambda x_l, y: y(x_l))
+
+
+def _ffn_apply_sp(params, x, act: str):
+    """Megatron-SP: the sequence all-gathered over `model` in, each
+    rank's partial over its mlp columns reduce-scattered out."""
+    return _ffn_sharded(params, x, act, _gather_w, lambda x_l, y: (
+        sharding.psum_scatter(y(sharding.all_gather(x_l, "model", 1)),
+                              "model", 1)))

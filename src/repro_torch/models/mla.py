@@ -11,8 +11,12 @@ the latent, 10-60x smaller than the expanded KV.
 The port of the reference's `repro.models.mla`. The expanded keys are
 the nope part and the shared rope part concatenated into a tensor of
 their own: a broadcast view would have stride 0 over the heads, which
-no TMA tensor map reads. `mla_forward_sp` (Megatron-SP over a `model`
-mesh axis, one `shard_map`) comes with the parallelism slice.
+no TMA tensor map reads. `mla_forward_sp` is the Megatron-SP form over
+a `model` mesh axis, one `sharding.shard_map` of two per-rank pieces:
+`sp_latents` (the rank's tokens' latents) and, after the latents'
+all-gather, `sp_heads` (the rank's H/M heads over the whole sequence
+through the flash kernel, and their partial out-projection), whose
+partials are reduce-scattered back to the sequence blocks.
 """
 from __future__ import annotations
 
@@ -20,9 +24,11 @@ import math
 
 import torch
 
+from repro_torch.models import attention
 from repro_torch.models.layers import apply_rope, rmsnorm, rmsnorm_spec
 from repro_torch.models.module import Spec
-from repro_torch.parallel import collectives
+from repro_torch.parallel import collectives, sharding
+from repro_torch.parallel.sharding import P
 
 
 def latent_dim(cfg) -> int:
@@ -82,12 +88,67 @@ def _out(o, w_o):
     return o.flatten(-2) @ w_o.reshape(H * V, D)
 
 
+HEAD_AXES = {"w_uq": ("q_lora", "heads", "head_dim"),
+             "w_uk": ("kv_lora", "heads", "head_dim"),
+             "w_uv": ("kv_lora", "heads", "head_dim"),
+             "w_o": ("heads", "head_dim", "embed")}
+
+
+def sp_latents(params, x, positions, cfg):
+    """The latents of a block of tokens (pointwise over the sequence):
+    the normed q-lora latent, the normed kv latent and the roped shared
+    key, concatenated on the last dim: (B, s, q_lora + kv_lora + rope)."""
+    ql = rmsnorm(params["q_norm"], x @ params["w_dq"], cfg.norm_eps)
+    ckv, kr = _latent(params, x, positions, cfg)
+    return torch.cat([ql, ckv, kr], dim=-1)
+
+
+def sp_heads(lat, positions, w_uq, w_uk, w_uv, w_o, cfg):
+    """One rank's heads over the whole sequence, from the gathered
+    latents: its queries and expanded keys and values, flash attention
+    (B, S, H/M, 1, 192 / 128), and its heads' partial out-projection
+    (B, S, D), in the latents' dtype."""
+    a = cfg.mla
+    B, S = lat.shape[:2]
+    ql, ckv, kr = lat.split([a.q_lora_rank, a.kv_lora_rank,
+                             a.qk_rope_head_dim], dim=-1)
+    q = _up(ql, w_uq)                                     # (B,S,H_loc,qk)
+    qr = apply_rope(q[..., a.qk_nope_head_dim:], positions, cfg.rope_theta)
+    q = torch.cat([q[..., :a.qk_nope_head_dim], qr], dim=-1)
+    H_loc = q.shape[2]
+    k = torch.cat([_up(ckv, w_uk), kr[:, :, None].expand(
+        B, S, H_loc, a.qk_rope_head_dim)], dim=-1)        # materialised
+    out = attention.chunked_attention(q.unsqueeze(3), k, _up(ckv, w_uv),
+                                      causal=True)
+    return _out(out.reshape(B, S, H_loc, a.v_head_dim), w_o).to(lat.dtype)
+
+
 def mla_forward_sp(params, x, positions, cfg, *, q_chunk=512, kv_chunk=1024):
-    """Megatron-SP MLA: the latents all-gathered over a `model` mesh
-    axis inside one shard_map. One process has no such axis."""
-    raise NotImplementedError(
-        "mla_forward_sp (sequence-parallel MLA over a model mesh axis) "
-        "comes with the parallelism slice (ROADMAP slice 8)")
+    """Megatron-SP MLA: the residual stream stays sequence-sharded over
+    `model`; only the latents (q_lora + kv_lora + rope, 2176 values a
+    token for deepseek-v3, vs 7168 of residual) are all-gathered; the
+    heads are local; the out-projection is reduce-scattered back to the
+    sequence blocks. The reference's `q_chunk` / `kv_chunk` tile its
+    chunked attention; the flash kernel's tiles are fixed."""
+    del q_chunk, kv_chunk
+    if not cfg.mla.q_lora_rank:
+        raise ValueError("the SP path assumes q-lora (deepseek-v3's config)")
+    B = x.shape[0]
+    b = sharding.batch_axes_prefix(B) or None
+    lspec, pspec = P(b, "model", None), P(b, "model")
+    names = tuple(HEAD_AXES)
+    wspecs = tuple(sharding.resolve_spec(HEAD_AXES[n], params[n].shape,
+                                         "param") for n in names)
+
+    def body(x_l, pos_l, *ws):
+        ws = [sharding.gather_param(w, HEAD_AXES[n]) for n, w in zip(names, ws)]
+        lat = sharding.all_gather(sp_latents(params, x_l, pos_l, cfg),
+                                  "model", 1)
+        pos = sharding.all_gather(pos_l, "model", 1)
+        return sharding.psum_scatter(sp_heads(lat, pos, *ws, cfg), "model",
+                                     1)
+    return sharding.shard_map(body, (lspec, pspec) + wspecs, lspec)(
+        x, positions, *(params[n] for n in names))
 
 
 def mla_forward(params, x, positions, cfg, *, return_cache: bool = False,

@@ -1,28 +1,44 @@
-"""Mixture-of-Experts: the router (the dispatch "header") and the expert
-FFNs, as one process runs them.
+"""Mixture-of-Experts with FlexiNS-style header/payload-split dispatch.
 
-The port of the reference's `repro.models.moe` for the branch it takes
-with no mesh: `moe_apply` routes every token (`route`: softmax or
-sigmoid + bias, top-k, renormalised weights, the switch-style
-load-balance aux) and runs `_moe_local`, a loop over all E experts in
-which every token meets every expert and an expert's output counts with
-the weight its token gave it (0 where it was not chosen), accumulated in
-float32. `_capacity` and `_dispatch_indices` — the per-assignment slot
-positions of capacity-bounded dispatch, the header the expert-parallel
-paths move ahead of the payload — are ported and held exactly, for the
-parallelism slice's `a2a` to reuse; one process never dispatches.
+The paper's T1 (header-only offloading TX) maps onto MoE dispatch:
 
-Differences from the reference, on purpose:
+  * header  = routing metadata (top-k expert ids, weights, slot
+    positions), computed on the control path, outside the payload's
+    sharded region, tiny;
+  * payload = hidden states, moved exactly once, directly, by an
+    all_to_all over the expert-parallel axis into per-expert capacity
+    slots, with no staging through a replicated buffer.
 
-  * `_moe_a2a` and `_moe_replicated` (the expert-parallel all_to_all
-    and the staged psum baseline) live inside a `shard_map` and come
-    with the mesh (ROADMAP slice 8). `moe_apply` takes `_moe_local`
-    whatever the config, as the reference does with no mesh.
-  * `_capacity` reads `MoEConfig.capacity_factor` alone: the port has
-    no `repro.perf` flags to override it.
-  * `route` returns its expert ids as int32, as `lax.top_k` does.
-    Where two scores tie exactly, `torch.topk` may order them otherwise
-    than `lax.top_k` (lower index first).
+The port of the reference's `repro.models.moe`. Three implementations,
+chosen by `moe_apply` as the reference chooses:
+
+  'a2a'        — sequence-parallel tokens, direct all_to_all dispatch
+                 (`_moe_a2a`; the default on a mesh);
+  'replicated' — tokens replicated over the expert axis; each rank
+                 gathers its experts' tokens locally and the combined
+                 output is psum'd (`_moe_replicated`, the staged
+                 baseline);
+  'local'      — no mesh: a loop over all E experts in which every token
+                 meets every expert and counts with the weight its token
+                 gave it, accumulated in float32 (`_moe_local`).
+
+The mesh branches take `moe_impl` and `capacity_factor` from
+`sharding.use_mesh` (the reference's `perf.FLAGS`). Each is a
+`sharding.shard_map` over plain per-rank pieces: `dispatch` (slots by
+`_dispatch_indices` on the rank's own tokens in (token, k) order; a
+slot past capacity is dropped into a spill row, the reference's
+`mode="drop"`), `_experts_ffn` (a batched product over the rank's
+experts' slots) and `combine` (a gather with a zero row for the
+dropped, the reference's `mode="fill"`; the weight cast to the
+activations' dtype before the sum over k, where `_moe_local` sums in
+float32). Dispatch and combine stay plain torch, as the reference runs
+them outside any kernel; the row-copy kernels raise on an out-of-range
+id where dispatch must drop it.
+
+Differences from the reference, on purpose: `route` returns its expert
+ids as int32, as `lax.top_k` does; where two scores tie exactly,
+`torch.topk` may order them otherwise than `lax.top_k` (lower index
+first).
 """
 from __future__ import annotations
 
@@ -34,6 +50,8 @@ import torch.nn.functional as F
 from repro_torch.models import ffn
 from repro_torch.models.layers import act_fn
 from repro_torch.models.module import Spec
+from repro_torch.parallel import sharding
+from repro_torch.parallel.sharding import P
 
 
 # --------------------------------------------------------------------------
@@ -107,9 +125,21 @@ def _experts_ffn(w_gate, w_up, w_down, h, act):
     return torch.bmm(f(g) * u, w_down)
 
 
+def _gather_fsdp(w, spec_axes, shape):
+    """All-gather away any non-expert-dim param sharding inside
+    shard_map (ZeRO-3 weight gather), the spec resolved on the global
+    `shape`. The expert dim stays sharded."""
+    return sharding.gather_param(w, spec_axes, shape=shape, skip=("expert",))
+
+
 def _capacity(tokens: int, cfg) -> int:
+    """Slots an expert takes from `tokens` tokens: the mesh's
+    `capacity_factor` where `use_mesh` set one, else the config's."""
     m = cfg.moe
-    c = int(math.ceil(tokens * m.top_k * m.capacity_factor / m.n_experts))
+    ctx = sharding.current()
+    cf = m.capacity_factor if ctx is None or ctx.capacity_factor is None \
+        else ctx.capacity_factor
+    c = int(math.ceil(tokens * m.top_k * cf / m.n_experts))
     return max(4, -(-c // 4) * 4)      # round up to a multiple of 4
 
 
@@ -131,18 +161,59 @@ def _dispatch_indices(idx_flat, w_flat, E: int, C: int):
     return slot, keep
 
 
+def dispatch(x, idx, E: int, C: int, k: int):
+    """Tokens x (T, D) into E x C capacity slots by their k expert ids
+    (T, k): ((E, C, D) slots, slot (T k,)). Assignments past an
+    expert's capacity, or to an id >= E, land in a spill row that is
+    cut off (dropped)."""
+    slot, _ = _dispatch_indices(idx.reshape(-1), None, E + 1, C)
+    slot = torch.clamp(slot, max=E * C).long()        # the spill row
+    buf = x.new_zeros((E * C + 1, x.shape[-1]))
+    buf.index_copy_(0, slot, x.repeat_interleave(k, dim=0))
+    return buf[:E * C].reshape(E, C, -1), slot
+
+
+def combine(out, slot, w, k: int):
+    """The expert outputs (E, C, D) back to their T tokens: each
+    assignment's slot (zero where it was dropped) times its weight, in
+    the outputs' dtype, summed over k. (T, D)."""
+    D = out.shape[-1]
+    rows = torch.cat([out.reshape(-1, D), out.new_zeros((1, D))])
+    got = rows.index_select(0, slot) * w.reshape(-1, 1).to(out.dtype)
+    return got.reshape(-1, k, D).sum(1)
+
+
 # --------------------------------------------------------------------------
-# Implementation
+# Implementations
 # --------------------------------------------------------------------------
-def moe_apply(params, x, cfg):
-    """x: (B, S, D) -> (y, aux_loss). One process has no expert axis, so
-    this is the reference's `_moe_local` branch (plus shared experts)."""
+def moe_apply(params, x, cfg, *, sp: bool = False):
+    """x: (B, S, D) -> (y, aux_loss). With no mesh, M == 1 or experts
+    off a multiple of M: `_moe_local`; else `_moe_a2a` where the
+    sequence splits over `model` and the mesh's `moe_impl` is 'a2a',
+    else `_moe_replicated`. `sp`: the shared experts' FFN is
+    sequence-parallel."""
     m = cfg.moe
     w, idx, aux = route(params, x, cfg)          # header: control path
-    y = _moe_local(params, x, w, idx, cfg)
+    y = {"local": _moe_local, "a2a": _moe_a2a,
+         "replicated": _moe_replicated}[moe_branch(cfg, x.shape[1])](
+        params, x, w, idx, cfg)
     if m.n_shared:
-        y = y + ffn.ffn_apply(params["shared"], x, cfg.act)
+        y = y + ffn.ffn_apply(params["shared"], x, cfg.act, sp=sp)
     return y, aux
+
+
+def moe_branch(cfg, S: int) -> str:
+    """`moe_apply`'s implementation for S tokens a sequence: "local"
+    with no mesh, M == 1 or experts off a multiple of M; else "a2a"
+    where the sequence splits over `model` and the mesh's `moe_impl` is
+    'a2a'; else "replicated"."""
+    ctx = sharding.current()
+    M = sharding.mesh_axis_size("model")
+    if ctx is None or M == 1 or cfg.moe.n_experts % M:
+        return "local"
+    if S % M == 0 and ctx.moe_impl == "a2a":
+        return "a2a"
+    return "replicated"
 
 
 def _moe_local(params, x, w, idx, cfg):
@@ -158,3 +229,117 @@ def _moe_local(params, x, w, idx, cfg):
         he = h @ ex["down"][e]
         y = y + we[..., None] * he.float()
     return y.to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# Expert parallelism
+# --------------------------------------------------------------------------
+EXPERT_AXES = {"gate": ("expert", "embed", "expert_mlp"),
+               "up": ("expert", "embed", "expert_mlp"),
+               "down": ("expert", "expert_mlp", "embed")}
+
+
+def _batch_shards(B: int) -> int:
+    return sharding.axis_size(sharding.batch_axes_prefix(B))
+
+
+def _ep_axes(cfg) -> tuple:
+    """Mesh axes the expert dim shards over (('model',) or ('model',
+    'data'))."""
+    ex_shape = (cfg.moe.n_experts, cfg.d_model, cfg.moe.d_ff_expert)
+    ent = sharding.resolve_spec(EXPERT_AXES["gate"], ex_shape, "param")[0]
+    if ent is None:
+        return ("model",)
+    return (ent,) if isinstance(ent, str) else tuple(ent)
+
+
+def _expert_specs(ex) -> tuple:
+    return tuple(sharding.resolve_spec(EXPERT_AXES[n], ex[n].shape, "param")
+                 for n in ("gate", "up", "down"))
+
+
+def _expert_blocks(ex, wg, wu, wd) -> tuple:
+    """The rank's experts' weights, FSDP-gathered."""
+    return tuple(_gather_fsdp(w, EXPERT_AXES[n], ex[n].shape)
+                 for n, w in zip(("gate", "up", "down"), (wg, wu, wd)))
+
+
+def _moe_a2a(params, x, w, idx, cfg):
+    """FlexiNS path: sequence-parallel tokens and a direct all_to_all of
+    the payload over the whole expert-parallel group (model, or model x
+    data for EP over data). Capacity is per rank: the tokens it owns
+    after the sequence split."""
+    m = cfg.moe
+    B, S, D = x.shape
+    E, k = m.n_experts, m.top_k
+    ep = _ep_axes(cfg)
+    M = sharding.mesh_axis_size("model")
+    C = _capacity((B // _batch_shards(B)) * (S // M), cfg)
+    b = sharding.batch_axes_prefix(B) or None
+    xspec = P(b, "model", None)
+    ex = params["experts"]
+    axis = ep if len(ep) > 1 else ep[0]
+
+    def body(x_l, w_l, idx_l, wg, wu, wd):
+        wg, wu, wd = _expert_blocks(ex, wg, wu, wd)
+        Bl, Sl, _ = x_l.shape
+        disp, slot = dispatch(x_l.reshape(Bl * Sl, D), idx_l, E, C, k)
+        # the wire: the payload moves once, source rank -> expert's rank
+        disp = sharding.all_to_all(disp, axis, 0, 1)    # (E_loc, ep C, D)
+        out = _experts_ffn(wg, wu, wd, disp, cfg.act)
+        out = sharding.all_to_all(out, axis, 1, 0)      # (E, C, D)
+        return combine(out, slot, w_l, k).reshape(Bl, Sl, D)
+    f = sharding.shard_map(body, (xspec, xspec, xspec) + _expert_specs(ex),
+                           xspec)
+    return f(x, w.to(x.dtype), idx, ex["gate"], ex["up"], ex["down"])
+
+
+def replicated_rank(x, w, idx, wg, wu, wd, r: int, E_loc: int, C: int,
+                    cfg):
+    """Rank r's share of the staged baseline: its experts [r E_loc,
+    (r + 1) E_loc) on the assignments bound for them (the others go to
+    a dummy expert E_loc, whose slots are dropped), combined to this
+    rank's partial output (B, S, D)."""
+    B, S, D = x.shape
+    k = cfg.moe.top_k
+    idx = idx.reshape(-1)
+    loc = (idx >= r * E_loc) & (idx < (r + 1) * E_loc)
+    idx_f = torch.where(loc, idx - r * E_loc, E_loc)
+    w_f = torch.where(loc, w.reshape(-1), 0.0)
+    disp, slot = dispatch(x.reshape(B * S, D), idx_f, E_loc, C, k)
+    out = _experts_ffn(wg, wu, wd, disp, cfg.act)
+    return combine(out, slot, w_f, k).reshape(B, S, D)
+
+
+def _moe_replicated(params, x, w, idx, cfg):
+    """Staged baseline: tokens replicated over the expert axis, each
+    rank's partial output psum'd; under EP over data the tokens are
+    first gathered over data, and the rank's batch rows sliced back."""
+    m = cfg.moe
+    B, S = x.shape[:2]
+    ep = _ep_axes(cfg)
+    E_loc = m.n_experts // sharding.axis_size(ep)
+    b_axes = sharding.batch_axes_prefix(B)
+    # EP over data: tokens are gathered over data iff the batch shards there
+    gather_data = "data" in ep and "data" in b_axes
+    nd = sharding.mesh_axis_size("data")
+    C = _capacity((B // _batch_shards(B)) * (nd if gather_data else 1) * S,
+                  cfg)
+    xspec = P(b_axes or None, None, None)
+    ex = params["experts"]
+
+    def body(x_l, w_l, idx_l, wg, wu, wd):
+        wg, wu, wd = _expert_blocks(ex, wg, wu, wd)
+        if gather_data:
+            x_l, w_l, idx_l = (sharding.all_gather(t, "data", 0)
+                               for t in (x_l, w_l, idx_l))
+        y = replicated_rank(x_l, w_l, idx_l, wg, wu, wd,
+                            sharding.axis_index(ep), E_loc, C, cfg)
+        y = sharding.psum(y, ep)                        # staged combine
+        if gather_data:
+            n = y.shape[0] // nd
+            y = y[sharding.axis_index("data") * n:][:n]
+        return y
+    f = sharding.shard_map(body, (xspec, xspec, xspec) + _expert_specs(ex),
+                           xspec)
+    return f(x, w.to(x.dtype), idx, ex["gate"], ex["up"], ex["down"])

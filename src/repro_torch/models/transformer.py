@@ -30,13 +30,15 @@ Differences from the reference, on purpose:
     layer would build a zero tensor of the whole stack per layer). New
     caches are stacked back per group, as the reference's scan stacks
     them.
-  * No `_residual_constrain` (one process has no mesh) and no
-    `perf.FLAGS.remat_policy` (the port has no `perf`): the
-    parallelism slice brings the mesh. `forward` returns the
-    multi-token-prediction head's logits (``mtp_logits``) as the
-    reference's does; serving never runs the head.
-  * MLA in training mode is `mla_forward` (the reference takes its
-    sequence-parallel `mla_forward_sp` only over a `model` mesh axis).
+  * The reference's `perf.FLAGS` branches come from the mesh
+    (`sharding.use_mesh(seq_parallel=, decode_layout=, ...)`): `use_sp`
+    (Megatron-SP: `attn_apply_sp`, `mla.mla_forward_sp`, the SP FFN
+    and MoE) and `decode_heads_layout` (the head-sharded KV cache).
+    `_residual_constrain` resolves the residual stream's layout and
+    changes no value (`sharding.constrain`). No `remat_policy ==
+    "dots"` (training on a mesh is ROADMAP slice 8e). `forward`
+    returns the multi-token-prediction head's logits (``mtp_logits``)
+    as the reference's does; serving never runs the head.
 """
 from __future__ import annotations
 
@@ -49,12 +51,14 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import tree
 from repro_torch.models import ffn, mla, moe, rglru, ssm
+from repro_torch.models.attention import chunked_attention
 from repro_torch.models.layers import (apply_rope, embed, embedding_spec,
                                        proj_spec, rmsnorm, rmsnorm_spec,
                                        softcap, unembed)
 from repro_torch.models.module import (Spec, init_params, stack_specs,
                                        torch_dtype)
-from repro_torch.parallel import collectives
+from repro_torch.parallel import collectives, sharding
+from repro_torch.parallel.sharding import P
 
 _MIXERS = ("attn", "attn_win", "mla", "rec", "ssm")
 _FFNS = ("dense", "dense_big", "moe", "none")
@@ -133,10 +137,15 @@ def attn_spec(cfg) -> dict:
     }
 
 
+def _project(x, w):
+    """einsum("bsd,dhk->bshk", x, w) as one matrix product."""
+    D, H, K = w.shape
+    return (x @ w.reshape(D, H * K)).unflatten(-1, (H, K))
+
+
 def _proj(w, x):
-    """einsum("bsd,dhk->bshk", x, w["w"]) (+ bias) as one matrix product."""
-    D, H, K = w["w"].shape
-    y = (x @ w["w"].reshape(D, H * K)).unflatten(-1, (H, K))
+    """A projection's einsum (`_project`) plus its bias, if any."""
+    y = _project(x, w["w"])
     if "b" in w:
         y = y + w["b"].to(y.dtype)
     return y
@@ -158,6 +167,63 @@ def _out_proj(params, y):
     return y.flatten(-2) @ params["wo"]["w"].reshape(H * K, D)
 
 
+ATTN_AXES = {"wq": ("embed", "heads", "head_dim"),
+             "wk": ("embed", "kv_heads", "head_dim"),
+             "wv": ("embed", "kv_heads", "head_dim"),
+             "wo": ("heads", "head_dim", "embed")}
+
+
+def attn_sp_rank(x, positions, wq, wk, wv, wo, r: int, cfg, kv_sharded):
+    """Rank r's share of `attn_apply_sp` on the gathered sequence: its
+    H/M query heads' projections (and its kv heads', or every kv head
+    where they did not split), the flash kernel over the kv heads its
+    query heads group into, and its heads' partial out-projection
+    (B, S, D)."""
+    H, KVH = cfg.n_heads, cfg.n_kv_heads
+    G = H // KVH
+    hd = cfg.resolved_head_dim
+    q, k, v = _project(x, wq), _project(x, wk), _project(x, wv)
+    if cfg.rope_theta:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    B, S, H_loc = q.shape[:3]
+    if not kv_sharded:
+        # wk whole: the kv heads this rank's query heads group into
+        kv_w = max(1, H_loc // G)
+        start = (r * H_loc) // G
+        k, v = k[:, :, start:start + kv_w], v[:, :, start:start + kv_w]
+    kvh = k.shape[2]
+    out = chunked_attention(
+        q.reshape(B, S, kvh, H_loc // kvh, hd), k, v, causal=True)
+    return out.reshape(B, S, H_loc * hd) @ wo.reshape(H_loc * hd, -1)
+
+
+def attn_apply_sp(params, x, positions, cfg):
+    """Megatron-SP attention for head-TP archs: one shard_map — the
+    sequence-sharded residual all-gathered over `model`, head-local
+    projections and flash attention (`attn_sp_rank`), the partial
+    out-projection reduce-scattered back to the sequence blocks."""
+    B = x.shape[0]
+    b = sharding.batch_axes_prefix(B) or None
+    xspec, pspec = P(b, "model", None), P(b, "model")
+    names = tuple(ATTN_AXES)
+    wspecs = tuple(sharding.resolve_spec(ATTN_AXES[n], params[n]["w"].shape,
+                                         "param") for n in names)
+    kv_sharded = wspecs[1][1] is not None             # KVH % M == 0
+
+    def body(x_l, pos_l, *ws):
+        ws = [sharding.gather_param(w, ATTN_AXES[n])
+              for n, w in zip(names, ws)]
+        x_f = sharding.all_gather(x_l, "model", 1)
+        pos_f = sharding.all_gather(pos_l, "model", 1)
+        y = attn_sp_rank(x_f, pos_f, *ws, sharding.axis_index("model"), cfg,
+                         kv_sharded)
+        return sharding.psum_scatter(y, "model", 1)
+    y = sharding.shard_map(body, (xspec, pspec) + wspecs, xspec)(
+        x, positions, *(params[n]["w"] for n in names))
+    return y, None
+
+
 def attn_apply(params, x, positions, cfg, *, window=0, mode="train",
                cache=None, pos=None):
     """Returns (y, new_cache): the cache rows of a prefill, the updated
@@ -172,6 +238,8 @@ def attn_apply(params, x, positions, cfg, *, window=0, mode="train",
     H, KVH = cfg.n_heads, cfg.n_kv_heads
     G = H // KVH
     hd = cfg.resolved_head_dim
+    if takes_attn_sp(cfg, S, mode=mode, window=window):
+        return attn_apply_sp(params, x, positions, cfg)
     q, k, v = _qkv(params, x, positions, cfg)
 
     if mode in ("train", "prefill"):
@@ -195,7 +263,8 @@ def attn_apply(params, x, positions, cfg, *, window=0, mode="train",
             q1, cache["k"], cache["v"], k[:, 0], v[:, 0], pos, window)
     else:
         out, kc, vc = collectives.seqparallel_decode_attention(
-            q1, cache["k"], cache["v"], k[:, 0], v[:, 0], pos)
+            q1, cache["k"], cache["v"], k[:, 0], v[:, 0], pos,
+            force_local=decode_heads_layout(cfg))
     y = _out_proj(params, out.reshape(B, 1, H, hd))
     return y, {"k": kc, "v": vc}
 
@@ -204,10 +273,52 @@ def attn_apply(params, x, positions, cfg, *, window=0, mode="train",
 # Cache specs
 # --------------------------------------------------------------------------
 def decode_heads_layout(cfg) -> bool:
-    """Head-sharded KV cache layout: the reference takes it only when a
-    `model` mesh axis of size > 1 divides the kv heads. One process has
-    no model axis, so the cache is sequence-laid (``kv_seq``)."""
-    return False
+    """Head-sharded KV cache layout, where the mesh's `decode_layout` is
+    "heads" and the kv heads divide the model axis: each rank decodes
+    its kv heads with no collective inside the attention; only the
+    output's heads are gathered back."""
+    ctx = sharding.current()
+    M = sharding.mesh_axis_size("model")
+    return (ctx is not None and ctx.decode_layout == "heads" and M > 1
+            and cfg.n_kv_heads % M == 0)
+
+
+def use_sp(cfg, S: int) -> bool:
+    """Megatron-SP residual applies: the mesh's `seq_parallel` on, a
+    sequence that splits over `model`, and an arch family whose blocks
+    tolerate a sequence-sharded stream."""
+    ctx = sharding.current()
+    M = sharding.mesh_axis_size("model")
+    return (ctx is not None and ctx.seq_parallel and M > 1 and S % M == 0
+            and cfg.family not in ("ssm", "hybrid", "encdec"))
+
+
+def takes_attn_sp(cfg, S: int, *, mode="train", window=0) -> bool:
+    """`attn_apply` runs `attn_apply_sp`: a training forward with no
+    window under `use_sp`, query heads that split over `model` into
+    whole groups a rank (or a rank's heads within one group), and no
+    qkv bias."""
+    M = sharding.mesh_axis_size("model")
+    H, G = cfg.n_heads, cfg.n_heads // cfg.n_kv_heads
+    H_loc = max(1, H // M)
+    return (mode == "train" and not window and use_sp(cfg, S) and H % M == 0
+            and not cfg.qkv_bias and (H_loc % G == 0 or G % H_loc == 0))
+
+
+def takes_mla_sp(cfg, S: int, *, mode="train") -> bool:
+    """`block_apply` runs `mla.mla_forward_sp`: a training forward under
+    `use_sp`, q-lora, and query heads that split over `model`."""
+    return (mode == "train" and use_sp(cfg, S) and bool(cfg.mla.q_lora_rank)
+            and cfg.n_heads % sharding.mesh_axis_size("model") == 0)
+
+
+def takes_ffn_sp(cfg, S: int, d_ff: int, *, mode="train",
+                 bias=False) -> bool:
+    """`block_apply`'s FFN of width `d_ff` (a dense FFN, or the MoE's
+    shared experts) runs `ffn_apply(sp=True)`: no decode, `use_sp`, an
+    `mlp` dim that splits over `model`, and no bias."""
+    return (mode != "decode" and use_sp(cfg, S) and not bias
+            and d_ff % sharding.mesh_axis_size("model") == 0)
 
 
 def attn_cache_spec(cfg, batch: int, seq_len: int, *, window=0) -> dict:
@@ -298,6 +409,8 @@ def block_apply(params, x, positions, cfg, kind: LayerKind, *, mode="train",
             a, ckv = mla.mla_forward(params["mla"], h, positions, cfg,
                                      return_cache=True)
             new_cache = {"ckv": ckv}
+        elif takes_mla_sp(cfg, x.shape[1], mode=mode):
+            a = mla.mla_forward_sp(params["mla"], h, positions, cfg)
         else:
             a = mla.mla_forward(params["mla"], h, positions, cfg)
     elif kind.mix == "rec":
@@ -316,12 +429,16 @@ def block_apply(params, x, positions, cfg, kind: LayerKind, *, mode="train",
     else:
         a = ssm.mamba2_forward(params["ssm"], h, cfg)
     x = x + a
+    S = x.shape[1]
     if kind.ffn in ("dense", "dense_big"):
         h = rmsnorm(params["ln2"], x, eps, zero_centered=zc)
-        x = x + ffn.ffn_apply(params["ffn"], h, cfg.act)
+        up = params["ffn"]["up"]
+        x = x + ffn.ffn_apply(params["ffn"], h, cfg.act, sp=takes_ffn_sp(
+            cfg, S, up["w"].shape[-1], mode=mode, bias="b" in up))
     elif kind.ffn == "moe":
         h = rmsnorm(params["ln2"], x, eps, zero_centered=zc)
-        y, aux_moe = moe.moe_apply(params["moe"], h, cfg)
+        y, aux_moe = moe.moe_apply(params["moe"], h, cfg, sp=takes_ffn_sp(
+            cfg, S, cfg.moe.n_shared * cfg.moe.d_ff_shared, mode=mode))
         aux = aux + aux_moe
         x = x + y
     return x, aux, new_cache
@@ -393,6 +510,13 @@ class DecoderLM:
                            self.cfg.dtype, device=device)
 
     # -- shared trunk ------------------------------------------------------
+    def _residual_constrain(self, x):
+        """Megatron-SP keeps the residual stream sequence-sharded over
+        `model` (the mesh's `seq_parallel`); a layout, no value change."""
+        if use_sp(self.cfg, x.shape[1]):
+            return sharding.constrain(x, "batch", "kv_seq", None)
+        return sharding.constrain(x, "batch", "seq", "embed")
+
     def _embed_in(self, params, tokens, embeddings=None):
         """Token embeddings; a frontend config's `embeddings` (B, n, D)
         replace the first n rows (the reference's splice)."""
@@ -405,7 +529,7 @@ class DecoderLM:
         if cfg.frontend.kind != "none" and embeddings is not None:
             n = embeddings.shape[1]
             x = torch.cat([embeddings.to(x.dtype), x[:, n:]], dim=1)
-        return x
+        return self._residual_constrain(x)
 
     def _run_groups(self, params, x, positions, *, mode, caches=None,
                     pos=None):
@@ -427,6 +551,8 @@ class DecoderLM:
                                           preserve_rng_state=False)
                 else:
                     x, a, nc = fn(p_l, x, positions, cache=c_l)
+                if mode != "decode":
+                    x = self._residual_constrain(x)
                 aux_total = aux_total + a
                 ncs.append(nc)
             if ncs and tree.leaves(ncs[0]):

@@ -21,35 +21,46 @@ hybrids decode against a rolling window cache
 (`window_decode_attention`), locally.
 
 The functions keep the reference's global view: the same argument and
-result shapes, so the model code calls them unchanged. The reference
-partitions global arrays with `shard_map`; here every rank of the mesh
-holds the whole (replicated) tensors, so nothing has to be gathered
-before a rank computes: it takes its rows by its coordinate on `model`
-(`sharding.axis_index`) and runs the local computation — `_cp_rank`,
-the flash kernel over its query rows against the whole K/V at
-`q_offset` = the shard's first row; `_decode_shard`, the partials over
-its cache rows of the cache updated whole — and the collectives over
-that axis's process group (`sharding.axis_group`) rebuild the global
-result on every rank: the outputs all-gathered on the sequence, the
-decode partials all-reduced (`_merge`). Batch axes (pod, data) are not
-split: each data row computes the same values. The collectives are
-`torch.distributed`'s and record no gradient (training on a mesh comes
-later). The per-rank functions are plain, so one process can run every
-rank of an axis in turn and merge with stacked reductions.
+result shapes, so the model code calls them unchanged. Each sharded
+branch is a `sharding.shard_map` over one plain per-rank piece, as the
+reference's is a `shard_map` over `lax` collectives:
 
-In this slice the head-TP branches compute the local result on the
-whole tensors: the weights are replicated until the sharded FFN and
-attention weights come (ROADMAP slice 8c), so they compute what the
-reference computes. The K/V all-gather of context parallelism and the
-per-shard cache writes come with the sharded caches there too.
+  * head-TP (`_head_tp_attention`): K/V take the head-TP layout
+    (`_head_tp_layout`: the kv heads grouped where M divides them, else
+    K/V repeated to H heads, one query head a kv head), each rank runs
+    the flash kernel over its block of heads, and the heads are
+    gathered back; no collective inside;
+  * context parallelism (`_context_parallel_attention`): each rank
+    holds its S/M query rows; with K/V sequence-sharded the same way
+    (`Sk == S`, `Sk % M == 0`) it all-gathers them, else it holds them
+    whole, and attends at q_offset = its first row (`_cp_block`);
+  * the sharded decode (`_sharded_decode`): each rank writes the new
+    entry into its S/M cache rows at p - s0 and computes its partials
+    over them (`_decode_shard`), and `merge_partials` combines them
+    over `model`; with the "heads" cache layout (`force_local=`) each
+    rank decodes its kv heads (`_local_decode`) with no collective.
+    Every rank holds the whole caches, so the decode returns them
+    updated by a local write of the new entry: no cache is gathered,
+    only the attention output.
+
+The per-rank pieces take the rank's block (and its first row s0), so
+one process can run every rank of an axis in turn on the blocks and do
+the collectives as stacked tensor ops (`chip_smoke.py` phases 12 and
+13): `_cp_block`, `_decode_shard` with `_merge`, `_head_tp_layout` then
+`chunked_attention`, `_local_decode`. The collectives record no
+gradient: a sharded branch raises on an input that requires one
+(ROADMAP slice 8e).
 """
 from __future__ import annotations
+
+from functools import partial
 
 import torch
 
 from repro_torch.models.attention import (chunked_attention, decode_partials,
                                           finalize_partials)
 from repro_torch.parallel import sharding
+from repro_torch.parallel.sharding import P
 
 
 # --------------------------------------------------------------------------
@@ -66,77 +77,117 @@ def _merge(acc, m, l, reduce):
     return acc_g, l_g
 
 
-def merge_partials(acc, m, l, group):
-    """Combine per-shard (acc, m, l) over the ranks of `group`. Returns
-    (acc_g, l_g), the same on every rank."""
-    import torch.distributed as dist
-    ops = {"max": dist.ReduceOp.MAX, "sum": dist.ReduceOp.SUM}
-
-    def all_reduce(t, op):
-        t = t.clone()
-        dist.all_reduce(t, op=ops[op], group=group)
-        return t
-    return _merge(acc, m, l, all_reduce)
+def merge_partials(acc, m, l, axis_name):
+    """Combine per-shard (acc, m, l) over the ranks of mesh axis
+    `axis_name` (a pmax, then two psums). Returns (acc_g, l_g), the
+    same on every rank."""
+    return _merge(acc, m, l, lambda t, op: (
+        sharding.pmax if op == "max" else sharding.psum)(t, axis_name))
 
 
-def _gather_seq(t, group, n):
-    """The shards of `t` on dim 1 from the `n` ranks of `group`, in
-    rank order, concatenated."""
-    import torch.distributed as dist
-    parts = [torch.empty_like(t) for _ in range(n)]
-    dist.all_gather(parts, t.contiguous(), group=group)
-    return torch.cat(parts, dim=1)
+def _batch_spec_entry(B: int):
+    axes = sharding.batch_axes_prefix(B)
+    return axes if axes else None
 
 
 # --------------------------------------------------------------------------
 # Full-sequence attention dispatcher
 # --------------------------------------------------------------------------
 def attend(q, k, v, *, causal=True, window=0, cap=0.0, sm_scale=None):
-    """q: (B,S,KVH,G,Dk); k/v: (B,S,KVH,D*) -> (B,S,KVH,G,Dv)."""
-    B, S, KVH, G, Dk = q.shape
-    M = sharding.mesh_axis_size("model")
+    """q: (B,S,KVH,G,Dk); k/v: (B,Sk,KVH,D*) -> (B,S,KVH,G,Dv)."""
+    S, KVH, G = q.shape[1:4]
     kw = dict(causal=causal, window=window, cap=cap, sm_scale=sm_scale)
-    if M > 1 and KVH % M and (KVH * G) % M and not S % M:
-        return _context_parallel_attention(q, k, v, **kw)
-    # M == 1, either head-TP branch (replicated weights) or no split
-    return chunked_attention(q, k, v, **kw)
+    return {"local": chunked_attention, "head_tp": _head_tp_attention,
+            "cp": _context_parallel_attention}[attend_branch(S, KVH, G)](
+        q, k, v, **kw)
 
 
-def _cp_rank(q, k, v, r, M, **kw):
-    """Rank r's share of context parallelism over M ranks: its S/M
-    query rows from s0 = r S/M, attended against the whole k/v at
-    q_offset = s0. (B,S/M,KVH,G,Dv)."""
-    n = q.shape[1] // M
-    s0 = r * n
-    return chunked_attention(q[:, s0:s0 + n], k, v, q_offset=s0, **kw)
+def attend_branch(S: int, KVH: int, G: int) -> str:
+    """`attend`'s strategy on the mesh's `model` axis: "local",
+    "head_tp" or "cp" (context parallelism), as the module docstring
+    lists."""
+    M = sharding.mesh_axis_size("model")
+    if M == 1:
+        return "local"
+    if KVH % M == 0 or (KVH * G) % M == 0:
+        return "head_tp"
+    if S % M == 0:
+        return "cp"
+    return "local"
+
+
+def _head_tp_layout(q, k, v, M: int):
+    """The head-TP layout of q, k, v on M ranks: the kv heads grouped
+    where M divides them, else K/V repeated to the H query heads, one
+    query head a group (Megatron-style duplication)."""
+    B, S, KVH, G, Dk = q.shape
+    if KVH % M == 0:
+        return q, k, v
+    return (q.reshape(B, S, KVH * G, 1, Dk), k.repeat_interleave(G, dim=2),
+            v.repeat_interleave(G, dim=2))
+
+
+def _head_tp_attention(q, k, v, **kw):
+    """Heads sharded over `model`: each rank attends its heads' block
+    (no collective inside); the heads are gathered back."""
+    B, S, KVH, G, _ = q.shape
+    M = sharding.mesh_axis_size("model")
+    b = _batch_spec_entry(B)
+    ql, kl, vl = _head_tp_layout(q, k, v, M)
+    qspec = P(b, None, "model", None, None)
+    kvspec = P(b, None, "model", None)
+    out = sharding.shard_map(partial(chunked_attention, **kw),
+                             (qspec, kvspec, kvspec), qspec)(ql, kl, vl)
+    return out.reshape(B, S, KVH, G, -1)
+
+
+def _cp_block(q_l, k, v, s0: int, **kw):
+    """A rank's share of context parallelism: its query rows from s0,
+    attended against the whole k/v at q_offset = s0."""
+    return chunked_attention(q_l, k, v, q_offset=s0, **kw)
 
 
 def _context_parallel_attention(q, k, v, **kw):
-    """Queries sharded on sequence over `model`: this rank attends its
-    S/M rows (`_cp_rank`, against the K/V it holds whole); the rows are
-    all-gathered back."""
+    """Queries sharded on sequence over `model`; K/V either sharded the
+    same way and all-gathered inside (Sk == S, Sk % M == 0), or held
+    whole (a key length off the query's or off a multiple of M)."""
+    B, S = q.shape[:2]
+    Sk = k.shape[1]
     M = sharding.mesh_axis_size("model")
-    r, group = sharding.axis_index("model"), sharding.axis_group("model")
-    return _gather_seq(_cp_rank(q, k, v, r, M, **kw), group, M)
+    kv_sharded = Sk % M == 0 and Sk == S
+    b = _batch_spec_entry(B)
+    qspec = P(b, "model", None, None, None)
+    kvspec = P(b, "model" if kv_sharded else None, None, None)
+
+    def body(q_l, k_l, v_l):
+        if kv_sharded:
+            k_l = sharding.all_gather(k_l, "model", 1)
+            v_l = sharding.all_gather(v_l, "model", 1)
+        s0 = sharding.axis_index("model") * (S // M)
+        return _cp_block(q_l, k_l, v_l, s0, **kw)
+    return sharding.shard_map(body, (qspec, kvspec, kvspec), qspec)(q, k, v)
 
 
 # --------------------------------------------------------------------------
 # Decode: KV-sequence-parallel flash-decode
 # --------------------------------------------------------------------------
-def _update(cache, new, p):
-    """Per-request write of `new` at index p (rows whose p lies outside
-    the cache keep their content). A new tensor: the caller's cache is
-    left as it was, as the reference's functional update leaves it."""
+def _update(cache, new, p, s0: int = 0):
+    """Per-request write of `new` at local index p - s0 (rows whose
+    index lies outside this cache block keep their content). A new
+    tensor: the caller's cache is left as it was, as the reference's
+    functional update leaves it."""
     S = cache.shape[1]
-    in_range = (p >= 0) & (p < S)
+    idx = p - s0 if s0 else p          # no kernel for the whole cache
+    in_range = (idx >= 0) & (idx < S)
     rows = torch.arange(cache.shape[0], device=cache.device)
-    upd = cache.index_put((rows, p.clamp(0, S - 1)), new.to(cache.dtype))
+    upd = cache.index_put((rows, idx.clamp(0, S - 1)), new.to(cache.dtype))
     # a where, not a boolean index: no host sync on the card
     return torch.where(in_range[:, None, None, None], upd, cache)
 
 
 def seqparallel_decode_attention(q, k_cache, v_cache, k_new, v_new, pos, *,
-                                 cap=0.0, sm_scale=None, v_dims=None):
+                                 cap=0.0, sm_scale=None, v_dims=None,
+                                 force_local=False):
     """One-token decode against a sequence-sharded KV cache.
 
     q: (B,KVH,G,Dk); caches: (B,S,KVH,D*); new entries: (B,KVH,D*);
@@ -146,43 +197,108 @@ def seqparallel_decode_attention(q, k_cache, v_cache, k_new, v_new, pos, *,
 
     v_dims: MLA's absorbed mode — V is k_cache[..., :v_dims] (the
     shared latent); v_cache and v_new are ignored and v_cache comes
-    back as None. With no mesh, M == 1 or S off a multiple of M, the
-    whole cache is one shard.
+    back as None. force_local: the head-sharded cache layout
+    (`transformer.decode_heads_layout`) — each rank of `model` decodes
+    its kv heads with no collective. With no mesh, M == 1 or S off a
+    multiple of M, the whole cache is one shard.
     """
-    B, S = k_cache.shape[:2]
+    B, S, KVH = k_cache.shape[:3]
     pos = torch.as_tensor(pos, device=q.device).long().broadcast_to((B,))
     M = sharding.mesh_axis_size("model")
-    k_cache = _update(k_cache, k_new, pos)
+    kw = dict(cap=cap, sm_scale=sm_scale, v_dims=v_dims)
+    if M == 1 or (S % M and not force_local):
+        return _local_decode(q, k_cache, v_cache, k_new, v_new, pos, **kw)
+    if force_local:
+        if KVH % M:
+            raise ValueError(f"the heads layout needs the {KVH} kv heads "
+                             f"to split over model = {M}")
+        return _heads_decode(q, k_cache, v_cache, k_new, v_new, pos, **kw)
+    return _sharded_decode(q, k_cache, v_cache, k_new, v_new, pos, **kw)
+
+
+def _decode_shard(q, k_l, v_l, k_new, v_new, pos, s0: int, *, cap,
+                  sm_scale, v_dims):
+    """A rank's share of the decode on its block of cache rows from s0
+    (the whole cache at s0 = 0): the new entry written at p - s0 where
+    it falls in the block (`_update`), then the partials (acc, m, l)
+    over the block at its absolute positions. Returns (acc, m, l, k_l,
+    v_l), v_l None in MLA's absorbed mode (V is k_l[..., :v_dims])."""
+    k_l = _update(k_l, k_new, pos, s0)
     if v_dims is not None:
-        v_eff, v_cache = k_cache[..., :v_dims], None
+        v_eff, v_l = k_l[..., :v_dims], None
     else:
-        v_cache = _update(v_cache, v_new, pos)
-        v_eff = v_cache
-    if M > 1 and not S % M:
-        acc, l = _sharded_decode(q, k_cache, v_eff, pos, M, cap=cap,
-                                 sm_scale=sm_scale)
-    else:
-        acc, _, l = decode_partials(q, k_cache, v_eff,
-                                    torch.arange(S, device=q.device), pos,
-                                    cap=cap, sm_scale=sm_scale)
+        v_l = _update(v_l, v_new, pos, s0)
+        v_eff = v_l
+    acc, m, l = _decode_block(q, k_l, v_eff, pos, s0, cap=cap,
+                              sm_scale=sm_scale)
+    return acc, m, l, k_l, v_l
+
+
+def _local_decode(q, k_cache, v_cache, k_new, v_new, pos, **kw):
+    """The decode on the whole cache, merged: (out, k_cache, v_cache)."""
+    acc, _, l, k_cache, v_cache = _decode_shard(q, k_cache, v_cache, k_new,
+                                                v_new, pos, 0, **kw)
     return finalize_partials(acc, l).to(q.dtype), k_cache, v_cache
 
 
-def _decode_shard(q, k_cache, v_eff, pos, r, M, **kw):
-    """Rank r's decode partials (acc, m, l) over its S/M cache rows from
-    s0 = r S/M, at their absolute positions."""
-    n = k_cache.shape[1] // M
-    s0 = r * n
-    return decode_partials(q, k_cache[:, s0:s0 + n], v_eff[:, s0:s0 + n],
-                           s0 + torch.arange(n, device=q.device), pos, **kw)
+def _decode_block(q, k_l, v_l, pos, s0: int, **kw):
+    """Partials (acc, m, l) over a block of cache rows from s0, at their
+    absolute positions."""
+    kv_pos = torch.arange(k_l.shape[1], device=q.device)
+    return decode_partials(q, k_l, v_l, kv_pos + s0 if s0 else kv_pos, pos,
+                           **kw)
 
 
-def _sharded_decode(q, k_cache, v_eff, pos, M, **kw):
-    """The sharded branch: this rank's partials (`_decode_shard`),
-    merged over `model`. Returns (acc_g, l_g)."""
-    r, group = sharding.axis_index("model"), sharding.axis_group("model")
-    acc, m, l = _decode_shard(q, k_cache, v_eff, pos, r, M, **kw)
-    return merge_partials(acc, m, l, group)
+def _decode_in_specs(B: int, mla: bool, seq_ax, head_ax):
+    """The sharded decode's in-specs (q, caches, new entries, pos) and
+    its output's spec."""
+    b = _batch_spec_entry(B)
+    qspec = P(b, head_ax, None, None)
+    cspec = P(b, seq_ax, head_ax, None)
+    nspec = P(b, head_ax, None)
+    return (qspec, cspec, None if mla else cspec, nspec,
+            None if mla else nspec, P(b)), qspec
+
+
+def _whole_caches(k_cache, v_cache, k_new, v_new, pos, mla: bool):
+    """The caches with the new entry written: what every rank, holding
+    the whole caches, returns (a local write; no gather)."""
+    return (_update(k_cache, k_new, pos),
+            None if mla else _update(v_cache, v_new, pos))
+
+
+def _sharded_decode(q, k_cache, v_cache, k_new, v_new, pos, **kw):
+    """The cache sequence-sharded over `model`: each rank writes the new
+    entry into its S/M rows at p - s0 and computes its partials over
+    them (`_decode_shard`); the partials are merged over `model`."""
+    B, S = k_cache.shape[:2]
+    M = sharding.mesh_axis_size("model")
+    mla = kw["v_dims"] is not None
+
+    def body(q_l, kc, vc, kn, vn, p):
+        acc, m, l, _, _ = _decode_shard(
+            q_l, kc, vc, kn, vn, p, sharding.axis_index("model") * (S // M),
+            **kw)
+        acc, l = merge_partials(acc, m, l, "model")
+        return finalize_partials(acc, l).to(q_l.dtype)
+    ins, ospec = _decode_in_specs(B, mla, "model", None)
+    out = sharding.shard_map(body, ins, ospec)(q, k_cache, v_cache, k_new,
+                                               v_new, pos)
+    return (out,) + _whole_caches(k_cache, v_cache, k_new, v_new, pos, mla)
+
+
+def _heads_decode(q, k_cache, v_cache, k_new, v_new, pos, **kw):
+    """The cache head-sharded over `model`: each rank's decode over its
+    kv heads, whole in sequence (`_local_decode`); no collective inside,
+    the output's heads gathered back."""
+    mla = kw["v_dims"] is not None
+    ins, ospec = _decode_in_specs(k_cache.shape[0], mla, None, "model")
+
+    def body(q_l, kc, vc, kn, vn, p):
+        return _local_decode(q_l, kc, vc, kn, vn, p, **kw)[0]
+    out = sharding.shard_map(body, ins, ospec)(q, k_cache, v_cache, k_new,
+                                               v_new, pos)
+    return (out,) + _whole_caches(k_cache, v_cache, k_new, v_new, pos, mla)
 
 
 def window_decode_attention(q, k_win, v_win, k_new, v_new, pos, window: int,

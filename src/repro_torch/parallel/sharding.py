@@ -24,20 +24,54 @@ dim d it shards, else `Replicate()`. A tensor dim sharded over two mesh
 axes is split by DTensor in mesh-dim order, where JAX splits it with the
 spec's first axis major: the same local shapes, other blocks.
 
-The reference reads `perf.FLAGS.ep_over_data` in `make_param_rules`;
-the port has no `perf` module and takes it as an argument (of
-`make_param_rules` and `use_mesh`). `constrain` resolves its spec and
-returns its tensor as it is: the port's collectives keep the
-reference's global view on replicated tensors (`parallel.collectives`),
-so a layout constraint changes no value. `abstract_with_shardings`
-exists for lowering and comes with the dry-run tooling.
+The reference reads its branches from `perf.FLAGS` (`ep_over_data`,
+`moe_impl`, `capacity_factor`, `seq_parallel`, `decode_layout`); the
+port has no `perf` module and takes each as an argument of `use_mesh`,
+kept on `MeshContext` (`ep_over_data` also of `make_param_rules`),
+since they matter only with a mesh. `abstract_with_shardings` exists
+for lowering and comes with the dry-run tooling.
+
+The `shard_map` counterpart. The port keeps plain tensors and the
+reference's global view at every function boundary: each rank of a
+`DeviceMesh` holds every activation and parameter whole. A sharded
+region is `shard_map(body, in_specs, out_specs)(*args)`: each input is
+cut to the block this rank's mesh coordinates own under its
+`PartitionSpec`, `body` runs on the blocks, and each output's global
+value is rebuilt from its out-spec by all-gathers. Inside `body` the
+reference's `lax` collectives are the functions below, over the
+process group of the named mesh axis or tuple of axes:
+
+    lax.all_gather(tiled)        all_gather     (all_gather)
+    lax.psum_scatter(tiled)      psum_scatter   (reduce_scatter)
+    lax.all_to_all(tiled)        all_to_all     (all_to_all_single)
+    lax.psum / lax.pmax          psum / pmax    (all_reduce)
+    lax.ppermute                 ppermute       (batch_isend_irecv)
+    lax.axis_index               axis_index
+
+A tuple of axes, such as EP over ("model", "data") or the batch over
+("pod", "data"), is one line of ranks ordered as JAX orders it, the
+first axis major (`_line`); `torch.distributed` orders a group's ranks
+by global rank, so the collectives permute blocks to JAX's order.
+
+Why not DTensor with `local_map`: it would push DTensors through every
+model function, while a plain body is what one process can also run
+rank by rank on the card (`chip_smoke.py` phase 13), with the
+collectives done as stacked tensor ops. The cost of the global view is
+memory: every rank holds the whole activations, which the reference
+shards. `constrain` resolves its spec and returns its tensor as it is.
+The collectives carry no gradient: `shard_map` raises on an input that
+requires one while grad mode is on (training on a mesh is ROADMAP slice
+8e), rather than drop it.
 """
 from __future__ import annotations
 
 import contextlib
 import contextvars
 import dataclasses
+import math
 from typing import Optional
+
+import torch
 
 from repro_torch import tree
 from repro_torch.models import module as mod
@@ -99,11 +133,20 @@ ACT_RULES = {
 }
 
 
+MOE_IMPLS = ("a2a", "replicated")
+DECODE_LAYOUTS = ("seq", "heads")
+
+
 @dataclasses.dataclass
 class MeshContext:
     mesh: object            # a DeviceMesh or an AbstractMesh
     param_rules: dict
     act_rules: dict
+    # the reference's perf.FLAGS branches that matter only on a mesh
+    moe_impl: str = "a2a"           # 'a2a' (direct) | 'replicated' (staged)
+    capacity_factor: Optional[float] = None   # overrides MoEConfig's
+    seq_parallel: bool = False      # Megatron-SP residual stream
+    decode_layout: str = "seq"      # 'seq' | 'heads' (KV cache sharding)
 
 
 _CTX: contextvars.ContextVar[Optional[MeshContext]] = contextvars.ContextVar(
@@ -112,9 +155,18 @@ _CTX: contextvars.ContextVar[Optional[MeshContext]] = contextvars.ContextVar(
 
 @contextlib.contextmanager
 def use_mesh(mesh, *, fsdp: bool = True, ep_over_data: bool = False,
-             param_rules: dict | None = None, act_rules: dict | None = None):
+             param_rules: dict | None = None, act_rules: dict | None = None,
+             moe_impl: str = "a2a", capacity_factor: float | None = None,
+             seq_parallel: bool = False, decode_layout: str = "seq"):
+    if moe_impl not in MOE_IMPLS:
+        raise ValueError(f"moe_impl {moe_impl!r} is not one of {MOE_IMPLS}")
+    if decode_layout not in DECODE_LAYOUTS:
+        raise ValueError(f"decode_layout {decode_layout!r} is not one of "
+                         f"{DECODE_LAYOUTS}")
     ctx = MeshContext(mesh, param_rules or make_param_rules(
-        fsdp, ep_over_data=ep_over_data), act_rules or dict(ACT_RULES))
+        fsdp, ep_over_data=ep_over_data), act_rules or dict(ACT_RULES),
+        moe_impl=moe_impl, capacity_factor=capacity_factor,
+        seq_parallel=seq_parallel, decode_layout=decode_layout)
     token = _CTX.set(ctx)
     try:
         yield ctx
@@ -150,14 +202,222 @@ def _device_mesh(name: str):
     return mesh
 
 
-def axis_index(name: str) -> int:
-    """This rank's coordinate on mesh axis `name` (lax.axis_index)."""
-    return _device_mesh(name).get_local_rank(name)
+def _axes(axis) -> tuple:
+    return (axis,) if isinstance(axis, str) else tuple(axis)
 
 
-def axis_group(name: str):
-    """The process group of this rank's line along mesh axis `name`."""
-    return _device_mesh(name).get_group(name)
+def axis_size(axis) -> int:
+    """The ranks of mesh axis `axis`, or of a tuple of axes (1 without
+    a mesh; an absent axis counts 1)."""
+    return math.prod(mesh_axis_size(a) for a in _axes(axis))
+
+
+@dataclasses.dataclass(frozen=True)
+class _Line:
+    group: object           # the process group of the line's ranks
+    ranks: tuple            # global ranks in JAX's order (first axis major)
+    order: tuple            # order[j]: group rank of JAX index j
+    index: int              # this rank's JAX index on the line
+
+
+def _line(axis) -> _Line:
+    """This rank's line of ranks along `axis` (a name or a tuple of
+    names). A tuple's groups are made once per mesh, every line of them
+    by every rank (`new_subgroups_by_enumeration`), so all ranks must
+    reach the first use of a tuple together, as SPMD code does."""
+    import torch.distributed as dist
+    axes = _axes(axis)
+    mesh = _device_mesh(axes[0])
+    cache = mesh.__dict__.setdefault("_repro_lines", {})
+    if axes not in cache:
+        names = list(mesh.mesh_dim_names)
+        for a in axes:
+            if a not in names:
+                raise RuntimeError(f"axis {a!r} is not on the mesh {names}")
+        grid = mesh.mesh.permute(
+            [names.index(a) for a in names if a not in axes]
+            + [names.index(a) for a in axes])
+        lines = [tuple(int(r) for r in row)
+                 for row in grid.reshape(-1, math.prod(
+                     grid.shape[len(names) - len(axes):]))]
+        if len(axes) == 1:
+            group = mesh.get_group(axes[0])
+        else:
+            group, _ = dist.new_subgroups_by_enumeration(
+                [sorted(line) for line in lines])
+        me = dist.get_rank()
+        line = next(line for line in lines if me in line)
+        srt = sorted(line)
+        cache[axes] = _Line(group, line, tuple(srt.index(r) for r in line),
+                            line.index(me))
+    return cache[axes]
+
+
+def axis_index(axis) -> int:
+    """This rank's coordinate on mesh axis `axis`; on a tuple of axes,
+    its index with the first axis major (lax.axis_index)."""
+    return _line(axis).index
+
+
+def axis_group(axis):
+    """The process group of this rank's line along `axis`."""
+    return _line(axis).group
+
+
+# --------------------------------------------------------------------------
+# The collectives of a shard_map body (tiled, as the reference calls them)
+# --------------------------------------------------------------------------
+def _to_group_order(blocks, ln: _Line) -> list:
+    """Blocks listed by JAX index -> listed by group rank."""
+    inv = {g: j for j, g in enumerate(ln.order)}
+    return [blocks[inv[g]] for g in range(len(blocks))]
+
+
+def all_gather(x, axis, dim: int):
+    """lax.all_gather(x, axis, axis=dim, tiled=True)."""
+    import torch.distributed as dist
+    ln = _line(axis)
+    parts = [torch.empty_like(x) for _ in ln.ranks]
+    dist.all_gather(parts, x.contiguous(), group=ln.group)
+    return torch.cat([parts[g] for g in ln.order], dim)
+
+
+def psum_scatter(x, axis, dim: int):
+    """lax.psum_scatter(x, axis, scatter_dimension=dim, tiled=True)."""
+    import torch.distributed as dist
+    ln = _line(axis)
+    n = len(ln.ranks)
+    blocks = [b.contiguous() for b in
+              _to_group_order(list(x.chunk(n, dim)), ln)]
+    out = torch.empty_like(blocks[0])
+    dist.reduce_scatter(out, blocks, group=ln.group)
+    return out
+
+
+def all_to_all(x, axis, split_dim: int, concat_dim: int):
+    """lax.all_to_all(x, axis, split_dim, concat_dim, tiled=True): block
+    j of `x` on split_dim goes to index j; the blocks received are
+    concatenated on concat_dim by their sender's index."""
+    import torch.distributed as dist
+    ln = _line(axis)
+    n = len(ln.ranks)
+    send = torch.stack(_to_group_order(list(x.chunk(n, split_dim)), ln))
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv, send, group=ln.group)
+    return torch.cat([recv[g] for g in ln.order], concat_dim)
+
+
+def _all_reduce(x, axis, op):
+    import torch.distributed as dist
+    out = x.clone()
+    dist.all_reduce(out, op=getattr(dist.ReduceOp, op),
+                    group=_line(axis).group)
+    return out
+
+
+def psum(x, axis):
+    """lax.psum(x, axis)."""
+    return _all_reduce(x, axis, "SUM")
+
+
+def pmax(x, axis):
+    """lax.pmax(x, axis)."""
+    return _all_reduce(x, axis, "MAX")
+
+
+def ppermute(x, axis, shift: int):
+    """lax.ppermute(x, axis, [(i, (i + shift) % n)]): this rank's block
+    goes `shift` places on along the line; the one `shift` places back
+    arrives."""
+    import torch.distributed as dist
+    ln = _line(axis)
+    n = len(ln.ranks)
+    if shift % n == 0:
+        return x.clone()
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    ops = [dist.P2POp(dist.isend, x, ln.ranks[(ln.index + shift) % n],
+                      group=ln.group),
+           dist.P2POp(dist.irecv, out, ln.ranks[(ln.index - shift) % n],
+                      group=ln.group)]
+    for w in dist.batch_isend_irecv(ops):
+        w.wait()
+    return out
+
+
+# --------------------------------------------------------------------------
+# shard_map
+# --------------------------------------------------------------------------
+def _block(x, spec):
+    """This rank's block of the global `x` under `spec`."""
+    for d, ent in enumerate(spec):
+        if ent is None:
+            continue
+        n = axis_size(ent)
+        if x.shape[d] % n:
+            raise ValueError(f"dim {d} of {tuple(x.shape)} does not split "
+                             f"over {ent} ({n} ranks)")
+        b = x.shape[d] // n
+        x = x.narrow(d, axis_index(ent) * b, b)
+    return x
+
+
+def _unblock(x, spec):
+    """The global value of blocks laid out by `spec` (all-gathers)."""
+    for d, ent in enumerate(spec):
+        if ent is not None:
+            x = all_gather(x, ent, d)
+    return x
+
+
+def gather_param(w, axes, *, keep_model: bool = True, skip=(), shape=None):
+    """De-shard a parameter's block inside a shard_map body: all-gather
+    it over every mesh axis its param spec names, or every one but
+    `model` (the reference's `_gather_w` / `degather`, and with
+    keep_model=False its `_gather_all`). The spec is resolved on the
+    block's shape, as the reference's are, or on `shape`; the dims of
+    the logical axes in `skip` stay sharded (MoE's `_gather_fsdp`
+    keeps the expert dim)."""
+    spec = resolve_spec(axes, w.shape if shape is None else shape, "param")
+    for d, ent in enumerate(spec):
+        if axes[d] in skip:
+            continue
+        for ax in _axes(ent) if ent is not None else ():
+            if not (keep_model and ax == "model"):
+                w = all_gather(w, ax, d)
+    return w
+
+
+def check_no_grad(*xs, what: str = "a sharded region"):
+    """Raise where an input requires grad under grad mode: the port's
+    collectives record no gradient (training on a mesh: ROADMAP 8e)."""
+    if torch.is_grad_enabled() and any(
+            getattr(x, "requires_grad", False) for x in xs):
+        raise NotImplementedError(
+            f"{what}: an input requires grad, and the port's collectives "
+            "carry no gradient; training on a mesh is ROADMAP slice 8e")
+
+
+def shard_map(body, in_specs, out_specs):
+    """The counterpart of the reference's `shard_map(body, mesh,
+    in_specs, out_specs)` on plain tensors held whole by every rank:
+    each argument is cut to this rank's block under its spec (None: not
+    a tensor, passed as it is), `body` runs on the blocks, and each
+    output's global value is rebuilt from its out-spec. `out_specs` is
+    one spec (one output) or a tuple of them."""
+    single = isinstance(out_specs, PartitionSpec)
+
+    def run(*args):
+        check_no_grad(*args)
+        blocks = [a if s is None else _block(a, s)
+                  for a, s in zip(args, in_specs, strict=True)]
+        out = body(*blocks)
+        if single:
+            return _unblock(out, out_specs)
+        return tuple(o if s is None else _unblock(o, s)
+                     for o, s in zip(out, out_specs, strict=True))
+    return run
+
 
 
 # --------------------------------------------------------------------------

@@ -22,7 +22,7 @@ a bf16 (full-width) run; the port can.
 tensor leaf gives the device (and must give the stored shape and dtype),
 any other leaf means the package default device. `spec_tree` is taken
 for the reference's signature and unused: one process has no mesh to
-reshard onto (ROADMAP slice 8).
+reshard onto (training on a mesh: ROADMAP slice 8e).
 """
 from __future__ import annotations
 

@@ -12,7 +12,7 @@ count, as the reference's scan sums them.
 One process has no mesh: `jit_train_step` returns the step, donating
 the parameters and optimizer state (updated in place, as the
 reference's `jit(..., donate_argnums=(0, 1))` reuses their buffers);
-the sharded step comes with the parallelism slice (ROADMAP slice 8).
+the sharded step comes with training on a mesh (ROADMAP slice 8e).
 """
 from __future__ import annotations
 

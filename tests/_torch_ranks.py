@@ -1,5 +1,7 @@
 """Multi-rank runs of the port on the CPU, for the parallelism tests
-(`test_torch_sharding.py`, `test_torch_context_parallel.py`).
+(`test_torch_sharding.py`, `test_torch_context_parallel.py`,
+`test_torch_expert_parallel.py`, `test_torch_seq_parallel.py`,
+`test_torch_wire.py`).
 
 `run(jobs, world, workdir, payload)` spawns `world` processes with
 `torch.multiprocessing.spawn`; each joins one gloo process group through
@@ -141,7 +143,40 @@ def context_parallel(rank, payload):
         assert vc is None
     out["cp/counts"] = np.asarray([counts["_context_parallel_attention"],
                                    counts["_sharded_decode"]])
+    out.update(_decode_gathers(mesh, args))
     return out
+
+
+def _decode_gathers(mesh, args):
+    """The bytes a rank's all-gathers send in one sequence-sharded
+    decode (on `args`) and in one heads-layout decode (KVH 4 over
+    model = 4, seeded), each beside its output's bytes; and the heads
+    layout's output and caches."""
+    from repro_torch.parallel import collectives, sharding
+    g = torch.Generator().manual_seed(0)
+    B, S, D = 4, 32, 16
+    hargs = [torch.randn(sh, generator=g) for sh in (
+        (B, 4, 2, D), (B, S, 4, D), (B, S, 4, D), (B, 4, D), (B, 4, D))]
+    hargs.append(args[-1])
+    sent, gather = [], sharding.all_gather
+
+    def counting(x, axis, dim):
+        sent.append(x.numel() * x.element_size())
+        return gather(x, axis, dim)
+    sharding.all_gather = counting
+    try:
+        with sharding.use_mesh(mesh):
+            o = collectives.seqparallel_decode_attention(*args)[0]
+            seq_sent = sum(sent)
+            sent.clear()
+            h, hk, hv = collectives.seqparallel_decode_attention(
+                *hargs, force_local=True)
+    finally:
+        sharding.all_gather = gather
+    return {"cp/gathered": np.asarray([seq_sent, o.numel() * o.element_size(),
+                                       sum(sent), h.numel() * h.element_size()]),
+            "cp/heads": _n(h), "cp/heads_k": _n(hk), "cp/heads_v": _n(hv),
+            **{f"cp/heads_in{i}": _n(t) for i, t in enumerate(hargs)}}
 
 
 def model_on_mesh(rank, payload):
@@ -183,6 +218,216 @@ def model_on_mesh(rank, payload):
     return out
 
 
+# -- slice 8c / 8d -------------------------------------------------------------
+def _tree(payload, prefix, specs):
+    """The tree of `specs`' structure whose leaves are payload's
+    f"{prefix}{key}" arrays, as CPU tensors."""
+    from repro_torch import tree
+    from repro_torch.convert import tree_from_numpy
+    return tree_from_numpy(tree.unflatten(specs, [
+        payload[prefix + k] for k, _ in tree.flatten_with_keys(specs)]),
+        "cpu")
+
+
+def _count_calls(module, names, counts=None):
+    """Wrap `module.<name>` to count its calls into `counts` (a new dict
+    by default); returns the counts."""
+    counts = {} if counts is None else counts
+    for n in names:
+        counts[n] = 0
+        fn = getattr(module, n)
+
+        def wrapped(*a, _fn=fn, _n=n, **kw):
+            counts[_n] += 1
+            return _fn(*a, **kw)
+        setattr(module, n, wrapped)
+    return counts
+
+
+def _record_drops(moe):
+    """Wrap `moe._dispatch_indices` to list each call's dropped real
+    assignments (ids below the dummy expert, past capacity)."""
+    drops = []
+    fn = moe._dispatch_indices
+
+    def wrapped(idx, w, E, C):
+        slot, keep = fn(idx, w, E, C)
+        drops.append(int((~keep & (idx < E - 1)).sum()))
+        return slot, keep
+    moe._dispatch_indices = wrapped
+    return drops
+
+
+def expert_parallel(rank, payload):
+    """Reduced granite-moe's MoE layer on the reference's parameters:
+    `_moe_a2a` and `_moe_replicated` on a (2, 4) (data, model) mesh at a
+    capacity factor of 8 (no drops), without and with FSDP weights; both
+    at a factor that drops, with each rank's drops; and EP over (model,
+    data) on (2, 2) — two (2, 2) meshes side by side on a (2, 2, 2)
+    ("rep", data, model) mesh, `rep` named by no rule."""
+    from repro_torch.configs.base import get_config, reduced
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import moe
+    from repro_torch.parallel import sharding
+
+    cfg = reduced(get_config("granite-moe-1b-a400m"))
+    params = _tree(payload, "ep/param/", moe.moe_spec(cfg))
+    x, xd = _t(payload["ep/x"]), _t(payload["ep/x_drop"])
+    counts = _count_calls(moe, ("_moe_a2a", "_moe_replicated"))
+    drops = _record_drops(moe)
+    mesh = make_mesh((2, 4), ("data", "model"))
+    out = {}
+    for name, kw in (("a2a", dict(fsdp=False)),
+                     ("rep", dict(fsdp=False, moe_impl="replicated")),
+                     ("fsdp", dict(fsdp=True))):
+        with sharding.use_mesh(mesh, capacity_factor=8.0, **kw):
+            out[f"ep/{name}"] = _n(moe.moe_apply(params, x, cfg)[0])
+    assert not any(drops), drops
+    for cf in payload["ep/drop_cfs"].tolist():
+        for impl in ("a2a", "replicated"):
+            del drops[:]
+            with sharding.use_mesh(mesh, fsdp=False, moe_impl=impl,
+                                   capacity_factor=cf):
+                out[f"ep/drop/{cf}/{impl}"] = _n(
+                    moe.moe_apply(params, xd, cfg)[0])
+            out[f"ep/drop/{cf}/{impl}/drops"] = np.asarray(drops)
+    mesh2 = make_mesh((2, 2, 2), ("rep", "data", "model"))
+    for impl in ("a2a", "replicated"):
+        with sharding.use_mesh(mesh2, fsdp=False, ep_over_data=True,
+                               moe_impl=impl, capacity_factor=8.0):
+            out[f"ep/epd/{impl}"] = _n(moe.moe_apply(params, x, cfg)[0])
+    out["ep/counts"] = np.asarray([counts["_moe_a2a"],
+                                   counts["_moe_replicated"]])
+    return out
+
+
+def _model(arch):
+    from repro_torch.configs.base import get_config, reduced
+    from repro_torch.models.registry import build_model
+    return build_model(reduced(get_config(arch)))
+
+
+def seq_parallel(rank, payload):
+    """Megatron-SP on the reference's parameters: reduced granite-moe's
+    and deepseek-v3's `forward` with `seq_parallel` on a (2, 4) mesh;
+    stablelm-12b's attention block through `attn_apply_sp` on (2, 4)
+    (its 2 kv heads sliced) and (4, 2) (kv heads sharded); a dense
+    FFN's two SP bodies, with and without FSDP; head-TP `attend` (kv
+    heads grouped and repeated); and stablelm's prefill and decode steps
+    with the "heads" cache layout on (4, 2)."""
+    from repro_torch import tree
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import ffn, mla, transformer
+    from repro_torch.parallel import collectives, sharding
+    from repro_torch.serve.kvcache import pad_caches
+
+    counts = _count_calls(transformer, ("attn_apply_sp",))
+    _count_calls(mla, ("mla_forward_sp",), counts)
+    _count_calls(ffn, ("_ffn_apply_wg", "_ffn_apply_sp"), counts)
+    _count_calls(collectives, ("_head_tp_attention", "_heads_decode"),
+                 counts)
+    m24 = make_mesh((2, 4), ("data", "model"))
+    m42 = make_mesh((4, 2), ("data", "model"))
+    out = {}
+
+    def snap(key):
+        out[f"sp/counts/{key}"] = np.asarray([counts[n] for n in sorted(
+            counts)])
+    for arch in ("granite-moe-1b-a400m", "deepseek-v3-671b"):
+        model = _model(arch)
+        params = _tree(payload, f"sp/{arch}/param/", model.param_specs())
+        with sharding.use_mesh(m24, fsdp=False, seq_parallel=True,
+                               capacity_factor=8.0):
+            logits, extras = model.forward(params,
+                                           _t(payload["sp/tokens"]))
+        out[f"sp/{arch}/forward"] = _n(logits)
+        if "mtp_logits" in extras:
+            out[f"sp/{arch}/mtp"] = _n(extras["mtp_logits"])
+        snap(arch)
+    model = _model("stablelm-12b")
+    cfg = model.cfg
+    params = _tree(payload, "sp/stablelm-12b/param/", model.param_specs())
+    attn = tree.map(lambda a: a[0], params["groups"][0]["b0"]["attn"])
+    x, positions = _t(payload["sp/attn_x"]), _t(payload["sp/attn_pos"])
+    for name, mesh in (("m24", m24), ("m42", m42)):
+        with sharding.use_mesh(mesh, seq_parallel=True):
+            y, _ = transformer.attn_apply(attn, x, positions, cfg)
+        out[f"sp/attn/{name}"] = _n(y)
+        snap(f"attn/{name}")
+    fp = _tree(payload, "sp/ffn/param/", ffn.ffn_spec(64, 128, "swiglu"))
+    for fsdp in (False, True):
+        for xs in ("long", "short"):
+            with sharding.use_mesh(m24, fsdp=fsdp):
+                y = ffn.ffn_apply(fp, _t(payload[f"sp/ffn_x/{xs}"]),
+                                  "swiglu", sp=True)
+            out[f"sp/ffn/{int(fsdp)}/{xs}"] = _n(y)
+            snap(f"ffn/{int(fsdp)}/{xs}")
+    for lay in ("grouped", "repeated"):
+        q, k, v = (_t(payload[f"sp/tp/{lay}/{n}"]) for n in "qkv")
+        with sharding.use_mesh(m24):
+            out[f"sp/tp/{lay}"] = _n(collectives.attend(q, k, v))
+        snap(f"tp/{lay}")
+    toks, steps = _t(payload["sp/dec/toks"]), _t(payload["sp/dec/steps"])
+    S, max_seq = toks.shape[1], int(payload["sp/dec/max_seq"])
+    with sharding.use_mesh(m42, decode_layout="heads"):
+        logits, caches = model.prefill(params, toks)
+        out["sp/dec/prefill"] = _n(logits)
+        caches = pad_caches(caches, S, max_seq,
+                            model.cache_specs(toks.shape[0], max_seq))
+        for i in range(steps.shape[0]):
+            pos = torch.full((toks.shape[0],), S + i, dtype=torch.int32)
+            logits, caches = model.decode_step(params, steps[i], caches, pos)
+            out[f"sp/dec/decode{i}"] = _n(logits)
+    snap("dec")
+    out["sp/count_names"] = np.asarray(sorted(counts))
+    return out
+
+
+def wire(rank, payload):
+    """`tx_engine.transmit` (direct, int8) and `transmit_staged` of the
+    reference test's (2, 8, 16) tensor and a cache tree, and
+    `KVTransferEngine.make_transfer_step` both ways, on a (2, 2, 2)
+    (pod, data, model) mesh; the bytes each rank's permutes moved."""
+    from repro_torch import tree
+    from repro_torch.core import kvtransfer, tx_engine
+    from repro_torch.core.descriptors import TransferPlan
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.module import Spec
+    from repro_torch.parallel import sharding
+
+    moved = {"n": 0}
+    permute = tx_engine._permute_leaf
+
+    def counted(x, spec, axis, shift):
+        moved["n"] += sharding._block(x, spec).nbytes
+        return permute(x, spec, axis, shift)
+    tx_engine._permute_leaf = counted
+    mesh = make_mesh((2, 2, 2), ("pod", "data", "model"))
+    x = _t(payload["wire/x"])
+    spec = {"k": Spec(tuple(x.shape), ("batch", "kv_seq", None))}
+    plan = TransferPlan(axis="pod", shift=1)
+    plan8 = TransferPlan(axis="pod", shift=1, quantize_bits=8)
+    out = {}
+    with sharding.use_mesh(mesh):
+        for name, fn, pl in (("direct", tx_engine.transmit, plan),
+                             ("staged", tx_engine.transmit_staged, plan),
+                             ("int8", tx_engine.transmit, plan8)):
+            moved["n"] = 0
+            out[f"wire/{name}"] = _n(fn({"k": x}, spec, pl)["k"])
+            out[f"wire/{name}/bytes"] = np.asarray(moved["n"])
+        eng = kvtransfer.KVTransferEngine(_model("gemma-2b"), 2, 16, plan)
+        try:
+            caches = _tree(payload, "wire/cache/", eng.spec_tree)
+            for staged in (False, True):
+                got = eng.make_transfer_step(staged=staged)(caches)
+                for k, a in tree.flatten_with_keys(got):
+                    out[f"wire/step/{int(staged)}/{k}"] = _n(a)
+        finally:
+            eng.close()
+    return out
+
+
 JOBS = {"shard_shapes": shard_shapes, "compress": compress,
         "context_parallel": context_parallel,
-        "model_on_mesh": model_on_mesh}
+        "model_on_mesh": model_on_mesh, "expert_parallel": expert_parallel,
+        "seq_parallel": seq_parallel, "wire": wire}

@@ -147,8 +147,9 @@ def test_context_parallel_attention_matches_the_reference(ranks):
 
 @pytest.mark.parametrize("name", ["dec", "mla"])
 def test_sharded_decode_matches_the_reference(ranks, name):
-    """The sequence-sharded decode (the cache updated whole, each of the
-    four ranks' partials over its rows merged over `model`), without and
+    """The sequence-sharded decode (each of the four ranks writes the
+    new entry into its rows at p - s0 and its partials over them are
+    merged over `model`; the whole caches written locally), without and
     with MLA's `v_dims`: every rank's output within 1e-5 of the
     reference's local and sharded decode, its caches equal."""
     ref, _, got = ranks
@@ -162,6 +163,26 @@ def test_sharded_decode_matches_the_reference(ranks, name):
                                           ref[f"{name}_{side}_k"])
         if name == "dec":
             np.testing.assert_array_equal(g["cp/dec_v"], ref["dec_local_v"])
+
+
+def test_sharded_decodes_gather_their_output_and_no_cache(ranks):
+    """Every rank holds the whole caches, so neither the sequence-sharded
+    decode nor the heads layout gathers a cache: a rank's all-gathers
+    send at most its output's bytes (a cache block is larger). The heads
+    layout (KVH 4 over model = 4) equals the decode with no mesh within
+    1e-5, its caches exactly."""
+    import torch
+    from repro_torch.parallel import collectives
+    _, _, got = ranks
+    for r, g in enumerate(got):
+        seq_sent, seq_out, heads_sent, heads_out = g["cp/gathered"]
+        assert 0 < seq_sent <= seq_out and 0 < heads_sent <= heads_out, r
+        args = [torch.from_numpy(g[f"cp/heads_in{i}"]) for i in range(6)]
+        o, k, v = collectives.seqparallel_decode_attention(*args)
+        np.testing.assert_allclose(g["cp/heads"], o.numpy(), atol=ATOL,
+                                   rtol=ATOL)
+        np.testing.assert_array_equal(g["cp/heads_k"], k.numpy())
+        np.testing.assert_array_equal(g["cp/heads_v"], v.numpy())
 
 
 def test_reduced_gemma_on_a_model_mesh_matches_the_unsharded_reference(

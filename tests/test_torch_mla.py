@@ -263,10 +263,20 @@ def test_expanded_keys_are_materialised_and_take_the_tma_route(monkeypatch):
 
 
 def test_mla_forward_sp_waits_for_slice_8():
+    """`mla_forward_sp` runs on a mesh (`test_torch_seq_parallel.py`
+    holds it on 8 gloo ranks): with no mesh there is no `model` axis to
+    shard over, and training through it waits for ROADMAP slice 8e (its
+    collectives carry no gradient)."""
+    from repro_torch.launch.mesh import abstract_mesh
+    from repro_torch.parallel import sharding
     jcfg, tcfg, jp, tp = _mla_params()
-    with pytest.raises(NotImplementedError, match="slice 8"):
-        tmla.mla_forward_sp(tp, torch.zeros(1, 4, 64),
-                            torch.zeros(1, 4, dtype=torch.int32), tcfg)
+    x = torch.zeros(1, 4, 64)
+    pos = torch.zeros(1, 4, dtype=torch.int32)
+    with pytest.raises(RuntimeError, match="no DeviceMesh"):
+        tmla.mla_forward_sp(tp, x, pos, tcfg)
+    with sharding.use_mesh(abstract_mesh((1, 4), ("data", "model"))):
+        with pytest.raises(NotImplementedError, match="slice 8e"):
+            tmla.mla_forward_sp(tp, x.requires_grad_(), pos, tcfg)
 
 
 # -- the decoder ----------------------------------------------------------------

@@ -65,7 +65,7 @@ def test_the_scan_covers_every_subpackage():
                 "launch/train", "launch/mesh", "parallel/sharding",
                 "parallel/compress"):
         assert f"src/repro_torch/{mod}.py" in names, mod
-    for probe in ("row_ring", "desc_ring", "latency"):
+    for probe in ("row_ring", "desc_ring", "latency", "sp"):
         assert f"tools/{probe}/probe.py" in names, probe
 
 
