@@ -3,8 +3,8 @@
 serving path, the T3 notification pipe, the disaggregated serving
 cluster, Solar block storage, the MoE, hybrid, SSM, MLA and dense model
 families, training (with the encoder-decoder and the vision frontend)
-and the per-rank work of context, sequence and expert parallelism on
-one CUDA card, and hold
+and the per-rank work of context, sequence and expert parallelism, in
+inference and in training, on one CUDA card, and hold
 every kernel of those paths against its plain PyTorch version.
 
     python3 chip_smoke.py              # from the root of a checkout
@@ -21,8 +21,9 @@ test_chip_smoke_phase6_at_cpu_size_matches_reference_engine` and
 `tests/test_torch_{hybrid,ssm,mla}.py::test_chip_smoke_phase10_at_cpu_size`,
 `tests/test_torch_model.py::test_chip_smoke_phase10_at_cpu_size_dense`,
 `tests/test_torch_train.py::test_chip_smoke_phase11_at_cpu_size`,
-`tests/test_torch_context_parallel.py::test_chip_smoke_phase12_at_cpu_size`
-and `tests/test_torch_seq_parallel.py::test_chip_smoke_phase13_at_cpu_size`.
+`tests/test_torch_context_parallel.py::test_chip_smoke_phase12_at_cpu_size`,
+`tests/test_torch_seq_parallel.py::test_chip_smoke_phase13_at_cpu_size`
+and `tests/test_torch_mesh_grads.py::test_chip_smoke_phase14_at_cpu_size`.
 
 Phases (any failure exits non-zero):
   1. the card (nvidia-smi name and power limit) and the kernel build;
@@ -194,7 +195,20 @@ Phases (any failure exits non-zero):
      SP_HOLD of its scale; the MoE's drop share at the config's own
      factor and each rank's `_experts_ffn` beside its bound; every
      per-rank flash shape held and timed beside SDPA and its bound,
-     counted on the path "sp".
+     counted on the path "sp";
+ 14. training on a mesh, one rank after another, on the same axis: (a)
+     gemma-2b's context-parallel attention, stablelm-12b's Megatron-SP
+     attention and FFN and granite-moe-1b-a400m's `_moe_a2a` rank, each
+     rank's piece forward and backward on its blocks from its block of
+     a seeded cotangent of the whole output (1 x 4096, bf16), the
+     collectives and their transposes as stacked tensor ops, timed per
+     rank beside the unsharded block's forward and backward and counted
+     on the path "train_mesh"; the same in float32, every gradient
+     assembled by the reference's rule (a block's concatenated, a whole
+     copy's psummed) within SP_HOLD of its scale of autograd through the
+     unsharded block; (b) gemma-2b train steps at 4 x 128 under the remat
+     policies "nothing" and "dots": gradients within MB_TOL of each
+     other's scale, each policy's step split and peak memory.
 Phase 2 also holds flash_attention (its TMA/wgmma entry) and
 flash_attention_generic (its mma.sync entry) against their plain version
 at every prefill shape the main paths launch, FLASH_SHAPES: phases 6
@@ -5030,8 +5044,22 @@ TRAIN_ARCHS = ("gemma-2b", "whisper-base", "internvl2-2b")
 # zero or unrelated to the loss moves the two runs alike up to second
 # order (a gap of ~0); one of the wrong sign ends above the control. On
 # the H100 the gaps are 1.01 % (gemma-2b), 0.46 % (whisper-base) and
-# 0.51 % (internvl2-2b); on the CPU test 5.9-66 %.
+# 0.51 % (internvl2-2b); on the CPU test 5.9-66 %. The margin was chosen
+# after that reading, so the check also runs on a second seed of the
+# initial parameters (LEARN_SEED2; the CLI's is 0), against the same
+# margin, written down before that seed's first run, and holds it for
+# the archs that meet it there (LEARN_SEEDS: whisper-base +1.21 %,
+# internvl2-2b +0.70 % on the card). gemma-2b misses it on seeds 1-3 in
+# bf16 (-1.17, -0.79, -0.29 %; bf16 parameters that Adam updates with no
+# float32 master copy, as the reference's are) and meets it in float32,
+# so its seed-0 hold is no evidence that it learns: it only catches a
+# change that moves that one seed's gap (an open fault, ROADMAP Queue 3;
+# `tools/train/learning_probe.py` runs the seeds, float32 and other
+# rates through `learning_setup` and `learning_check`).
 LEARN_MARGIN = 0.0025
+LEARN_SEED2 = 1
+LEARN_SEEDS = {"gemma-2b": (0,), "whisper-base": (0, LEARN_SEED2),
+               "internvl2-2b": (0, LEARN_SEED2)}
 # float32 grads of one step at microbatches=2 against microbatches=1 on
 # the same batch, max |difference| over the leaf's largest |grad|, on the
 # `conditioned` copy of gemma-2b's parameters: the two run their
@@ -5232,6 +5260,49 @@ def time_train_step(T, model, cfg, state, batch, opt_cfg) -> dict:
     return out
 
 
+def learning_setup(torch, arch: str, Z, dev, *, dtype=None, lr=None):
+    """Phase 11's training set-up of `arch`: (model, cfg, batch_fn,
+    held_loss, opt_cfg): the config at Z's sizes (its parameters in
+    `dtype` if given), the synthetic stream at the arch's sequence, the
+    loss with no graph on the held-out batch (step HELD_OUT), and AdamW
+    at Z.lr (or `lr`) warming up over a tenth of the arch's steps."""
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models.registry import build_model
+    from repro_torch.train import optimizer as optim
+    from repro_torch.train import train_loop
+    cfg = train_cfg(arch, Z)
+    if dtype is not None:
+        cfg = dataclasses.replace(cfg, dtype=dtype)
+    model = build_model(cfg)
+    opt_cfg = optim.OptConfig(lr=Z.lr if lr is None else lr, warmup_steps=min(
+        100, (Z.whisper_steps if cfg.family == "encdec" else Z.steps)
+        // 10 + 1))
+    batch_fn = launch_train.make_batch_fn(cfg, Z.batch, train_seq(arch, Z),
+                                          device=dev)
+    held = batch_fn(HELD_OUT)
+    loss_fn = train_loop.make_loss_fn(model, cfg)
+
+    def held_loss(params):
+        with torch.no_grad():
+            return float(loss_fn(params, held)[0])
+    return model, cfg, batch_fn, held_loss, opt_cfg
+
+
+def learning_check(torch, setup, dev, seed: int, steps: int) -> dict:
+    """`learns` on `learning_setup`'s `setup`, from the CLI's initial
+    parameters drawn with `seed` (cast to float32 where the config's
+    dtype is)."""
+    from repro_torch import tree
+    model, cfg, batch_fn, held_loss, opt_cfg = setup
+
+    def init():
+        p = model.init(torch.Generator(device=dev).manual_seed(seed))
+        return tree.map(lambda a: a.float(), p) \
+            if cfg.dtype == "float32" else p
+    return learns(torch, model, cfg, init, batch_fn, held_loss, steps,
+                  opt_cfg)
+
+
 def learns(torch, model, cfg, init, batch_fn, held_loss, steps: int,
            opt_cfg) -> dict:
     """The learning check, on the `conditioned` copy of `init()` (the
@@ -5267,9 +5338,10 @@ def phase_train(torch, dev, Z, T, workdir) -> dict:
     the card, checked against the layers (twice under remat). For each
     arch: the loss on a held-out batch (step HELD_OUT, which no run
     trains on) falls from the CLI's initial to its final parameters; the
-    learning check (`learns`: on the conditioned copy, the held-out loss
-    after training ends at least LEARN_MARGIN below its negated-rate
-    control's). (a) gemma-2b:
+    learning check (`learning_check`: on the conditioned copy of the
+    CLI's initial parameters, and of seed LEARN_SEED2's for the archs of
+    LEARN_SEEDS that name it, the held-out loss after training ends at
+    least LEARN_MARGIN below its negated-rate control's). (a) gemma-2b:
     Z.steps steps; then one step's grads at microbatches=2
     (`microbatch_grads`) on the trained parameters: bit-equal to the
     float32 sum of its halves' grads over two in the model's dtype, and
@@ -5290,9 +5362,6 @@ def phase_train(torch, dev, Z, T, workdir) -> dict:
     from repro_torch import tree
     from repro_torch.kernels import _build
     from repro_torch.launch import train as launch_train
-    from repro_torch.models.registry import build_model
-    from repro_torch.train import optimizer as optim
-    from repro_torch.train import train_loop
     cuda = dev.type == "cuda"
     launches, flash_by_shape, out = {}, {}, {}
 
@@ -5320,23 +5389,12 @@ def phase_train(torch, dev, Z, T, workdir) -> dict:
               f"not {want}")
 
     for arch in TRAIN_ARCHS:
-        cfg = train_cfg(arch, Z)
-        model = build_model(cfg)
-        opt_cfg = optim.OptConfig(lr=Z.lr, warmup_steps=min(
-            100, (Z.whisper_steps if cfg.family == "encdec" else Z.steps)
-            // 10 + 1))
-        batch_fn = launch_train.make_batch_fn(cfg, Z.batch,
-                                              train_seq(arch, Z), device=dev)
-        held = batch_fn(HELD_OUT)
+        setup = learning_setup(torch, arch, Z, dev)
+        model, cfg, batch_fn, held_loss, opt_cfg = setup
 
         def init():
             """The CLI's initial parameters (seed 0)."""
             return model.init(torch.Generator(device=dev).manual_seed(0))
-
-        def held_loss(params):
-            with torch.no_grad():
-                return float(train_loop.make_loss_fn(model, cfg)(params,
-                                                                 held)[0])
         if cuda:
             free_device_memory(torch)
             torch.cuda.reset_peak_memory_stats()
@@ -5436,16 +5494,19 @@ def phase_train(torch, dev, Z, T, workdir) -> dict:
         del params
         if cuda:
             free_device_memory(torch)
-        r["learning"], n = tally(lambda: learns(
-            torch, model, cfg, init, batch_fn, held_loss, Z.steps, opt_cfg))
-        check_calls(arch, "the learning check", n,
-                    2 * flash_calls(cfg, cfg.remat, Z.steps)
-                    + flash_calls(cfg, False, 3))
-        L = r["learning"]
-        check(L["gap"] >= LEARN_MARGIN,
-              f"phase 11 {arch}: on the conditioned copy training ended "
-              f"{L['gap']:.4g} of the starting loss below the negated-rate "
-              f"control, not {LEARN_MARGIN}")
+        for seed in LEARN_SEEDS[arch]:
+            key = "learning" if seed == 0 else f"learning_seed{seed}"
+            r[key], n = tally(lambda: learning_check(torch, setup, dev, seed,
+                                                     Z.steps))
+            check_calls(arch, f"the learning check (seed {seed})", n,
+                        2 * flash_calls(cfg, cfg.remat, Z.steps)
+                        + flash_calls(cfg, False, 3))
+            gap = r[key]["gap"]
+            check(gap >= LEARN_MARGIN,
+                  f"phase 11 {arch}: on the conditioned copy of seed "
+                  f"{seed}'s parameters training ended {gap:.4g} of the "
+                  f"starting loss below the negated-rate control (margin "
+                  f"{LEARN_MARGIN})")
         log(f"phase 11 {arch}: {r}")
         out[arch] = r
         if cuda:
@@ -5493,6 +5554,419 @@ def whisper_decode(torch, model, cfg, params, Z, dev) -> dict:
           f"forced forward by {max(rel):.4g} of scale (bound {tol:g})")
     return dict(prompt=P, steps=Z.decode, rel_by_step=rel,
                 caches={k: list(v.shape) for k, v in caches[0].items()})
+
+
+# -- phase 14 ---------------------------------------------------------------------
+# (a)'s pieces: (config, the sharded branch whose rank runs it)
+MT_PIECES = (("gemma-2b", "attend_cp"), ("stablelm-12b", "attn_sp"),
+             ("stablelm-12b", "ffn_sp"), ("granite-moe-1b-a400m", "moe_a2a"))
+REMAT_ARCH = "gemma-2b"
+
+
+@dataclass(frozen=True)
+class MeshTrainSizes:
+    reduce: bool        # reduced() widths (the CPU test), else full width
+    seq: int            # tokens of the one sequence of (a)'s pieces
+    model: int          # ranks of the model axis
+    hold_cf: float      # the MoE hold's capacity factor (drops nothing)
+    remat_batch: int    # (b)'s train steps: phase 11's batch x seq
+    remat_seq: int
+    pieces: tuple = MT_PIECES
+
+
+MESH_TRAIN = MeshTrainSizes(reduce=False, seq=4096, model=16, hold_cf=8.0,
+                            remat_batch=TRAIN.batch, remat_seq=TRAIN.seq)
+
+
+def _mt_transpose(how) -> tuple:
+    """The exchange whose stacked ops are the transpose of `how`'s (JAX's
+    rules): all_gather <-> psum_scatter, all_to_all with its two dims
+    swapped, psum and none themselves."""
+    kind = how[0]
+    if kind == "a2a":
+        return ("a2a", how[2], how[1])
+    return ({"gather": "scatter", "scatter": "gather"}.get(kind, kind),) \
+        + tuple(how[1:])
+
+
+def _mt_run(torch, T, M, stages, leaves, cts, timed: bool):
+    """Each rank's piece forward and backward, one rank at a time: the
+    stages forward as `_sp_run` runs them (fn(r, input, *leaves[r]), the
+    collectives between them as stacked tensor ops), each stage's graph
+    kept; then backward through the stages in reverse, each exchange
+    replaced by its transpose (`_mt_transpose`), from `cts`, each rank's
+    cotangent of its final block. Returns (the final blocks, each rank's
+    gradients of its `leaves`, each rank's device ms forward + backward)."""
+    inputs, tape = [None] * M, []
+    ms = [0.0] * M
+
+    def run(r, fn):
+        if not timed:
+            return fn()
+        spans = []
+        out = T.span(fn, spans)
+        ms[r] += T.spans_ms(spans)
+        return out
+    for fn, how in stages:
+        ins, outs = [], []
+        for r in range(M):
+            x = inputs[r]
+            if x is not None and x.is_floating_point():
+                x = x.detach().requires_grad_(True)
+            ins.append(x)
+            with torch.enable_grad():
+                outs.append(run(r, lambda r=r, x=x: fn(r, x, *leaves[r])))
+        tape.append((ins, outs, how))
+        inputs = _sp_exchange(torch, how, M)([o.detach() for o in outs])
+    grads = [[None] * len(leaves[r]) for r in range(M)]
+    for ins, outs, how in reversed(tape):
+        cts = _sp_exchange(torch, _mt_transpose(how), M)(cts)
+        nxt = []
+        for r in range(M):
+            want = ([ins[r]] if ins[r] is not None and ins[r].requires_grad
+                    else [])
+            got = run(r, lambda r=r, want=want: torch.autograd.grad(
+                outs[r], want + list(leaves[r]), cts[r], allow_unused=True))
+            nxt.append(got[0] if want else None)
+            for i, g in enumerate(got[len(want):]):
+                if g is not None:
+                    grads[r][i] = g if grads[r][i] is None \
+                        else grads[r][i] + g
+        cts = nxt
+    return inputs, grads, ms
+
+
+def _mt_piece(torch, cfg, piece, Z, p, dt, x, ct, aux):
+    """One piece of (a) at dtype `dt`: (stages, the ranks' leaves, how
+    each leaf's gradient assembles — ("cat", dim): a block of the whole
+    one; ("sum",): a whole copy on every rank, psummed — the whole
+    leaves, the unsharded block on them, the per-rank flash layout or
+    None, extra). `p` holds the weights, `x` the (1, S, D) activations
+    (or the attention's q, k, v), `ct` the seeded cotangent of the
+    output, `aux` the positions and the routing."""
+    from repro_torch.models import ffn, moe, transformer as tr
+    from repro_torch.models.attention import chunked_attention
+    from repro_torch.parallel import collectives
+    M, S = Z.model, Z.seq
+    n = S // M
+    pos = aux["pos"]
+
+    def blocks(t, dim, r):
+        return t.narrow(dim, r * (t.shape[dim] // M), t.shape[dim] // M)
+
+    def leaf_sets(whole, how):
+        return [[(blocks(w, h[1], r) if h[0] == "cat" else w).detach()
+                 .contiguous().requires_grad_(True)
+                 for w, h in zip(whole, how)] for r in range(M)]
+    if piece == "attend_cp":
+        q, k, v = (t.to(dt) for t in x)
+        how = [("cat", 1)] * 3
+        stages = [(lambda r, _, q_l, k_l, v_l: torch.stack([k_l, v_l]),
+                   ("gather", 2)),
+                  (lambda r, kv, q_l, k_l, v_l: collectives._cp_block(
+                      q_l, kv[0], kv[1], r * n, causal=True), ("none",))]
+        H, KVH, D = q.shape[2] * q.shape[3], q.shape[2], q.shape[4]
+        return (stages, leaf_sets([q, k, v], how), how, [q, k, v],
+                lambda q_, k_, v_: chunked_attention(q_, k_, v_, causal=True),
+                (H, KVH, D, 0), {})
+    x = x.to(dt)
+    if piece == "attn_sp":
+        H, KVH = cfg.n_heads, cfg.n_kv_heads
+        H_loc, G = H // M, H // KVH
+        kv_sharded = KVH % M == 0
+        w = [p["attn"][k]["w"].to(dt) for k in ("wq", "wk", "wv", "wo")]
+        kv = ("cat", 1) if kv_sharded else ("sum",)
+        how = [("cat", 1), ("cat", 1), kv, kv, ("cat", 0)]
+        stages = [(lambda r, _, x_l, *ws: x_l, ("gather", 1)),
+                  (lambda r, x_f, x_l, *ws: tr.attn_sp_rank(
+                      x_f, pos, *ws, r, cfg, kv_sharded), ("scatter", 1))]
+
+        def whole(x_, wq, wk, wv, wo):
+            attn = {k: {"w": t} for k, t in zip(("wq", "wk", "wv", "wo"),
+                                                (wq, wk, wv, wo))}
+            return tr.attn_apply(attn, x_, pos, cfg)[0]
+        kvh = KVH // M if kv_sharded else max(1, H_loc // G)
+        return (stages, leaf_sets([x] + w, how), how, [x] + w, whole,
+                (H_loc, kvh, cfg.resolved_head_dim, 0), {})
+    if piece == "ffn_sp":
+        fp = p["ffn_dense"]
+        names = [k for k in ("gate", "up", "down") if k in fp]
+        w = [fp[k]["w"].to(dt) for k in names]
+        how = [("cat", 1)] + [("cat", 0 if k == "down" else 1)
+                              for k in names]
+        check(not ffn.weight_gathered(fp, x),
+              "phase 14: the FFN piece is Megatron-SP at this width")
+
+        def core(x_f, *ws):
+            wg = ws[0] if len(ws) == 3 else None
+            return ffn._ffn_core(x_f, wg, ws[-2], ws[-1], cfg.act)
+        stages = [(lambda r, _, x_l, *ws: x_l, ("gather", 1)),
+                  (lambda r, x_f, x_l, *ws: core(x_f, *ws), ("scatter", 1))]
+
+        def whole(x_, *ws):
+            return ffn.ffn_apply({k: {"w": t} for k, t in zip(names, ws)},
+                                 x_, cfg.act)
+        return (stages, leaf_sets([x] + w, how), how, [x] + w, whole, None,
+                {"branch": "megatron-sp"})
+    if piece == "moe_a2a":
+        m = cfg.moe
+        E, k = m.n_experts, m.top_k
+        wgt, idx = aux["route"]
+        wgt = wgt.to(dt)
+        C = aux["capacity"](n)
+        ex = [p["moe"]["experts"][nm].to(dt) for nm in ("gate", "up", "down")]
+        how = [("cat", 1), ("cat", 1)] + [("cat", 0)] * 3
+        slots = [None] * M
+
+        def dispatch(r, _, x_l, w_l, *ws):
+            disp, slots[r] = moe.dispatch(x_l[0], idx[0, r * n:(r + 1) * n],
+                                          E, C, k)
+            return disp
+        stages = [(dispatch, ("a2a", 0, 1)),
+                  (lambda r, disp, x_l, w_l, *ws: moe._experts_ffn(
+                      *ws, disp, cfg.act), ("a2a", 1, 0)),
+                  (lambda r, out, x_l, w_l, *ws: moe.combine(
+                      out, slots[r], w_l[0], k)[None], ("none",))]
+
+        def whole(x_, w_, wg, wu, wd):
+            local = {"experts": {"gate": wg, "up": wu, "down": wd}}
+            return moe._moe_local(local, x_, w_, idx, cfg)
+        return (stages, leaf_sets([x, wgt] + ex, how), how, [x, wgt] + ex,
+                whole, None, {"capacity": C})
+    raise ValueError(piece)
+
+
+def _mt_assemble(torch, grads, how, M):
+    """The whole gradient of each leaf from the ranks' (`_mt_piece`'s
+    rule): a block's gradients concatenated, a whole copy's summed."""
+    out = []
+    for i, h in enumerate(how):
+        gs = [grads[r][i] for r in range(M)]
+        out.append(torch.cat(gs, h[1]) if h[0] == "cat" else sum(gs))
+    return out
+
+
+def _mt_whole(torch, fn, leaves, ct):
+    """The unsharded block forward and backward: (output, gradients)."""
+    xs = [t.detach().requires_grad_(True) for t in leaves]
+    with torch.enable_grad():
+        y = fn(*xs)
+        return y, torch.autograd.grad(y, xs, ct)
+
+
+def phase_mesh_train(torch, np, dev, Z, rng, T) -> dict:
+    """Phase 14: training on a mesh, one rank at a time. (a) For each
+    piece of MT_PIECES at full width — gemma-2b's context-parallel
+    attention (`collectives._cp_block`: a rank's 1 x S/M queries against
+    the gathered K/V, flash at q_offset), stablelm-12b's Megatron-SP
+    attention (`transformer.attn_sp_rank`) and FFN (`ffn._ffn_core` on a
+    rank's columns), granite-moe-1b-a400m's `_moe_a2a` rank (`moe.
+    dispatch`, `_experts_ffn`, `combine`) — each of the Z.model ranks
+    runs its piece forward and backward on its blocks from its block of
+    a seeded cotangent of the whole output, the collectives and their
+    transposes (JAX's: all_gather <-> psum_scatter, all_to_all swapped)
+    as stacked tensor ops (`_mt_run`), in bf16: each rank's device ms,
+    forward + backward (the counted main path, path "train_mesh"), beside
+    the unsharded block's. Then the same in float32 (the MoE at
+    Z.hold_cf, which drops nothing): every assembled gradient — a
+    block's concatenated, a whole copy's psummed (`_mt_assemble`) —
+    within SP_HOLD of its scale of autograd through the unsharded block.
+    (b) gemma-2b train steps (`jit_train_step`) at Z.remat_batch x
+    Z.remat_seq with remat under "nothing" and "dots": the two
+    gradients within MB_TOL of each other's scale, and on the card each
+    policy's step split (`time_train_step`) and peak memory."""
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import abstract_mesh, production_shape
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import ffn as ffn_mod
+    from repro_torch.models import transformer as tr
+    from repro_torch.configs.base import get_config, reduced
+    from repro_torch.parallel import collectives, sharding
+
+    cuda = dev.type == "cuda"
+    shape, axes = production_shape()
+    M, S = Z.model, Z.seq
+    check(Z.reduce or dict(zip(axes, shape))["model"] == M,
+          f"phase 14: model axis {M} is not the production mesh's")
+    n = S // M
+    gen = torch.Generator(device=dev).manual_seed(int(rng.integers(1 << 31)))
+    bf16, f32 = torch.bfloat16, torch.float32
+    launches, flash_by_shape, pieces = {}, {}, {}
+    mesh = abstract_mesh((1, M), ("data", "model"))
+
+    def rand(*shape_):
+        return torch.randn(shape_, generator=gen, device=dev, dtype=f32)
+    for arch, piece in Z.pieces:
+        cfg = reduced(get_config(arch)) if Z.reduce else get_config(arch)
+        name = f"{arch}/{piece}"
+        specs = {}
+        if piece == "attn_sp":
+            specs["attn"] = tr.attn_spec(cfg)
+        if piece == "ffn_sp":
+            specs["ffn_dense"] = ffn_mod.ffn_spec(cfg.d_model, cfg.d_ff,
+                                                  cfg.act)
+        if piece == "moe_a2a":
+            specs["moe"] = moe_mod.moe_spec(cfg)
+        p = _sp_weights(torch, specs, dev, gen, f32)
+        D, H, KVH = cfg.d_model, cfg.n_heads, cfg.n_kv_heads
+        hd = cfg.resolved_head_dim
+        aux = {"pos": torch.arange(S, device=dev, dtype=torch.int32)[None]}
+        if piece == "attend_cp":
+            x = [rand(1, S, KVH, H // KVH, hd), rand(1, S, KVH, hd),
+                 rand(1, S, KVH, hd)]
+            ct = rand(1, S, KVH, H // KVH, hd)
+        else:
+            x = rand(1, S, D)
+            ct = rand(1, S, D)
+        with sharding.use_mesh(mesh, fsdp=False, seq_parallel=True):
+            takes = {"attend_cp": lambda: collectives.attend_branch(
+                         S, KVH, H // KVH) == "cp",
+                     "attn_sp": lambda: tr.takes_attn_sp(cfg, S),
+                     "ffn_sp": lambda: tr.takes_ffn_sp(cfg, S, cfg.d_ff),
+                     "moe_a2a": lambda: moe_mod.moe_branch(cfg, S) == "a2a"}
+            check(takes[piece](), f"phase 14: {name} is not the branch "
+                  f"the port takes at model = {M}")
+        if piece == "moe_a2a":
+            aux["route"] = moe_mod.route(p["moe"], x.to(bf16), cfg)[:2]
+
+        def cap(tokens, cf):
+            with sharding.use_mesh(mesh, capacity_factor=cf):
+                return moe_mod._capacity(tokens, cfg)
+        # the counted main path: the pieces in bf16, timed rank by rank
+        aux["capacity"] = lambda t: cap(t, None)
+        stages, leaves, how, whole, block, lay, extra = _mt_piece(
+            torch, cfg, piece, Z, p, bf16, x, ct.to(bf16), aux)
+        cts = [ct.to(bf16).narrow(1, r * n, n) for r in range(M)]
+        _mt_run(torch, T, M, stages, leaves, cts, timed=False)   # warm-up
+        shapes = {}
+        _, _, ms = count_launches(_build, launches, lambda: _mt_run(
+            torch, T, M, stages, leaves, cts, timed=True), shapes)
+        runs = [ms] + [_mt_run(torch, T, M, stages, leaves, cts,
+                               timed=True)[2] for _ in range(SP_RUNS - 1)]
+        rank_ms = [statistics.median(run[r] for run in runs)
+                   for r in range(M)]
+        _mt_whole(torch, block, whole, ct.to(bf16))               # warm-up
+        whole_ms = statistics.median(_sp_rank_ms(
+            T, lambda: _mt_whole(torch, block, whole, ct.to(bf16)))
+            for _ in range(SP_RUNS))
+        res = dict(rank_ms=rank_ms, median_rank_ms=statistics.median(rank_ms),
+                   max_rank_ms=max(rank_ms), ranks_sum_ms=sum(rank_ms),
+                   unsharded_ms=whole_ms, **extra)
+        if lay is not None:
+            flash_by_shape.update({flash_key(lay, sk): c for sk, c in
+                                   shapes.get("flash_attention", {}).items()})
+            res["flash_launches"] = dict(shapes.get("flash_attention", {}))
+        del stages, leaves, whole
+        # the hold: the same pieces in float32 against the block
+        aux["capacity"] = lambda t: cap(t, Z.hold_cf)
+        stages, leaves, how, whole, block, _, _ = _mt_piece(
+            torch, cfg, piece, Z, p, f32, x, ct, aux)
+        out, grads, _ = _mt_run(torch, T, M, stages, leaves,
+                                [ct.narrow(1, r * n, n) for r in range(M)],
+                                timed=False)
+        got = _mt_assemble(torch, grads, how, M)
+        y, want = _mt_whole(torch, block, whole, ct)
+        errs, scales = [], []
+        for g, w in zip(got, want):
+            check(g.shape == w.shape, f"phase 14: {name}: gradient shape "
+                  f"{tuple(g.shape)}, not {tuple(w.shape)}")
+            scales.append(float(w.abs().max()))
+            errs.append(float((g - w).abs().max()))
+        rel = max(e / s for e, s in zip(errs, scales))
+        y = y.detach()
+        out_err = float((torch.cat(out, 1) - y).abs().max())
+        res.update(grad_errs=errs, grad_scales=scales, grad_rel_max=rel,
+                   out_rel=out_err / float(y.abs().max()),
+                   finite=all(bool(torch.isfinite(g).all()) for g in got))
+        check(res["finite"], f"phase 14: {name}: a gradient is not finite")
+        check(rel <= SP_HOLD, f"phase 14: {name}'s assembled float32 "
+              f"gradients differ from the unsharded block's by {rel:.4g} "
+              f"of their scale (bound {SP_HOLD})")
+        del stages, leaves, whole, got, want, grads, out
+        pieces[name] = res
+        log(f"phase 14: {name} over model = {M}: forward + backward a rank "
+            f"median {res['median_rank_ms']:.4f} ms, slowest "
+            f"{res['max_rank_ms']:.4f}, sum {res['ranks_sum_ms']:.4f} vs "
+            f"unsharded {whole_ms:.4f}; float32 gradients within "
+            f"{rel:.3g} of scale (bound {SP_HOLD:g})")
+        del p, x, ct, aux
+        if cuda:
+            free_device_memory(torch)
+    if cuda:
+        check(launches.get("flash_attention", 0) == M * sum(
+            p in ("attend_cp", "attn_sp") for _, p in Z.pieces)
+              and not launches.get("flash_attention_generic"),
+              f"phase 14: flash launches {launches}")
+    return dict(launches=launches, flash_by_shape=flash_by_shape,
+                pieces=pieces, remat=_mt_remat(torch, dev, Z, T),
+                model=M, seq=S)
+
+
+def _mt_remat(torch, dev, Z, T) -> dict:
+    """(b): gemma-2b (remat on, as at full size) at Z.remat_batch x
+    Z.remat_seq from the CLI's initial parameters: one step's gradients
+    under "nothing" and "dots" (`train_loop.make_grads_fn`), held within
+    MB_TOL of each leaf's scale; on the card each policy's donated step
+    split by `time_train_step` and its peak memory."""
+    from repro_torch import tree
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models.registry import build_model
+    from repro_torch.train import optimizer as optim
+    from repro_torch.train import train_loop
+    cuda = dev.type == "cuda"
+    cfg = dataclasses.replace(train_cfg(REMAT_ARCH, Z), remat=True)
+    batch = launch_train.make_batch_fn(cfg, Z.remat_batch, Z.remat_seq,
+                                       device=dev)(0)
+    opt_cfg = optim.OptConfig(lr=TRAIN.lr, warmup_steps=2)
+    out, grads = {}, {}
+    for policy in ("nothing", "dots"):
+        model = build_model(cfg, remat_policy=policy)
+        params = model.init(torch.Generator(device=dev).manual_seed(0))
+        grads[policy] = train_loop.make_grads_fn(model, cfg)(params,
+                                                             batch)[1]
+        r = {}
+        if cuda:
+            free_device_memory(torch)
+            torch.cuda.reset_peak_memory_stats()
+            state = {"params": params,
+                     "opt": optim.init_opt_state(params, opt_cfg)}
+            r = time_train_step(T, model, cfg, state, batch, opt_cfg)
+            r["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+            del state
+        out[policy] = r
+        del params
+    rel = max(float((a.float() - b.float()).abs().max()
+                    / a.float().abs().max().clamp(min=1e-30))
+              for a, b in zip(tree.leaves(grads["nothing"]),
+                              tree.leaves(grads["dots"])))
+    out["grad_rel_max"] = rel
+    if cuda:
+        # the local pass of the sharded step's replica check
+        # (`train_loop.check_replicated`: each leaf's fingerprint) over
+        # the whole gradient, and the memory it takes beyond it
+        leaves = tree.leaves(grads.pop("dots"))
+        free_device_memory(torch)
+
+        def fingerprints():
+            return torch.stack([train_loop._fingerprint(g) for g in leaves])
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fingerprints()
+        torch.cuda.synchronize()
+        out["replica_check"] = dict(
+            ms=T.ms(fingerprints, iters=5, warmup=1),
+            extra_gib=(torch.cuda.max_memory_allocated() - base) / 2**30)
+        log(f"phase 14: the replica check's fingerprints of {REMAT_ARCH}'s "
+            f"whole gradient: {out['replica_check']}")
+        del leaves
+    check(rel <= MB_TOL, f"phase 14: gemma-2b's gradients under \"dots\" "
+          f"differ from \"nothing\"'s by {rel:.4g} of scale")
+    log(f"phase 14: remat {REMAT_ARCH} {Z.remat_batch}x{Z.remat_seq}: "
+        + "".join(f"{k} step {v['step_ms']:.1f} ms, backward "
+                  f"{v['backward_ms']:.1f}, peak {v['peak_gib']:.2f} GiB; "
+                  for k, v in out.items() if k in ("nothing", "dots") and v)
+        + f"\"dots\" gradients within {rel:.3g} of scale of \"nothing\"'s")
+    return out
 
 
 class _Clock:
@@ -5674,6 +6148,9 @@ def main() -> int:
     sp = phase_sp(torch, np, dev, SP, rng, T)
     free_device_memory(torch)
     mark("phase 13")
+    mt = phase_mesh_train(torch, np, dev, MESH_TRAIN, rng, T)
+    free_device_memory(torch)
+    mark("phase 14")
 
     # launches per C entry point on each main path's own run
     paths = {"datapath": main_launches, "kv_leg": kv["launches"],
@@ -5683,6 +6160,7 @@ def main() -> int:
     paths["train"] = train["launches"]
     paths["cp"] = cp["launches"]
     paths["sp"] = sp["launches"]
+    paths["train_mesh"] = mt["launches"]
     rows["flash_attention"]["by_shape"].update(cp.pop("by_shape"))
     rows["flash_attention"]["by_shape"].update(sp.pop("by_shape"))
     kernels = []
@@ -5698,7 +6176,7 @@ def main() -> int:
         p: dict(sorted(r["flash_by_shape"].items()))
         for p, r in [("serve", serve), ("cluster", cluster)]
         + [(FAMILY_PATH[a], r) for a, r in families.items()]
-        + [("train", train), ("cp", cp), ("sp", sp)]}
+        + [("train", train), ("cp", cp), ("sp", sp), ("train_mesh", mt)]}
     excess, untimed = {}, set()
     for by in flash["launches_by_shape"].values():
         for shape, n in by.items():
@@ -5750,7 +6228,7 @@ def main() -> int:
                     "kv_leg": kv, "serve": serve, "t3_pipe": t3,
                     "cluster": cluster, "storage": storage,
                     "families": families, "train": train, "cp": cp,
-                    "sp": sp,
+                    "sp": sp, "train_mesh": mt,
                     "seconds": time.perf_counter() - t_start}))
     log(smi)
     print(json.dumps({"kernels": kernels}))

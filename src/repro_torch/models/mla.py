@@ -12,11 +12,13 @@ The port of the reference's `repro.models.mla`. The expanded keys are
 the nope part and the shared rope part concatenated into a tensor of
 their own: a broadcast view would have stride 0 over the heads, which
 no TMA tensor map reads. `mla_forward_sp` is the Megatron-SP form over
-a `model` mesh axis, one `sharding.shard_map` of two per-rank pieces:
-`sp_latents` (the rank's tokens' latents) and, after the latents'
-all-gather, `sp_heads` (the rank's H/M heads over the whole sequence
-through the flash kernel, and their partial out-projection), whose
-partials are reduce-scattered back to the sequence blocks.
+a `model` mesh axis: `sp_latents` (pointwise over the tokens, computed
+before the region as the reference's are, so a rank's block of them is
+its tokens' latents) and one `sharding.shard_map` of the per-rank piece
+that follows the latents' all-gather, `sp_heads` (the rank's H/M heads
+over the whole sequence through the flash kernel, and their partial
+out-projection), whose partials are reduce-scattered back to the
+sequence blocks.
 """
 from __future__ import annotations
 
@@ -140,15 +142,17 @@ def mla_forward_sp(params, x, positions, cfg, *, q_chunk=512, kv_chunk=1024):
     wspecs = tuple(sharding.resolve_spec(HEAD_AXES[n], params[n].shape,
                                          "param") for n in names)
 
-    def body(x_l, pos_l, *ws):
+    def body(lat_l, pos_l, *ws):
         ws = [sharding.gather_param(w, HEAD_AXES[n]) for n, w in zip(names, ws)]
-        lat = sharding.all_gather(sp_latents(params, x_l, pos_l, cfg),
-                                  "model", 1)
+        lat = sharding.all_gather(lat_l, "model", 1)
         pos = sharding.all_gather(pos_l, "model", 1)
         return sharding.psum_scatter(sp_heads(lat, pos, *ws, cfg), "model",
                                      1)
+    # the latents are pointwise over the sequence: computed whole, as the
+    # reference computes them outside its region, and entered by block
+    lat = sp_latents(params, x, positions, cfg)
     return sharding.shard_map(body, (lspec, pspec) + wspecs, lspec)(
-        x, positions, *(params[n] for n in names))
+        lat, positions, *(params[n] for n in names))
 
 
 def mla_forward(params, x, positions, cfg, *, return_cache: bool = False,

@@ -10,14 +10,17 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import module as mod
 
 
-def build_model(cfg: ModelConfig):
+def build_model(cfg: ModelConfig, *, remat_policy: str = "nothing"):
     """The port's model for `cfg`: `EncDecLM` for the encoder-decoder
-    family, `DecoderLM` for every other."""
+    family, `DecoderLM` for every other, which recomputes its layers
+    under `remat_policy` ("nothing" or "dots"; the reference's
+    `FLAGS.remat_policy`, which its encoder-decoder ignores)."""
+    from repro_torch.models.transformer import DecoderLM, remat_kwargs
     if cfg.family == "encdec":
         from repro_torch.models.encdec import EncDecLM
+        remat_kwargs(remat_policy)          # a known policy, unused
         return EncDecLM(cfg)
-    from repro_torch.models.transformer import DecoderLM
-    return DecoderLM(cfg)
+    return DecoderLM(cfg, remat_policy=remat_policy)
 
 
 def count_params_analytic(cfg: ModelConfig, active_only: bool = False) -> int:

@@ -16,7 +16,11 @@ local flash-decode or the rolling window), `block_apply`, and
 parameters require them (`train.train_loop` differentiates it), and with
 `cfg.remat` each layer of a training forward under grad mode is
 recomputed in the backward (`torch.utils.checkpoint`, the reference's
-`jax.checkpoint` with its default policy, `nothing_saveable`). `prefill`
+`jax.checkpoint`) under the model's `remat_policy`: "nothing" saves
+nothing (`nothing_saveable`), "dots" saves the outputs of the matrix
+products without batch dimensions (`aten.mm`, `aten.addmm`: JAX's
+`dots_with_no_batch_dims_saveable`) and recomputes the rest, the batched
+products (`bmm`: the attention scores, the experts) included. `prefill`
 and `decode_step` run under `torch.no_grad()`. A frontend config
 (internvl2-2b's patches) splices its embeddings over the first token
 rows, as the reference does.
@@ -35,8 +39,9 @@ Differences from the reference, on purpose:
     (Megatron-SP: `attn_apply_sp`, `mla.mla_forward_sp`, the SP FFN
     and MoE) and `decode_heads_layout` (the head-sharded KV cache).
     `_residual_constrain` resolves the residual stream's layout and
-    changes no value (`sharding.constrain`). No `remat_policy ==
-    "dots"` (training on a mesh is ROADMAP slice 8e). `forward`
+    changes no value (`sharding.constrain`). The reference's
+    `FLAGS.remat_policy` is an argument of the model
+    (`DecoderLM(cfg, remat_policy=)`, `registry.build_model`). `forward`
     returns the multi-token-prediction head's logits (``mtp_logits``)
     as the reference's does; serving never runs the head.
 """
@@ -47,7 +52,8 @@ from dataclasses import dataclass
 from functools import partial
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch import tree
 from repro_torch.models import ffn, mla, moe, rglru, ssm
@@ -461,10 +467,35 @@ def superblock_apply(params, x, positions, cfg, subplan, *, mode="train",
 # --------------------------------------------------------------------------
 # The model
 # --------------------------------------------------------------------------
+REMAT_POLICIES = ("nothing", "dots")
+# the matrix products without batch dimensions: "dots" saves their outputs
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """The "dots" policy of a selective checkpoint."""
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat_kwargs(policy: str) -> dict:
+    """`torch.utils.checkpoint` arguments for a remat policy."""
+    if policy not in REMAT_POLICIES:
+        raise ValueError(f"remat_policy {policy!r} is not one of "
+                         f"{REMAT_POLICIES}")
+    kw = dict(use_reentrant=False, preserve_rng_state=False)
+    if policy == "dots":
+        kw["context_fn"] = partial(create_selective_checkpoint_contexts,
+                                   _save_dots)
+    return kw
+
+
 class DecoderLM:
-    def __init__(self, cfg):
+    def __init__(self, cfg, *, remat_policy: str = "nothing"):
         self.cfg = cfg
         self.groups = group_plan(cfg)
+        self.remat_policy = remat_policy
+        self._remat = remat_kwargs(remat_policy)
 
     # -- specs ------------------------------------------------------------
     def param_specs(self) -> dict:
@@ -547,8 +578,7 @@ class DecoderLM:
             for p_l, c_l in zip(p_ls, c_ls):
                 if remat:
                     x, a, nc = checkpoint(fn, p_l, x, positions, cache=c_l,
-                                          use_reentrant=False,
-                                          preserve_rng_state=False)
+                                          **self._remat)
                 else:
                     x, a, nc = fn(p_l, x, positions, cache=c_l)
                 if mode != "decode":

@@ -47,9 +47,12 @@ The per-rank pieces take the rank's block (and its first row s0), so
 one process can run every rank of an axis in turn on the blocks and do
 the collectives as stacked tensor ops (`chip_smoke.py` phases 12 and
 13): `_cp_block`, `_decode_shard` with `_merge`, `_head_tp_layout` then
-`chunked_attention`, `_local_decode`. The collectives record no
-gradient: a sharded branch raises on an input that requires one
-(ROADMAP slice 8e).
+`chunked_attention`, `_local_decode`. Head-TP and context parallelism
+carry gradients (`sharding.shard_map`'s transpose, the K/V all-gather's
+psum_scatter; the flash kernel's forward on the card, its backward the
+plain recompute at the rank's `q_offset`); the decodes run under
+`torch.no_grad()` and their merge's `pmax` refuses an input that
+requires grad.
 """
 from __future__ import annotations
 

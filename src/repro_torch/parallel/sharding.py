@@ -55,13 +55,31 @@ by global rank, so the collectives permute blocks to JAX's order.
 
 Why not DTensor with `local_map`: it would push DTensors through every
 model function, while a plain body is what one process can also run
-rank by rank on the card (`chip_smoke.py` phase 13), with the
+rank by rank on the card (`chip_smoke.py` phases 13-14), with the
 collectives done as stacked tensor ops. The cost of the global view is
 memory: every rank holds the whole activations, which the reference
 shards. `constrain` resolves its spec and returns its tensor as it is.
-The collectives carry no gradient: `shard_map` raises on an input that
-requires one while grad mode is on (training on a mesh is ROADMAP slice
-8e), rather than drop it.
+
+Gradients. The collectives but `pmax` are autograd Functions whose
+backward is JAX's transpose: `psum` -> `psum`, `all_gather` <->
+`psum_scatter`, `all_to_all` -> the inverse `all_to_all`,
+`ppermute(shift)` -> `ppermute(-shift)`, each on the same line in JAX's
+order. `shard_map` differentiates as the reference's `shard_map(...,
+check_vma=False)` does (`jax/_src/shard_map.py`
+`_shard_map_transpose`), on the global view: an output's whole
+cotangent, the same on every rank, is cut to this rank's block and
+divided by the ranks of the mesh axes its out-spec does not name; the
+body's autograd runs; an input's block cotangent is psummed over the
+axes its in-spec does not name and all-gathered over those it names.
+Every rank ends with the same whole gradient. `pmax` (the decode
+merge's, on no training path) records none and refuses an input that
+requires one under grad mode. A body must take every
+tensor it differentiates as an argument: one it closes over would get
+only this rank's share of its gradient.
+
+`shard_tree` / `unshard_tree` cut a tree of whole tensors to this
+rank's blocks under their param specs and gather them back: the
+sharded train step's state between steps (`train.train_loop`).
 """
 from __future__ import annotations
 
@@ -167,6 +185,14 @@ def use_mesh(mesh, *, fsdp: bool = True, ep_over_data: bool = False,
         fsdp, ep_over_data=ep_over_data), act_rules or dict(ACT_RULES),
         moe_impl=moe_impl, capacity_factor=capacity_factor,
         seq_parallel=seq_parallel, decode_layout=decode_layout)
+    with use_context(ctx):
+        yield ctx
+
+
+@contextlib.contextmanager
+def use_context(ctx: Optional[MeshContext]):
+    """Make `ctx` (a `use_mesh` context, or None) the current one: what
+    a backward, which runs outside its forward's `with`, re-enters."""
     token = _CTX.set(ctx)
     try:
         yield ctx
@@ -176,6 +202,14 @@ def use_mesh(mesh, *, fsdp: bool = True, ep_over_data: bool = False,
 
 def current() -> Optional[MeshContext]:
     return _CTX.get()
+
+
+def ranks_in_use() -> bool:
+    """A `DeviceMesh` (ranks to communicate with) is in use, not an
+    abstract mesh or none."""
+    ctx = current()
+    return (ctx is not None
+            and getattr(ctx.mesh, "mesh_dim_names", None) is not None)
 
 
 def axis_sizes(mesh) -> dict:
@@ -194,12 +228,10 @@ def mesh_axis_size(name: str) -> int:
 
 
 def _device_mesh(name: str):
-    ctx = current()
-    mesh = None if ctx is None else ctx.mesh
-    if mesh is None or getattr(mesh, "mesh_dim_names", None) is None:
+    if not ranks_in_use():
         raise RuntimeError(f"axis {name!r}: no DeviceMesh in use (an "
                            "abstract mesh has no ranks to communicate)")
-    return mesh
+    return current().mesh
 
 
 def _axes(axis) -> tuple:
@@ -273,8 +305,7 @@ def _to_group_order(blocks, ln: _Line) -> list:
     return [blocks[inv[g]] for g in range(len(blocks))]
 
 
-def all_gather(x, axis, dim: int):
-    """lax.all_gather(x, axis, axis=dim, tiled=True)."""
+def _all_gather(x, axis, dim: int):
     import torch.distributed as dist
     ln = _line(axis)
     parts = [torch.empty_like(x) for _ in ln.ranks]
@@ -282,8 +313,7 @@ def all_gather(x, axis, dim: int):
     return torch.cat([parts[g] for g in ln.order], dim)
 
 
-def psum_scatter(x, axis, dim: int):
-    """lax.psum_scatter(x, axis, scatter_dimension=dim, tiled=True)."""
+def _psum_scatter(x, axis, dim: int):
     import torch.distributed as dist
     ln = _line(axis)
     n = len(ln.ranks)
@@ -294,10 +324,7 @@ def psum_scatter(x, axis, dim: int):
     return out
 
 
-def all_to_all(x, axis, split_dim: int, concat_dim: int):
-    """lax.all_to_all(x, axis, split_dim, concat_dim, tiled=True): block
-    j of `x` on split_dim goes to index j; the blocks received are
-    concatenated on concat_dim by their sender's index."""
+def _all_to_all(x, axis, split_dim: int, concat_dim: int):
     import torch.distributed as dist
     ln = _line(axis)
     n = len(ln.ranks)
@@ -309,26 +336,13 @@ def all_to_all(x, axis, split_dim: int, concat_dim: int):
 
 def _all_reduce(x, axis, op):
     import torch.distributed as dist
-    out = x.clone()
+    out = x.clone(memory_format=torch.contiguous_format)
     dist.all_reduce(out, op=getattr(dist.ReduceOp, op),
                     group=_line(axis).group)
     return out
 
 
-def psum(x, axis):
-    """lax.psum(x, axis)."""
-    return _all_reduce(x, axis, "SUM")
-
-
-def pmax(x, axis):
-    """lax.pmax(x, axis)."""
-    return _all_reduce(x, axis, "MAX")
-
-
-def ppermute(x, axis, shift: int):
-    """lax.ppermute(x, axis, [(i, (i + shift) % n)]): this rank's block
-    goes `shift` places on along the line; the one `shift` places back
-    arrives."""
+def _ppermute(x, axis, shift: int):
     import torch.distributed as dist
     ln = _line(axis)
     n = len(ln.ranks)
@@ -343,6 +357,71 @@ def ppermute(x, axis, shift: int):
     for w in dist.batch_isend_irecv(ops):
         w.wait()
     return out
+
+
+class _Collective(torch.autograd.Function):
+    """A collective `fwd(x, *args)` whose backward is the collective
+    `bwd(g, *bwd_args)`: its transpose."""
+
+    @staticmethod
+    def forward(ctx, x, fwd, args, bwd, bwd_args):
+        ctx.mesh, ctx.bwd, ctx.bwd_args = current(), bwd, bwd_args
+        return fwd(x, *args)
+
+    @staticmethod
+    def backward(ctx, g):
+        with use_context(ctx.mesh):
+            return ctx.bwd(g, *ctx.bwd_args), None, None, None, None
+
+
+def _apply(x, fwd, args, bwd, bwd_args):
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _Collective.apply(x, fwd, args, bwd, bwd_args)
+    return fwd(x, *args)
+
+
+def all_gather(x, axis, dim: int):
+    """lax.all_gather(x, axis, axis=dim, tiled=True); transpose:
+    psum_scatter."""
+    return _apply(x, _all_gather, (axis, dim), _psum_scatter, (axis, dim))
+
+
+def psum_scatter(x, axis, dim: int):
+    """lax.psum_scatter(x, axis, scatter_dimension=dim, tiled=True);
+    transpose: all_gather."""
+    return _apply(x, _psum_scatter, (axis, dim), _all_gather, (axis, dim))
+
+
+def all_to_all(x, axis, split_dim: int, concat_dim: int):
+    """lax.all_to_all(x, axis, split_dim, concat_dim, tiled=True): block
+    j of `x` on split_dim goes to index j; the blocks received are
+    concatenated on concat_dim by their sender's index. Transpose: the
+    all_to_all with the two dims swapped."""
+    return _apply(x, _all_to_all, (axis, split_dim, concat_dim),
+                  _all_to_all, (axis, concat_dim, split_dim))
+
+
+def psum(x, axis):
+    """lax.psum(x, axis); transpose: psum."""
+    return _apply(x, _all_reduce, (axis, "SUM"), _all_reduce, (axis, "SUM"))
+
+
+def pmax(x, axis):
+    """lax.pmax(x, axis), with no gradient: only the sharded decode's
+    merge, on no training path, takes it, so an input that requires grad
+    under grad mode is refused."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        raise NotImplementedError(
+            "pmax: an input requires grad, and pmax carries no gradient "
+            "(only the sharded decode's merge takes it)")
+    return _all_reduce(x, axis, "MAX")
+
+
+def ppermute(x, axis, shift: int):
+    """lax.ppermute(x, axis, [(i, (i + shift) % n)]): this rank's block
+    goes `shift` places on along the line; the one `shift` places back
+    arrives. Transpose: ppermute(-shift)."""
+    return _apply(x, _ppermute, (axis, shift), _ppermute, (axis, -shift))
 
 
 # --------------------------------------------------------------------------
@@ -370,6 +449,63 @@ def _unblock(x, spec):
     return x
 
 
+def _unnamed(spec) -> tuple:
+    """The mesh axes `spec` does not name, in mesh order."""
+    named = {a for ent in spec if ent is not None for a in _axes(ent)}
+    return tuple(a for a in axis_sizes(current().mesh) if a not in named)
+
+
+class _Enter(torch.autograd.Function):
+    """A whole input -> this rank's block; backward: the block's
+    cotangent psummed over the axes `spec` does not name, then gathered
+    over those it names, back to the whole input's."""
+
+    @staticmethod
+    def forward(ctx, x, spec):
+        ctx.mesh, ctx.spec, ctx.unnamed = current(), spec, _unnamed(spec)
+        if ctx.unnamed:
+            _line(ctx.unnamed)      # every rank makes the group now
+        return _block(x, spec).clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        with use_context(ctx.mesh):
+            if ctx.unnamed:
+                g = _all_reduce(g, ctx.unnamed, "SUM")
+            return _unblock(g, ctx.spec), None
+
+
+class _Exit(torch.autograd.Function):
+    """This rank's output block -> the whole output (all-gathers);
+    backward: this rank's block of the whole cotangent over the ranks of
+    the axes `spec` does not name."""
+
+    @staticmethod
+    def forward(ctx, y, spec):
+        ctx.mesh, ctx.spec = current(), spec
+        ctx.n = axis_size(_unnamed(spec))
+        out = _unblock(y, spec)
+        return y.clone() if out is y else out
+
+    @staticmethod
+    def backward(ctx, g):
+        with use_context(ctx.mesh):
+            g = _block(g, ctx.spec)
+        return (g / ctx.n if ctx.n != 1 else g), None
+
+
+def _enter(x, spec):
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _Enter.apply(x, spec)
+    return _block(x, spec)
+
+
+def _exit(y, spec):
+    if torch.is_grad_enabled() and y.requires_grad:
+        return _Exit.apply(y, spec)
+    return _unblock(y, spec)
+
+
 def gather_param(w, axes, *, keep_model: bool = True, skip=(), shape=None):
     """De-shard a parameter's block inside a shard_map body: all-gather
     it over every mesh axis its param spec names, or every one but
@@ -377,7 +513,7 @@ def gather_param(w, axes, *, keep_model: bool = True, skip=(), shape=None):
     keep_model=False its `_gather_all`). The spec is resolved on the
     block's shape, as the reference's are, or on `shape`; the dims of
     the logical axes in `skip` stay sharded (MoE's `_gather_fsdp`
-    keeps the expert dim)."""
+    keeps the expert dim). Its gradient is `all_gather`'s."""
     spec = resolve_spec(axes, w.shape if shape is None else shape, "param")
     for d, ent in enumerate(spec):
         if axes[d] in skip:
@@ -388,36 +524,47 @@ def gather_param(w, axes, *, keep_model: bool = True, skip=(), shape=None):
     return w
 
 
-def check_no_grad(*xs, what: str = "a sharded region"):
-    """Raise where an input requires grad under grad mode: the port's
-    collectives record no gradient (training on a mesh: ROADMAP 8e)."""
-    if torch.is_grad_enabled() and any(
-            getattr(x, "requires_grad", False) for x in xs):
-        raise NotImplementedError(
-            f"{what}: an input requires grad, and the port's collectives "
-            "carry no gradient; training on a mesh is ROADMAP slice 8e")
-
-
 def shard_map(body, in_specs, out_specs):
     """The counterpart of the reference's `shard_map(body, mesh,
-    in_specs, out_specs)` on plain tensors held whole by every rank:
-    each argument is cut to this rank's block under its spec (None: not
-    a tensor, passed as it is), `body` runs on the blocks, and each
-    output's global value is rebuilt from its out-spec. `out_specs` is
-    one spec (one output) or a tuple of them."""
+    in_specs, out_specs, check_vma=False)` on plain tensors held whole
+    by every rank: each argument is cut to this rank's block under its
+    spec (None: not a tensor, passed as it is), `body` runs on the
+    blocks, and each output's global value is rebuilt from its out-spec.
+    `out_specs` is one spec (one output) or a tuple of them. Its
+    gradient is the reference's transpose (the module docstring)."""
     single = isinstance(out_specs, PartitionSpec)
 
     def run(*args):
-        check_no_grad(*args)
-        blocks = [a if s is None else _block(a, s)
+        blocks = [a if s is None else _enter(a, s)
                   for a, s in zip(args, in_specs, strict=True)]
         out = body(*blocks)
         if single:
-            return _unblock(out, out_specs)
-        return tuple(o if s is None else _unblock(o, s)
+            return _exit(out, out_specs)
+        return tuple(o if s is None else _exit(o, s)
                      for o, s in zip(out, out_specs, strict=True))
     return run
 
+
+# --------------------------------------------------------------------------
+# A tree of parameters (or moments) by their param specs
+# --------------------------------------------------------------------------
+def shard_tree(whole, specs):
+    """This rank's block of every leaf of `whole` under its param spec
+    in `specs` (a tree of module Specs): contiguous copies (a donated
+    update of the blocks leaves `whole` as it is), no collective."""
+    return tree.map(lambda s, a: _block(a, resolve_spec(
+        s.axes, s.shape, "param")).clone(
+            memory_format=torch.contiguous_format),
+        specs, whole, is_leaf=mod.is_spec)
+
+
+def unshard_tree(blocks, specs):
+    """Every leaf of `blocks` gathered whole (all-gathers, no graph): the
+    inverse of `shard_tree`. A leaf no spec entry cuts comes back as
+    itself."""
+    with torch.no_grad():
+        return tree.map(lambda s, a: _unblock(a, resolve_spec(
+            s.axes, s.shape, "param")), specs, blocks, is_leaf=mod.is_spec)
 
 
 # --------------------------------------------------------------------------

@@ -20,9 +20,16 @@ a bf16 (full-width) run; the port can.
 
 `restore(template, step, spec_tree)` fills `template` by keypath: a
 tensor leaf gives the device (and must give the stored shape and dtype),
-any other leaf means the package default device. `spec_tree` is taken
-for the reference's signature and unused: one process has no mesh to
-reshard onto (training on a mesh: ROADMAP slice 8e).
+any other leaf means the package default device.
+
+On a mesh (a `DeviceMesh` in `sharding.use_mesh`, `spec_tree` given: a
+tree of module Specs like the state's) the state is a rank's blocks
+(`train_loop.shard_train_state`). `save` gathers every leaf whole on
+every rank and rank 0 writes it, in the format above, before all ranks
+go on; `restore` reads the whole leaves and cuts this rank's block under
+the current mesh's specs, the reference's elastic reshard. A checkpoint
+written on one mesh so resumes on another, in one process, or in the
+reference.
 """
 from __future__ import annotations
 
@@ -37,6 +44,8 @@ import torch
 from repro_torch import tree
 from repro_torch.convert import to_tensor
 from repro_torch.device import resolve
+from repro_torch.models.module import is_spec
+from repro_torch.parallel import sharding
 
 
 def _to_numpy(leaf) -> np.ndarray:
@@ -58,11 +67,13 @@ def flatten_with_keys(state) -> dict[str, np.ndarray]:
     return {k: _to_numpy(leaf) for k, leaf in tree.flatten_with_keys(state)}
 
 
-def _from_numpy(arr: np.ndarray, like, key: str) -> torch.Tensor:
+def _from_numpy(arr: np.ndarray, like, key: str, spec=None) -> torch.Tensor:
     if arr.dtype == np.dtype("V2"):
         t = torch.from_numpy(arr.view(np.int16).copy()).view(torch.bfloat16)
     else:
         t = to_tensor(arr, "cpu").clone()
+    if spec is not None:
+        t = sharding.shard_tree(t, spec)
     if isinstance(like, torch.Tensor):
         if tuple(t.shape) != tuple(like.shape) or t.dtype != like.dtype:
             raise ValueError(f"checkpoint leaf {key}: {tuple(t.shape)} "
@@ -82,8 +93,19 @@ class Checkpointer:
         os.makedirs(directory, exist_ok=True)
 
     # -- write ------------------------------------------------------------
-    def save(self, step: int, state: dict, metadata: dict | None = None):
-        """state: a tree of tensors, e.g. {'params': ..., 'opt': ...}."""
+    def save(self, step: int, state: dict, metadata: dict | None = None,
+             spec_tree=None):
+        """state: a tree of tensors, e.g. {'params': ..., 'opt': ...}; on
+        a mesh with `spec_tree`, a rank's blocks, gathered whole and
+        written by rank 0 (every rank calls)."""
+        if _on_mesh(spec_tree):
+            import torch.distributed as dist
+            whole = sharding.unshard_tree(state, spec_tree)
+            if dist.get_rank() == 0:
+                self.wait()
+                self._write(step, flatten_with_keys(whole), metadata or {})
+            dist.barrier()
+            return
         flat = flatten_with_keys(state)        # host copies happen here
         if self._pool is not None:
             self.wait()
@@ -135,14 +157,22 @@ class Checkpointer:
     def restore(self, template, step: int | None = None,
                 spec_tree=None) -> tuple[int, dict]:
         """(step, `template` refilled from checkpoint `step`, the latest
-        when None)."""
-        del spec_tree                   # no mesh to reshard onto
+        when None): on a mesh with `spec_tree`, this rank's blocks."""
+        specs = (tree.leaves(spec_tree, is_leaf=is_spec)
+                 if _on_mesh(spec_tree) else None)
         if step is None:
             step = self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints under {self.dir}")
         d = os.path.join(self.dir, f"step_{step:09d}")
         with np.load(os.path.join(d, "tensors.npz")) as data:
-            leaves = [_from_numpy(data[k], like, k)
-                      for k, like in tree.flatten_with_keys(template)]
+            leaves = [_from_numpy(data[k], like, k,
+                                  None if specs is None else specs[i])
+                      for i, (k, like) in enumerate(
+                          tree.flatten_with_keys(template))]
         return step, tree.unflatten(template, leaves)
+
+
+def _on_mesh(spec_tree) -> bool:
+    """A spec tree given under a `DeviceMesh`: the state is blocks."""
+    return spec_tree is not None and sharding.ranks_in_use()

@@ -8,12 +8,14 @@ is a pure function of step); (c) slow steps are detected against a
 rolling median and surfaced through a callback. The counters live on the
 reference's registry paths, `straggler{i}/stragglers_flagged` and
 `train_controller{i}/{restarts,checkpoints_saved,failures_injected}`.
+On a mesh the controller's `spec_tree` makes its checkpoints gather and
+its restore reshard the state's blocks (`train.checkpoint`).
 """
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field
-from typing import Callable, Optional
+from typing import Any, Callable, Optional
 
 from repro_torch.obs import metrics as obs
 from repro_torch.train.checkpoint import Checkpointer
@@ -56,6 +58,8 @@ class TrainController:
     checkpoint_every: int = 50
     on_straggler: Optional[Callable] = None
     monitor: StragglerMonitor = field(default_factory=StragglerMonitor)
+    # on a mesh: the state's spec tree, for `save` / `restore` of blocks
+    spec_tree: Any = None
 
     restarts = obs.counter_attr()
     checkpoints_saved = obs.counter_attr()
@@ -68,7 +72,7 @@ class TrainController:
         self.failures_injected = 0
 
     def _save(self, step, state):
-        self.ckpt.save(step, state)
+        self.ckpt.save(step, state, spec_tree=self.spec_tree)
         self.checkpoints_saved += 1
 
     def run(self, state, start_step: int, num_steps: int,
@@ -98,7 +102,8 @@ class TrainController:
             restored_step = self.ckpt.latest_step()
             if restored_step is None:
                 raise
-            _, state = self.ckpt.restore(state, restored_step)
+            _, state = self.ckpt.restore(state, restored_step,
+                                         spec_tree=self.spec_tree)
             self.restarts += 1
             remaining = (start_step + num_steps) - restored_step
             state, last, h2 = self.run(state, restored_step, remaining,

@@ -13,7 +13,9 @@ an update makes no host synchronisation.
 into the tensors it was given (the analogue of the reference's
 `jit(..., donate_argnums=(0, 1))`): each leaf's float32 temporaries live
 only while that leaf is updated, so a full-width model's update needs
-no second copy of its state.
+no second copy of its state. On a mesh the leaves are a rank's blocks,
+the moments cut by `opt_state_specs` as the parameters by their specs
+(`train_loop.shard_train_state`), and the clip's norm comes in whole.
 """
 from __future__ import annotations
 
@@ -75,12 +77,17 @@ def global_norm(tree_) -> torch.Tensor:
 
 
 def adamw_update(grads, opt_state, params, opt_cfg: OptConfig, *,
-                 donate: bool = False):
+                 donate: bool = False, gnorm=None):
     """Returns (new_params, new_opt_state, metrics). With `donate`, the
     new parameters and moments are written into `params` and
-    `opt_state`'s tensors, which come back as the result."""
+    `opt_state`'s tensors, which come back as the result. `gnorm`: the
+    clip's global norm, taken on the whole gradient where `grads` are a
+    rank's blocks of it (the sharded step: a sum of block norms would
+    count a replicated leaf once per replica); by default
+    `global_norm(grads)`."""
     step = opt_state["step"] + 1
-    gnorm = global_norm(grads)
+    if gnorm is None:
+        gnorm = global_norm(grads)
     scale = (torch.clamp(opt_cfg.grad_clip / (gnorm + 1e-12), max=1.0)
              if opt_cfg.grad_clip else 1.0)
     lr = _schedule(step, opt_cfg)

@@ -9,16 +9,30 @@ path reaches getting zeros (the reference's `jax.value_and_grad`). With
 microbatches' gradients are summed in float32, each divided by the
 count, as the reference's scan sums them.
 
-One process has no mesh: `jit_train_step` returns the step, donating
-the parameters and optimizer state (updated in place, as the
-reference's `jit(..., donate_argnums=(0, 1))` reuses their buffers);
-the sharded step comes with training on a mesh (ROADMAP slice 8e).
+`jit_train_step` returns the step, donating the parameters and
+optimizer state (updated in place, as the reference's `jit(...,
+donate_argnums=(0, 1))` reuses their buffers). Under a `DeviceMesh`
+(`sharding.use_mesh` around the call) it is the sharded step, the
+reference's `jit(in_shardings=, out_shardings=)` from `param_shardings`:
+between steps each rank holds its block of every parameter and moment
+under its param spec (`shard_train_state`; FSDP's embed -> data
+included), and a step
+
+  1. gathers the whole parameters, with no graph;
+  2. takes the loss and gradients in the global view (every sharded
+     branch carries gradients: `sharding.shard_map`), the loss whole and
+     equal on every rank;
+  3. checks that the whole gradient is the same on every rank
+     (`check_replicated`);
+  4. cuts the gradient to blocks and runs AdamW on the blocks, donated,
+     its clip on the whole gradient's norm.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch import tree
+from repro_torch.parallel import sharding
 from repro_torch.train import optimizer as opt
 
 
@@ -113,7 +127,88 @@ def make_train_step(model, cfg, opt_cfg: opt.OptConfig, *,
 
 
 def jit_train_step(model, cfg, opt_cfg, *, microbatches: int = 1):
-    """The train step with the parameters and optimizer state donated
-    (one process: no mesh, no shardings)."""
-    return make_train_step(model, cfg, opt_cfg, microbatches=microbatches,
-                           donate=True)
+    """The train step with the parameters and optimizer state donated:
+    on whole trees with no mesh, on a rank's blocks under a DeviceMesh
+    (the module docstring)."""
+    if not sharding.ranks_in_use():
+        return make_train_step(model, cfg, opt_cfg,
+                               microbatches=microbatches, donate=True)
+    ctx = sharding.current()
+    specs = state_specs(model, opt_cfg)
+    grads_fn = make_grads_fn(model, cfg, microbatches=microbatches)
+
+    def train_step(params, opt_state, batch):
+        with sharding.use_context(ctx):
+            whole = sharding.unshard_tree(params, specs["params"])
+            (loss, metrics), grads = grads_fn(whole, batch)
+            del whole
+            check_replicated(grads)
+            gnorm = opt.global_norm(grads)
+            grads = sharding.shard_tree(grads, specs["params"])
+        params2, opt_state2, om = opt.adamw_update(
+            grads, opt_state, params, opt_cfg, donate=True, gnorm=gnorm)
+        return params2, opt_state2, dict(metrics, loss=loss, **om)
+
+    return train_step
+
+
+def state_specs(model, opt_cfg) -> dict:
+    """{"params", "opt"}: the spec trees of the parameters and of the
+    optimizer state (`opt_state_specs`)."""
+    pspecs = model.param_specs()
+    return {"params": pspecs, "opt": opt.opt_state_specs(pspecs, opt_cfg)}
+
+
+def shard_train_state(model, opt_cfg, params, opt_state):
+    """(parameter blocks, optimizer-state blocks): this rank's block of
+    each whole leaf under the active mesh's param specs."""
+    specs = state_specs(model, opt_cfg)
+    return (sharding.shard_tree(params, specs["params"]),
+            sharding.shard_tree(opt_state, specs["opt"]))
+
+
+def unshard_train_state(model, opt_cfg, params, opt_state):
+    """The whole trees of a rank's blocks (all-gathers; every rank)."""
+    specs = state_specs(model, opt_cfg)
+    return (sharding.unshard_tree(params, specs["params"]),
+            sharding.unshard_tree(opt_state, specs["opt"]))
+
+
+# elements of a leaf that `_fingerprint` widens to int64 at a time: its
+# scratch stays at a few 128 MiB buffers whatever the leaf's size
+_FP_CHUNK = 1 << 24
+
+
+def _fingerprint(t) -> torch.Tensor:
+    """Two int64 sums of a tensor's bit patterns, the second weighted by
+    position: equal for bit-equal tensors."""
+    t = t.detach().contiguous().reshape(-1)
+    bits = t.view({8: torch.int64, 4: torch.int32, 2: torch.int16,
+                   1: torch.int8}[t.element_size()])
+    out = torch.zeros(2, dtype=torch.int64, device=t.device)
+    for i in range(0, bits.numel(), _FP_CHUNK):
+        b = bits[i:i + _FP_CHUNK].long()
+        w = torch.arange(i, i + b.numel(), device=t.device) % 65521 + 1
+        out += torch.stack([b.sum(), (b * w).sum()])
+    return out
+
+
+def check_replicated(grads):
+    """Raise unless every leaf of the whole gradient has the same bits on
+    every rank of the default process group (its fingerprints' max and
+    min over the ranks agree): a wrong transpose gives a rank another
+    share of it."""
+    import torch.distributed as dist
+    leaves = tree.leaves(grads)
+    if not leaves:
+        return
+    fp = torch.stack([_fingerprint(g) for g in leaves])
+    hi, lo = fp.clone(), -fp
+    dist.all_reduce(hi, op=dist.ReduceOp.MAX)
+    dist.all_reduce(lo, op=dist.ReduceOp.MAX)
+    differ = (hi != -lo).any(-1)
+    if bool(differ.any()):
+        keys = [k for (k, _), d in zip(tree.flatten_with_keys(grads),
+                                       differ.tolist()) if d]
+        raise RuntimeError(f"the whole gradient differs across ranks at "
+                           f"{keys}")

@@ -1,12 +1,14 @@
 """Multi-rank runs of the port on the CPU, for the parallelism tests
 (`test_torch_sharding.py`, `test_torch_context_parallel.py`,
 `test_torch_expert_parallel.py`, `test_torch_seq_parallel.py`,
-`test_torch_wire.py`).
+`test_torch_wire.py`, `test_torch_mesh_grads.py`,
+`test_torch_mesh_train.py`).
 
 `run(jobs, world, workdir, payload)` spawns `world` processes with
 `torch.multiprocessing.spawn`; each joins one gloo process group through
 a `FileStore` in `workdir` (no TCP port, so concurrent test workers
-cannot collide), pins one thread, selects the CPU as the package
+cannot collide) with a timeout on every collective, pins one thread,
+selects the CPU as the package
 default, runs every named job of `JOBS` on the numpy `payload` in turn
 and saves what it returns. A module spawns its ranks once, for all its
 cases. Returns one {name: array} per rank.
@@ -16,10 +18,13 @@ they never import JAX.
 """
 from __future__ import annotations
 
+import datetime
 import os
 
 import numpy as np
 import torch
+
+COLLECTIVE_TIMEOUT_S = 240
 
 
 def run(jobs, world: int, workdir, payload: dict) -> list[dict]:
@@ -39,9 +44,12 @@ def _rank(rank, world, workdir, jobs, payload):
     from repro_torch import device
     torch.set_num_threads(1)
     device.set_default("cpu")
+    # a collective that waits this long is a hang (ranks issuing their
+    # collectives in other orders): it raises, and the test fails
     dist.init_process_group(
         "gloo", init_method="file://" + os.path.join(workdir, "store"),
-        rank=rank, world_size=world)
+        rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=COLLECTIVE_TIMEOUT_S))
     try:
         res = {}
         for job in jobs:
@@ -56,7 +64,8 @@ def _t(a):
 
 
 def _n(t):
-    return t.detach().float().numpy()
+    """A numpy copy (a later in-place update of `t` leaves it as it is)."""
+    return t.detach().float().numpy().copy()
 
 
 # -- slice 8a ------------------------------------------------------------------
@@ -427,7 +436,234 @@ def wire(rank, payload):
     return out
 
 
+# -- slice 8e -----------------------------------------------------------------
+def _grad_case(fn, inputs: dict, params, ct, aux=None):
+    """The output of `fn(inputs..., params)` and the gradients of
+    sum(out * ct) (+ the aux term fn returns second, where `aux`) with
+    respect to every input and parameter leaf, keyed "in/<name>" and
+    "param/<keypath>"."""
+    from repro_torch import tree
+    xs = {k: v.clone().requires_grad_(v.is_floating_point())
+          for k, v in inputs.items()}
+    ps = tree.map(lambda a: a.clone().requires_grad_(True), params)
+    with torch.enable_grad():
+        y = fn(xs, ps)
+        loss = (y[0] * ct).sum() + y[1] if aux else (y * ct).sum()
+        want = [(f"in/{k}", v) for k, v in xs.items() if v.requires_grad]
+        want += [(f"param/{k}", v) for k, v in tree.flatten_with_keys(ps)]
+        got = torch.autograd.grad(loss, [v for _, v in want])
+    out = {"out": _n(y[0] if aux else y)}
+    out.update({k: _n(g) for (k, _), g in zip(want, got)})
+    return out
+
+
+def mesh_grads(rank, payload):
+    """Each sharded branch that training runs, differentiated on the
+    reference's inputs, cotangent and parameters (`MG_CASES` of
+    `test_torch_mesh_grads.py`: their meshes and flags): the output, the
+    gradient of every input and parameter, the branches called and the
+    MoE's dropped assignments on this rank."""
+    from repro_torch.configs.base import get_config, reduced
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import ffn, mla, moe, transformer
+    from repro_torch.parallel import collectives, sharding
+
+    counts = _count_calls(collectives, ("_head_tp_attention",
+                                        "_context_parallel_attention"))
+    _count_calls(ffn, ("_ffn_apply_wg", "_ffn_apply_sp"), counts)
+    _count_calls(moe, ("_moe_a2a", "_moe_replicated"), counts)
+    _count_calls(mla, ("mla_forward_sp",), counts)
+    _count_calls(transformer, ("attn_apply_sp",), counts)
+    drops = _record_drops(moe)
+    meshes = {"m24": make_mesh((2, 4), ("data", "model")),
+              "m222": make_mesh((2, 2, 2), ("rep", "data", "model"))}
+    cfgs = {a: reduced(get_config(a)) for a in (
+        "granite-moe-1b-a400m", "deepseek-v3-671b", "stablelm-12b")}
+    fns = {
+        "attend": lambda x, p: collectives.attend(x["q"], x["k"], x["v"]),
+        "ffn": lambda x, p: ffn.ffn_apply(p, x["x"], "swiglu", sp=True),
+        "moe": lambda x, p: moe.moe_apply(
+            p, x["x"], cfgs["granite-moe-1b-a400m"]),
+        "mla": lambda x, p: mla.mla_forward_sp(
+            p, x["x"], x["pos"], cfgs["deepseek-v3-671b"]),
+        "attn": lambda x, p: transformer.attn_apply(
+            p, x["x"], x["pos"], cfgs["stablelm-12b"])[0],
+    }
+    out = {}
+    for case in payload["mg/cases"].tolist():
+        pre = f"mg/{case}/"
+        kind, mesh = str(payload[pre + "kind"]), str(payload[pre + "mesh"])
+        flags = {k: v.item() for k, v in (
+            (k[len(pre) + 5:], payload[k]) for k in payload
+            if k.startswith(pre + "flag/"))}
+        inputs = {k[len(pre) + 3:]: _t(v) for k, v in payload.items()
+                  if k.startswith(pre + "in/")}
+        pkeys = sorted(k for k in payload if k.startswith(pre + "param/"))
+        params = {}
+        for k in pkeys:                 # the nested dicts of the keypaths
+            d = params
+            *path, leaf = k[len(pre) + 6:].split("/")
+            for part in path:
+                d = d.setdefault(part, {})
+            d[leaf] = _t(payload[k])
+        before = dict(counts)
+        del drops[:]
+        with sharding.use_mesh(meshes[mesh], **flags):
+            got = _grad_case(fns[kind], inputs, params, _t(payload[pre + "ct"]),
+                             aux=kind == "moe")
+        out.update({pre + k: v for k, v in got.items()})
+        out[pre + "calls"] = np.asarray(sorted(
+            n for n in counts if counts[n] > before[n]))
+        out[pre + "drops"] = np.asarray(sum(drops))
+    return out
+
+
+def mesh_train(rank, payload):
+    """The sharded train step on a (2, 2, 2) (pod, data, model) mesh, on
+    the conditioned copies of the reference's parameters and its
+    batches, for each arch of payload["mt/archs"] (remat on for those of
+    payload["mt/remat"]): the whole gradient of the first batch, two
+    steps' losses and grad norms and the parameters after each; for
+    gemma-2b the whole gradient and a step at microbatches=2, and its
+    state after the two steps checkpointed on (2, 2, 2), restored on
+    (1, 2, 4) and stepped once there and on (2, 2, 2) (the second
+    moments after that step too)."""
+    import dataclasses
+
+    from repro_torch import tree
+    from repro_torch.configs.base import get_config, reduced
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.registry import build_model
+    from repro_torch.parallel import sharding
+    from repro_torch.train import optimizer as optim
+    from repro_torch.train import train_loop
+    from repro_torch.train.checkpoint import Checkpointer
+
+    m222 = make_mesh((2, 2, 2), ("pod", "data", "model"))
+    m124 = make_mesh((1, 2, 4), ("pod", "data", "model"))
+    opt_cfg = optim.OptConfig(**{k: payload[f"mt/opt/{k}"].item() for k in (
+        "lr", "warmup_steps", "weight_decay")})
+    remat = set(payload["mt/remat"].tolist())
+    out = {}
+
+    def put(prefix, t):
+        out.update({prefix + k: _n(a) for k, a in tree.flatten_with_keys(t)})
+
+    for arch in payload["mt/archs"].tolist():
+        cfg = reduced(get_config(arch))
+        if arch in remat:
+            cfg = dataclasses.replace(cfg, remat=True)
+        model = build_model(cfg)
+        pre = f"mt/{arch}/"
+
+        def params():
+            return _tree(payload, pre + "param/", model.param_specs())
+        batches = [{k: _t(payload[f"{pre}batch{i}/{k}"]) for k in (
+            "tokens", "labels", "embeddings")
+            if f"{pre}batch{i}/{k}" in payload} for i in range(3)]
+        with sharding.use_mesh(m222):
+            (loss, _), grads = train_loop.make_grads_fn(model, cfg)(
+                params(), batches[0])
+            put(pre + "grad/", grads)
+            out[pre + "loss0"] = _n(loss)
+            p0 = params()
+            state = train_loop.shard_train_state(
+                model, opt_cfg, p0, optim.init_opt_state(p0, opt_cfg))
+            out[pre + "block_shapes"] = np.asarray(
+                [list(a.shape) + [0] * (4 - a.ndim)
+                 for a in tree.leaves(state[0])])
+            step = train_loop.jit_train_step(model, cfg, opt_cfg)
+            losses, norms = [], []
+            for i in range(2):
+                *state, m = step(*state, batches[i])
+                losses.append(float(m["loss"]))
+                norms.append(float(m["grad_norm"]))
+                whole = train_loop.unshard_train_state(model, opt_cfg,
+                                                       *state)
+                put(pre + f"step{i + 1}/", whole[0])
+            out[pre + "losses"] = np.asarray(losses)
+            out[pre + "gnorms"] = np.asarray(norms)
+            if arch != "gemma-2b":
+                continue
+            p0 = params()
+            _, grads = train_loop.make_grads_fn(model, cfg, microbatches=2)(
+                p0, batches[0])
+            put(pre + "mb2grad/", grads)
+            mb = train_loop.jit_train_step(model, cfg, opt_cfg,
+                                           microbatches=2)
+            blocks = train_loop.shard_train_state(
+                model, opt_cfg, p0, optim.init_opt_state(p0, opt_cfg))
+            *blocks, m = mb(*blocks, batches[0])
+            out[pre + "mb2/loss"] = _n(m["loss"])
+            put(pre + "mb2/", train_loop.unshard_train_state(
+                model, opt_cfg, *blocks)[0])
+            specs = train_loop.state_specs(model, opt_cfg)
+            ck = Checkpointer(str(payload["mt/ckpt_dir"]))
+            ck.save(2, {"params": state[0], "opt": state[1]},
+                    spec_tree=specs)
+            ck.close()
+            *state, m = step(*state, batches[2])
+            out[pre + "step3/loss"] = _n(m["loss"])
+            p3, o3 = train_loop.unshard_train_state(model, opt_cfg, *state)
+            put(pre + "step3/", p3)
+            put(pre + "v3/", o3["v"])
+        # the checkpoint of (2, 2, 2) resumed on (1, 2, 4)
+        with sharding.use_mesh(m124):
+            template = train_loop.shard_train_state(model, opt_cfg, *whole)
+            _, got = Checkpointer(str(payload["mt/ckpt_dir"])).restore(
+                {"params": template[0], "opt": template[1]},
+                spec_tree=specs)
+            put(pre + "m124/restored/", train_loop.unshard_train_state(
+                model, opt_cfg, got["params"], got["opt"])[0])
+            step = train_loop.jit_train_step(model, cfg, opt_cfg)
+            *state, m = step(got["params"], got["opt"], batches[2])
+            out[pre + "m124/loss"] = _n(m["loss"])
+            put(pre + "m124/step3/", train_loop.unshard_train_state(
+                model, opt_cfg, *state)[0])
+    return out
+
+
+def mesh_cli(rank, payload):
+    """`launch.train.main` with `--mesh 2x2x2` on the CPU, as `torchrun`
+    would start it on each rank (the process group already made): a run
+    checkpointing every payload["cli/every"] steps, and the same run
+    failing at payload["cli/fail_at"] and restarting from its latest
+    checkpoint; each run's losses and its final parameters."""
+    from repro_torch import tree
+    from repro_torch.configs.base import get_config, reduced
+    from repro_torch.launch import train as launch_train
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.registry import build_model
+    from repro_torch.parallel import sharding
+    from repro_torch.train import optimizer as optim
+    from repro_torch.train import train_loop
+
+    argv = [str(a) for a in payload["cli/argv"].tolist()]
+    out = {}
+    for name, extra in (("whole", []),
+                        ("failed", ["--fail-at", str(payload["cli/fail_at"])])):
+        state, hist = launch_train.main(
+            argv + ["--ckpt-dir", f"{payload['cli/dir']}/{name}"] + extra)
+        out[f"cli/{name}/steps"] = np.asarray([s for s, _ in hist])
+        out[f"cli/{name}/losses"] = np.asarray([float(m["loss"])
+                                                for _, m in hist])
+        # the blocks gathered whole on the run's mesh
+        model = build_model(reduced(get_config(argv[argv.index("--arch")
+                                                     + 1])))
+        opt_cfg = optim.OptConfig()
+        with sharding.use_mesh(make_mesh((2, 2, 2), ("pod", "data",
+                                                      "model"))):
+            whole = train_loop.unshard_train_state(
+                model, opt_cfg, state["params"], state["opt"])
+        out.update({f"cli/{name}/param/{k}": _n(a)
+                    for k, a in tree.flatten_with_keys(whole[0])})
+        out[f"cli/{name}/step"] = _n(whole[1]["step"])
+    return out
+
+
 JOBS = {"shard_shapes": shard_shapes, "compress": compress,
         "context_parallel": context_parallel,
         "model_on_mesh": model_on_mesh, "expert_parallel": expert_parallel,
-        "seq_parallel": seq_parallel, "wire": wire}
+        "seq_parallel": seq_parallel, "wire": wire,
+        "mesh_grads": mesh_grads, "mesh_train": mesh_train,
+        "mesh_cli": mesh_cli}

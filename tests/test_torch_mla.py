@@ -264,9 +264,11 @@ def test_expanded_keys_are_materialised_and_take_the_tma_route(monkeypatch):
 
 def test_mla_forward_sp_waits_for_slice_8():
     """`mla_forward_sp` runs on a mesh (`test_torch_seq_parallel.py`
-    holds it on 8 gloo ranks): with no mesh there is no `model` axis to
-    shard over, and training through it waits for ROADMAP slice 8e (its
-    collectives carry no gradient)."""
+    holds it on 8 gloo ranks, `test_torch_mesh_grads.py` its
+    gradients): with no mesh, or an abstract one, there are no ranks to
+    shard over, and an input that requires grad is no longer refused
+    before the collectives (training through it came with ROADMAP slice
+    8e)."""
     from repro_torch.launch.mesh import abstract_mesh
     from repro_torch.parallel import sharding
     jcfg, tcfg, jp, tp = _mla_params()
@@ -275,7 +277,7 @@ def test_mla_forward_sp_waits_for_slice_8():
     with pytest.raises(RuntimeError, match="no DeviceMesh"):
         tmla.mla_forward_sp(tp, x, pos, tcfg)
     with sharding.use_mesh(abstract_mesh((1, 4), ("data", "model"))):
-        with pytest.raises(NotImplementedError, match="slice 8e"):
+        with pytest.raises(RuntimeError, match="no DeviceMesh"):
             tmla.mla_forward_sp(tp, x.requires_grad_(), pos, tcfg)
 
 

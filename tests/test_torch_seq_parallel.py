@@ -28,9 +28,9 @@ The reference's sharded numbers (and its local ones) come from one
 subprocess with 8 fake XLA devices. Tolerances are the reference test's
 for a forward, 2e-3 absolute and relative; 1e-5 for attention (its CP
 test's). Also here: `use_sp` and `decode_heads_layout` against the
-reference's for every config on both production meshes, the raise on
-an input that requires grad, and phase 13 of `chip_smoke.py` at CPU
-size."""
+reference's for every config on both production meshes, and phase 13
+of `chip_smoke.py` at CPU size. The gradients of these branches are
+held in `test_torch_mesh_grads.py`."""
 import os
 import subprocess
 import sys
@@ -309,53 +309,6 @@ def test_use_sp_and_heads_layout_match_the_reference_on_production_meshes():
                 perf.reset_flags()
     assert n > 0
     assert not transformer.use_sp(get_config("gemma-2b"), 4096)
-
-
-@pytest.mark.parametrize("what", ["moe", "ffn", "attn", "mla", "attend"])
-def test_a_mesh_path_raises_on_an_input_that_requires_grad(what):
-    """The port's collectives carry no gradient: every sharded branch
-    raises NotImplementedError naming ROADMAP slice 8e on an input that
-    requires grad under grad mode (on an abstract mesh: the check comes
-    before any collective)."""
-    import torch
-    from repro_torch import device as tdevice
-    from repro_torch import tree
-    from repro_torch.configs.base import get_config, reduced
-    from repro_torch.launch import mesh as tmesh
-    from repro_torch.models import ffn, mla, moe, transformer
-    from repro_torch.models.registry import build_model
-    from repro_torch.parallel import collectives, sharding
-
-    prev = tdevice.set_default("cpu")
-    try:
-        arch = {"moe": "granite-moe-1b-a400m",
-                "mla": "deepseek-v3-671b"}.get(what, "stablelm-12b")
-        model = build_model(reduced(get_config(arch)))
-        cfg = model.cfg
-        params = model.init(torch.Generator().manual_seed(0))
-        layer = tree.map(lambda a: a[0], params["groups"][-1]["b0"])
-        x = torch.randn(2, 8, cfg.d_model, requires_grad=True)
-        pos = torch.arange(8).broadcast_to((2, 8))
-        calls = {
-            "moe": lambda: moe.moe_apply(layer["moe"], x, cfg),
-            "ffn": lambda: ffn.ffn_apply(layer["ffn"], x, cfg.act, sp=True),
-            "attn": lambda: transformer.attn_apply(layer["attn"], x, pos,
-                                                   cfg),
-            "mla": lambda: mla.mla_forward_sp(layer["mla"], x, pos, cfg),
-            "attend": lambda: collectives.attend(
-                x.reshape(2, 8, 4, 1, 16), x[..., :32].reshape(2, 8, 2, 16),
-                x[..., 32:].reshape(2, 8, 2, 16)),
-        }
-        with sharding.use_mesh(tmesh.abstract_mesh((2, 4),
-                                                   ("data", "model")),
-                               seq_parallel=True, fsdp=False):
-            with pytest.raises(NotImplementedError, match="8e"):
-                calls[what]()
-            with torch.no_grad():          # no graph to drop: not refused
-                with pytest.raises(RuntimeError, match="DeviceMesh"):
-                    calls[what]()
-    finally:
-        tdevice.set_default(prev)
 
 
 def test_chip_smoke_phase13_at_cpu_size():
