@@ -30,9 +30,13 @@ context-parallel shard's rows; the reference's
 for gemma-2b at S = 4096); the three-term P makes the kernels' own work
 twice that. On a CPU tensor `attention` is the plain version in
 `ref.py`; any other device raises, and so does a build or launch error.
-Gradients: where an operand requires grad, `attention` is an autograd
-Function whose backward differentiates the plain version, recomputed on
-the operands' device (no backward kernel yet).
+`attention` is one call of the custom operator
+`repro_torch::flash_attention`: under `FakeTensorMode` (the dry-run,
+`launch.dryrun`) it gives its output's shape and dtype alone, launching
+nothing and allocating no scores, and `torch.utils.flop_counter` counts
+it as 2 B H Sq Sk (Dk + Dv) (`flops`). Gradients: where an operand
+requires grad, the operator's backward differentiates the plain version,
+recomputed on the operands' device (no backward kernel yet).
 `_build.LAUNCHES[entry]` counts the calls made on the card, and
 `_build.BY_SHAPE[entry]` the same by `shape_key`.
 
@@ -58,6 +62,7 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import ref
@@ -319,30 +324,62 @@ def _forward(q, k, v, kw):
     return call.out
 
 
-class _Attention(torch.autograd.Function):
-    """`attention` when a gradient is wanted: the forward as without one
-    (the kernel on the card); the backward recomputes the plain version
-    on the same device and differentiates it, as XLA differentiates the
-    reference's plain `chunked_attention` (its Pallas kernel has no
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
+def _flash_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              causal: bool, window: int, sm_scale: float, cap: float,
+              q_offset: int) -> torch.Tensor:
+    """The forward as one operator: `_forward` on real tensors; under
+    `FakeTensorMode` (the dry-run) only its output's shape and dtype,
+    with no launch and no (Sq, Sk) scores."""
+    return _forward(q, k, v, dict(causal=causal, window=window,
+                                  sm_scale=sm_scale, cap=cap,
+                                  q_offset=q_offset))
+
+
+@_flash_op.register_fake
+def _(q, k, v, causal, window, sm_scale, cap, q_offset):
+    B, H, Sq, _ = q.shape
+    return q.new_empty((B, Sq, H, v.shape[3])).transpose(1, 2)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention)
+def flops(q_shape, k_shape, v_shape, *args, out_shape=None, **kwargs) -> int:
+    """2 B H Sq Sk (Dk + Dv) whatever the mask: S = Q K^T and P V over
+    every key, what the reference's `hlo_cost.analyze` counts for its
+    kernel's dots."""
+    B, H, Sq, Dk = q_shape
+    return 2 * B * H * Sq * k_shape[2] * (Dk + v_shape[3])
+
+
+class _Attention:
+    """The forward's gradient: the backward recomputes the plain version
+    on the operands' device and differentiates it, as XLA differentiates
+    the reference's plain `chunked_attention` (its Pallas kernel has no
     backward). The recompute materialises the (Sq, Sk) scores and is no
     kernel launch."""
 
     @staticmethod
-    def forward(ctx, q, k, v, kw):
+    def setup_context(ctx, inputs, output):
+        q, k, v, causal, window, sm_scale, cap, q_offset = inputs
         ctx.save_for_backward(q, k, v)
-        ctx.kw = kw
-        return _forward(q, k, v, kw)
+        ctx.kw = dict(causal=causal, window=window, sm_scale=sm_scale,
+                      cap=cap, q_offset=q_offset)
 
     @staticmethod
     def backward(ctx, grad):
+        """(dq, dk, dv), None where an operand needs no gradient."""
         ops = [t.detach().requires_grad_(need)
                for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
         wanted = [t for t in ops if t.requires_grad]
         with torch.enable_grad():
             out = ref.reference(*ops, **ctx.kw)
             got = iter(torch.autograd.grad(out, wanted, grad))
-        return (*(next(got) if t.requires_grad else None for t in ops),
-                None)
+        return tuple(next(got) if t.requires_grad else None for t in ops)
+
+
+_flash_op.register_autograd(
+    lambda ctx, grad: (*_Attention.backward(ctx, grad),) + (None,) * 5,
+    setup_context=_Attention.setup_context)
 
 
 def attention(q, k, v, *, causal=True, window=0, sm_scale=None, cap=0.0,
@@ -350,21 +387,18 @@ def attention(q, k, v, *, causal=True, window=0, sm_scale=None, cap=0.0,
     """q: (B,H,Sq,Dk); k: (B,KVH,Sk,Dk); v: (B,KVH,Sk,Dv) -> (B,H,Sq,Dv)
     in q's dtype (float32 or bfloat16), query head h reading kv head
     h // (H // KVH), query row r at position q_offset + r for the masks.
-    The default `sm_scale` is 1/sqrt(Dk). Where grad
-    mode is on and an operand requires grad, the result carries a
-    `grad_fn` (`_Attention`) on either device; otherwise the call makes
-    no autograd record."""
+    The default `sm_scale` is 1/sqrt(Dk). One call of the
+    `repro_torch::flash_attention` operator: where grad mode is on and
+    an operand requires grad, the result carries a `grad_fn` (the
+    recompute backward of `_Attention`) on either device; otherwise the
+    call makes no autograd record."""
     _check(q, k, v)
     if q_offset < 0:
         raise ValueError(f"q_offset {q_offset} is negative")
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
-    kw = dict(causal=causal, window=window, sm_scale=sm_scale, cap=cap,
-              q_offset=int(q_offset))
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                    or v.requires_grad):
-        return _Attention.apply(q, k, v, kw)
-    return _forward(q, k, v, kw)
+    return _flash_op(q, k, v, bool(causal), int(window or 0),
+                     float(sm_scale), float(cap or 0.0), int(q_offset))
 
 
 reference = ref.reference

@@ -14,6 +14,13 @@ mesh's device type is the package default's (`repro_torch.device`).
 behind them (the reference's `jax.sharding.AbstractMesh`): what the
 sharding rules resolve against where no collective runs.
 
+`fake_production_mesh(*, multi_pod)` is the dry-run's mesh: the
+default process group on torch's `fake` backend (`FakeStore`, a world
+of 256 or 512 ranks in this one process, collectives that move nothing)
+and the production `DeviceMesh` over it; the reference's counterpart is
+its 512 fake XLA host devices (`XLA_FLAGS` at the top of
+`repro/launch/dryrun.py`), which the port sets up only when called.
+
 `make_fabric_mesh(pods, devices_per_pod)` is the counterpart of
 `make_fabric_mesh` over ``jax.devices()``: a ``(pods,
 devices_per_pod)`` grid of CUDA `torch.device`s when the machine has
@@ -77,6 +84,29 @@ def make_production_mesh(*, multi_pod: bool = False,
                          device_type: str | None = None):
     return make_mesh(*production_shape(multi_pod=multi_pod),
                      device_type=device_type)
+
+
+def fake_production_mesh(*, multi_pod: bool = False):
+    """The production `DeviceMesh` seen from rank 0 of a `fake` world:
+    the default process group is (re)initialised on the `fake` backend
+    with the mesh's 256 or 512 ranks unless it already is one of that
+    size. Nothing is sent: a collective returns at once, so a program
+    traced on fake tensors over it issues every collective it would on
+    the cluster."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    shape, axes = production_shape(multi_pod=multi_pod)
+    n = math.prod(shape)
+    if dist.is_initialized():
+        if (dist.get_backend() == "fake" and dist.get_world_size() == n
+                and dist.get_rank() == 0):
+            return make_mesh(shape, axes)
+        if dist.get_backend() != "fake":
+            raise RuntimeError("a process group that is not torch's fake "
+                               "backend is initialised")
+        dist.destroy_process_group()
+    dist.init_process_group("fake", rank=0, world_size=n, store=FakeStore())
+    return make_mesh(shape, axes)
 
 
 def make_fabric_mesh(pods: int, devices_per_pod: int = 1):

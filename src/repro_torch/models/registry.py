@@ -1,12 +1,12 @@
 """Model registry: config -> model (the decoder families: dense, MoE,
 MLA, hybrid, SSM, the vision-language decoder; the encoder-decoder),
-parameter accounting."""
+parameter accounting, dry-run input stand-ins."""
 from __future__ import annotations
 
 import numpy as np
 
 from repro_torch import tree
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.models import module as mod
 
 
@@ -35,3 +35,48 @@ def count_params_analytic(cfg: ModelConfig, active_only: bool = False) -> int:
             n = int(n * cfg.moe.top_k / cfg.moe.n_experts)
         total += n
     return total
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig, *,
+                device=None) -> tuple[dict, dict]:
+    """(stand-ins, specs): fake tensors for every step-function input
+    (allocating nothing, `sharding.abstract_with_shardings`) and their
+    resolved PartitionSpecs, with the reference's shapes, dtypes and
+    specs (`repro.models.registry.input_specs`): tokens and labels
+    (B, S) int32 by ("batch", "seq"), a frontend's embeddings (B, F,
+    d_input) by ("batch", "seq", "embed"), the decode cache by its param
+    specs and `pos`. The tensors are global: the port's step functions
+    take the global view (the batch and, for decode, the caches whole).
+    They belong to the active `FakeTensorMode`, or to one new mode."""
+    import torch
+
+    from repro_torch import device as tdevice
+    from repro_torch.models.module import torch_dtype
+    from repro_torch.parallel import sharding
+    B, S = shape.global_batch, shape.seq_len
+    dev = torch.device(device if device is not None
+                       else tdevice.get_default())
+    ins, specs = {}, {}
+
+    def sds(name, shp, dt, axes=None):
+        ins[name] = torch.empty(shp, dtype=dt, device=dev)
+        specs[name] = (sharding.resolve_spec(axes, shp, table="act")
+                       if axes else sharding.P())
+
+    with sharding.fake_mode():
+        if shape.kind in ("train", "prefill"):
+            sds("tokens", (B, S), torch.int32, ("batch", "seq"))
+            if shape.kind == "train":
+                sds("labels", (B, S), torch.int32, ("batch", "seq"))
+            if cfg.frontend.kind != "none":
+                F = cfg.frontend.n_tokens
+                sds("embeddings", (B, F, cfg.frontend.d_input),
+                    torch_dtype(cfg.dtype), ("batch", "seq", "embed"))
+            return ins, specs
+        # decode: one new token against a cache of seq_len
+        sds("tokens", (B, 1), torch.int32, ("batch", "seq"))
+        ins["cache"], specs["cache"] = sharding.abstract_with_shardings(
+            build_model(cfg).cache_specs(B, S), cfg.dtype, whole=True,
+            device=dev)
+        sds("pos", (), torch.int32)
+    return ins, specs

@@ -28,8 +28,9 @@ The reference reads its branches from `perf.FLAGS` (`ep_over_data`,
 `moe_impl`, `capacity_factor`, `seq_parallel`, `decode_layout`); the
 port has no `perf` module and takes each as an argument of `use_mesh`,
 kept on `MeshContext` (`ep_over_data` also of `make_param_rules`),
-since they matter only with a mesh. `abstract_with_shardings` exists
-for lowering and comes with the dry-run tooling.
+since they matter only with a mesh. `abstract_with_shardings` gives
+the dry-run (`launch.dryrun`) its stand-ins: fake tensors, metadata
+only, at this rank's block shapes (`block_shape`) or whole.
 
 The `shard_map` counterpart. The port keeps plain tensors and the
 reference's global view at every function boundary: each rank of a
@@ -257,32 +258,41 @@ def _line(axis) -> _Line:
     names). A tuple's groups are made once per mesh, every line of them
     by every rank (`new_subgroups_by_enumeration`), so all ranks must
     reach the first use of a tuple together, as SPMD code does."""
-    import torch.distributed as dist
     axes = _axes(axis)
     mesh = _device_mesh(axes[0])
     cache = mesh.__dict__.setdefault("_repro_lines", {})
     if axes not in cache:
-        names = list(mesh.mesh_dim_names)
-        for a in axes:
-            if a not in names:
-                raise RuntimeError(f"axis {a!r} is not on the mesh {names}")
-        grid = mesh.mesh.permute(
-            [names.index(a) for a in names if a not in axes]
-            + [names.index(a) for a in axes])
-        lines = [tuple(int(r) for r in row)
-                 for row in grid.reshape(-1, math.prod(
-                     grid.shape[len(names) - len(axes):]))]
-        if len(axes) == 1:
-            group = mesh.get_group(axes[0])
-        else:
-            group, _ = dist.new_subgroups_by_enumeration(
-                [sorted(line) for line in lines])
-        me = dist.get_rank()
-        line = next(line for line in lines if me in line)
-        srt = sorted(line)
-        cache[axes] = _Line(group, line, tuple(srt.index(r) for r in line),
-                            line.index(me))
+        # the mesh's rank grid is a real tensor, read outside any
+        # dispatch mode (a dry-run traces under FakeTensorMode)
+        from torch.utils._python_dispatch import _disable_current_modes
+        with _disable_current_modes():
+            cache[axes] = _make_line(mesh, axes)
     return cache[axes]
+
+
+def _make_line(mesh, axes) -> _Line:
+    """The `_Line` of this rank along `axes` of `mesh`."""
+    import torch.distributed as dist
+    names = list(mesh.mesh_dim_names)
+    for a in axes:
+        if a not in names:
+            raise RuntimeError(f"axis {a!r} is not on the mesh {names}")
+    grid = mesh.mesh.permute(
+        [names.index(a) for a in names if a not in axes]
+        + [names.index(a) for a in axes])
+    lines = [tuple(int(r) for r in row)
+             for row in grid.reshape(-1, math.prod(
+                 grid.shape[len(names) - len(axes):]))]
+    if len(axes) == 1:
+        group = mesh.get_group(axes[0])
+    else:
+        group, _ = dist.new_subgroups_by_enumeration(
+            [sorted(line) for line in lines])
+    me = dist.get_rank()
+    line = next(line for line in lines if me in line)
+    srt = sorted(line)
+    return _Line(group, line, tuple(srt.index(r) for r in line),
+                 line.index(me))
 
 
 def axis_index(axis) -> int:
@@ -653,6 +663,45 @@ def param_shardings(specs):
     return mod.tree_map_specs(
         lambda s: placements(resolve_spec(s.axes, s.shape, "param"),
                              ctx.mesh), specs)
+
+
+def block_shape(shape, spec) -> tuple:
+    """This rank's block of a global `shape` under `spec`: each dim
+    divided by the ranks of the axes its entry names (the active
+    mesh's)."""
+    return tuple(n // (axis_size(e) if e is not None else 1)
+                 for n, e in zip(shape, tuple(spec) + (None,) * len(shape)))
+
+
+def fake_mode():
+    """The active `FakeTensorMode`, else a new one."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    return torch._C._get_dispatch_mode(
+        torch._C._TorchDispatchModeKey.FAKE) or FakeTensorMode()
+
+
+def abstract_with_shardings(specs, default_dtype: str, *, whole=False,
+                            device=None):
+    """(tree of fake tensors, tree of PartitionSpecs) for a spec tree:
+    the reference's ShapeDtypeStruct stand-ins with their shardings,
+    allocating nothing. Each tensor is this rank's block under its
+    resolved param spec (`block_shape`; the whole leaf without a mesh),
+    or with `whole` the global leaf, on `device` (None: the package
+    default, unchecked: a fake tensor needs no card). They belong to the
+    active `FakeTensorMode`, or to a new one."""
+    from repro_torch import device as tdevice
+    dev = torch.device(device if device is not None
+                       else tdevice.get_default())
+    pspecs = mod.tree_map_specs(
+        lambda s: resolve_spec(s.axes, s.shape, "param"), specs)
+
+    def leaf(s, spec):
+        shape = s.shape if whole else block_shape(s.shape, spec)
+        return torch.empty(shape, device=dev, dtype=mod.torch_dtype(
+            s.dtype or default_dtype))
+    with fake_mode():
+        out = tree.map(leaf, specs, pspecs, is_leaf=mod.is_spec)
+    return out, pspecs
 
 
 def batch_axes_prefix(dim_size: int) -> tuple[str, ...]:

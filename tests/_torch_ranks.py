@@ -2,7 +2,7 @@
 (`test_torch_sharding.py`, `test_torch_context_parallel.py`,
 `test_torch_expert_parallel.py`, `test_torch_seq_parallel.py`,
 `test_torch_wire.py`, `test_torch_mesh_grads.py`,
-`test_torch_mesh_train.py`).
+`test_torch_mesh_train.py`, `test_torch_dryrun_mesh.py`).
 
 `run(jobs, world, workdir, payload)` spawns `world` processes with
 `torch.multiprocessing.spawn`; each joins one gloo process group through
@@ -661,9 +661,49 @@ def mesh_cli(rank, payload):
     return out
 
 
+# -- the dry-run ---------------------------------------------------------------
+def dryrun_cell(rank, payload):
+    """The dry-run's sharded cell run for real: reduced gemma-2b's
+    sharded train step on a (2, 2, 2) (pod, data, model) mesh, on a
+    seeded batch of payload["dr/batch"] x payload["dr/seq"] tokens, under
+    `hlo_cost.Trace`: the collectives this rank issued (their wire bytes
+    and counts by op) and the step's FLOPs."""
+    from repro_torch.configs.base import get_config, reduced
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.registry import build_model
+    from repro_torch.parallel import sharding
+    from repro_torch.train import optimizer as optim
+    from repro_torch.train import train_loop
+    from repro_torch.utils import hlo_cost
+
+    cfg = reduced(get_config("gemma-2b"))
+    model = build_model(cfg)
+    opt_cfg = optim.OptConfig()
+    params = model.init(torch.Generator().manual_seed(0))
+    B, S = int(payload["dr/batch"]), int(payload["dr/seq"])
+    toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (B, S + 1))
+    batch = {"tokens": _t(toks[:, :-1].astype(np.int32)),
+             "labels": _t(toks[:, 1:].astype(np.int32))}
+    with sharding.use_mesh(make_mesh((2, 2, 2), ("pod", "data", "model"))):
+        state = train_loop.shard_train_state(
+            model, opt_cfg, params, optim.init_opt_state(params, opt_cfg))
+        step = train_loop.jit_train_step(model, cfg, opt_cfg)
+        with hlo_cost.Trace() as t:
+            step(*state, batch)
+    res = t.result()
+    coll = res["collective"]
+    ops = sorted(coll["counts"])
+    return {"dr/ops": np.asarray(ops),
+            "dr/counts": np.asarray([coll["counts"][o] for o in ops]),
+            "dr/per_op_bytes": np.asarray([coll["per_op_bytes"][o]
+                                           for o in ops]),
+            "dr/wire_bytes": np.asarray(coll["wire_bytes"]),
+            "dr/flops": np.asarray(res["flops"])}
+
+
 JOBS = {"shard_shapes": shard_shapes, "compress": compress,
         "context_parallel": context_parallel,
         "model_on_mesh": model_on_mesh, "expert_parallel": expert_parallel,
         "seq_parallel": seq_parallel, "wire": wire,
         "mesh_grads": mesh_grads, "mesh_train": mesh_train,
-        "mesh_cli": mesh_cli}
+        "mesh_cli": mesh_cli, "dryrun_cell": dryrun_cell}

@@ -1,0 +1,141 @@
+"""The dry-run of a sharded cell against the reference's and against the
+same step run for real.
+
+Reduced gemma-2b's train step at 4 x 32 tokens on a (2, 2, 2) (pod,
+data, model) mesh, three ways at once:
+
+  * traced by `launch.dryrun` as rank 0 of a fake 8-rank process group
+    (a subprocess: the `fake` world is process-global);
+  * lowered by the reference on 8 fake XLA devices (a subprocess, as
+    `tests/test_sharded.py` runs it), whose
+    `memory_analysis().argument_size_in_bytes` is the per-device
+    arguments;
+  * run on 8 gloo ranks (`_torch_ranks.dryrun_cell`) under the same
+    counters.
+
+The trace's `argument_bytes` (this rank's blocks of the parameters and
+moments, and the whole batch: the port's global view) is within 1 % of
+the reference's; its collectives (wire bytes, and counts and bytes by
+op) and FLOPs are equal to what rank 0 of the gloo run dispatched, and
+every gloo rank dispatched the same: the fake trace counts what the
+real program does."""
+import json
+import os
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
+import pytest
+
+import _torch_ranks
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+WORLD = 8
+B, S = 4, 32
+ARG_REL = 0.01
+
+FAKE = f"""
+import json
+import torch.distributed as dist
+from torch._subclasses.fake_tensor import FakeTensorMode
+from torch.testing._internal.distributed.fake_pg import FakeStore
+from repro_torch import device
+from repro_torch.configs.base import ShapeConfig, get_config, reduced
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.parallel import sharding
+device.set_default("cpu")
+dist.init_process_group("fake", rank=0, world_size=8, store=FakeStore())
+mesh = make_mesh((2, 2, 2), ("pod", "data", "model"))
+cfg = reduced(get_config("gemma-2b"))
+with sharding.use_mesh(mesh), FakeTensorMode(allow_non_fake_inputs=True):
+    _, step, args = dryrun.cell_step(cfg, ShapeConfig("t", {S}, {B}, "train"),
+                                     dict(dryrun.FLAGS), "cpu")
+    res = dryrun.trace(step, args)
+dist.destroy_process_group()
+print(json.dumps({{"flops": res["flops"], "collective": res["collective"],
+                   "memory": res["memory"]}}))
+"""
+
+REFERENCE = f"""
+import os
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
+os.environ["JAX_PLATFORMS"] = "cpu"
+import json
+import jax
+from repro.configs.base import ShapeConfig, get_config, reduced
+from repro.launch.mesh import make_mesh
+from repro.models.registry import build_model, input_specs
+from repro.parallel import sharding
+from repro.train import optimizer as optim
+from repro.train.train_loop import make_train_step
+cfg = reduced(get_config("gemma-2b"))
+mesh = make_mesh((2, 2, 2), ("pod", "data", "model"))
+with sharding.use_mesh(mesh):
+    model = build_model(cfg)
+    specs = model.param_specs()
+    params = sharding.abstract_with_shardings(specs, cfg.dtype)
+    ins = input_specs(cfg, ShapeConfig("t", {S}, {B}, "train"))
+    opt_cfg = optim.OptConfig()
+    opt = sharding.abstract_with_shardings(
+        optim.opt_state_specs(specs, opt_cfg), "float32")
+    step = make_train_step(model, cfg, opt_cfg)
+    compiled = jax.jit(step, donate_argnums=(0, 1)).lower(
+        params, opt, dict(ins)).compile()
+print(json.dumps({{"argument_bytes":
+                   compiled.memory_analysis().argument_size_in_bytes}}))
+"""
+
+
+def _start(prog):
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    return subprocess.Popen([sys.executable, "-c", textwrap.dedent(prog)],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, env=env, cwd=REPO)
+
+
+def _finish(proc, timeout=600) -> dict:
+    out, err = proc.communicate(timeout=timeout)
+    assert proc.returncode == 0, f"STDOUT:\n{out}\nSTDERR:\n{err}"
+    return json.loads(out.strip().splitlines()[-1])
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """(the fake trace, the reference's arguments, the gloo ranks)."""
+    procs = [_start(FAKE), _start(REFERENCE)]
+    try:
+        ranks = _torch_ranks.run(["dryrun_cell"], WORLD,
+                                 tmp_path_factory.mktemp("ranks"),
+                                 {"dr/batch": np.asarray(B),
+                                  "dr/seq": np.asarray(S)})
+        fake, ref = (_finish(p) for p in procs)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    return fake, ref, ranks
+
+
+def test_argument_bytes_are_the_reference_s_per_device_arguments(runs):
+    fake, ref, _ = runs
+    got, want = fake["memory"]["argument_bytes"], ref["argument_bytes"]
+    print("argument bytes: port", got, "reference", want)
+    assert abs(got - want) <= ARG_REL * want
+    assert fake["memory"]["peak_bytes"] >= got + fake["memory"]["temp_bytes"] \
+        - 1 and fake["memory"]["temp_bytes"] > 0
+
+
+def test_fake_trace_counts_what_the_gloo_ranks_moved(runs):
+    fake, _, ranks = runs
+    coll = fake["collective"]
+    ops = sorted(coll["counts"])
+    assert ops and coll["wire_bytes"] > 0
+    for r in ranks:
+        assert r["dr/ops"].tolist() == ops
+        assert r["dr/counts"].tolist() == [coll["counts"][o] for o in ops]
+        assert r["dr/per_op_bytes"].tolist() == [coll["per_op_bytes"][o]
+                                                 for o in ops]
+        assert float(r["dr/wire_bytes"]) == coll["wire_bytes"]
+        assert float(r["dr/flops"]) == fake["flops"]

@@ -50,7 +50,7 @@ def test_the_scan_covers_every_subpackage():
     subs = {p.relative_to(ROOT / "src" / "repro_torch").parts[0]
             for p in PORT_FILES if "repro_torch" in p.parts}
     assert {"configs", "core", "kernels", "launch", "models", "obs",
-            "parallel", "serve", "train", "verbs"} <= subs
+            "parallel", "serve", "train", "utils", "verbs"} <= subs
     names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
     for mod in ("parallel/collectives", "models/attention",
                 "models/ffn", "models/layers", "models/transformer",
@@ -63,9 +63,11 @@ def test_the_scan_covers_every_subpackage():
                 "models/encdec", "train/data", "train/optimizer",
                 "train/train_loop", "train/checkpoint", "train/fault",
                 "launch/train", "launch/mesh", "parallel/sharding",
-                "parallel/compress"):
+                "parallel/compress", "launch/dryrun", "launch/attribute",
+                "utils/roofline", "utils/costmodel", "utils/hlo_analysis",
+                "utils/hlo_cost"):
         assert f"src/repro_torch/{mod}.py" in names, mod
-    for probe in ("row_ring", "desc_ring", "latency", "sp"):
+    for probe in ("row_ring", "desc_ring", "latency", "sp", "dryrun"):
         assert f"tools/{probe}/probe.py" in names, probe
 
 
@@ -92,6 +94,8 @@ def test_import_needs_no_card_no_triton_and_pulls_in_no_jax():
             "import repro_torch.train.checkpoint, repro_torch.train.fault\n"
             "import repro_torch.parallel.sharding\n"
             "import repro_torch.parallel.compress\n"
+            "import repro_torch.launch.dryrun, repro_torch.launch.attribute\n"
+            "import repro_torch.utils.hlo_cost, repro_torch.utils.costmodel\n"
             "from repro_torch.configs.base import get_config\n"
             "get_config('gemma-2b')\n"
             "assert not torch.cuda.is_available()\n"
