@@ -24,8 +24,9 @@ test_chip_smoke_phase6_at_cpu_size_matches_reference_engine` and
 `tests/test_torch_train.py::test_chip_smoke_phase11_at_cpu_size`,
 `tests/test_torch_context_parallel.py::test_chip_smoke_phase12_at_cpu_size`,
 `tests/test_torch_seq_parallel.py::test_chip_smoke_phase13_at_cpu_size`,
-`tests/test_torch_mesh_grads.py::test_chip_smoke_phase14_at_cpu_size`
-and `tests/test_torch_dryrun.py::test_chip_smoke_phase15_at_cpu_size`.
+`tests/test_torch_mesh_grads.py::test_chip_smoke_phase14_at_cpu_size`,
+`tests/test_torch_dryrun.py::test_chip_smoke_phase15_at_cpu_size`
+and `tests/test_torch_blocks.py::test_chip_smoke_phase16_at_cpu_size`.
 
 Phases (any failure exits non-zero):
   1. the card (nvidia-smi name and power limit) and the kernel build;
@@ -219,7 +220,17 @@ Phases (any failure exits non-zero):
      arguments within MEM_HOLD of the trace's `temp_bytes`, flash
      launched in the real run and not in the trace; each step's card
      time (CUDA events, median of Z.reps) against its H100 roofline
-     (`utils.roofline`, its bytes from `utils.costmodel`).
+     (`utils.roofline`, its bytes from `utils.costmodel`);
+ 16. the dense decoders' block program rank by rank on a (data 2, model
+     16) grid: gemma-2b (context parallelism) and codeqwen1.5-7b
+     (grouped head-TP) at full width, depth 2, 2 x 4096 tokens, the 32
+     ranks' programs in turns (`parallel.turns`: each runs to its next
+     collective, the collectives as stacked tensor ops): one train step
+     (the vocab-parallel loss, the FSDP gathers, every gradient block),
+     one prefill and one decode step on the prefill's caches; in float32
+     everything assembled within SP_HOLD of the same steps unsharded, in
+     bf16 each rank's device ms (median, slowest) beside the unsharded
+     step's, flash counted on the path "blocks".
 Phase 2 also holds flash_attention (its TMA/wgmma entry) and
 flash_attention_generic (its mma.sync entry) against their plain version
 at every prefill shape the main paths launch, FLASH_SHAPES: phases 6
@@ -6192,6 +6203,322 @@ def phase_dryrun(torch, np, dev, Z, T) -> dict:
                 device=str(dev))
 
 
+# -- phase 16 ---------------------------------------------------------------------
+@dataclass(frozen=True)
+class BlockSizes:
+    archs: tuple        # (arch, ((field, value), ...) replaced) each
+    reduce: bool        # reduced() widths (the CPU test), else full width
+    layers: int         # the depth cut
+    data: int           # the (data, model) grid
+    model: int
+    batch: int          # rows of the train step and the prefill
+    seq: int            # their tokens a row (the decode's cache: + model)
+    reps: int           # timed runs of each bf16 step (their median)
+
+
+# gemma-2b (H 8 / KVH 1 over model 16: context parallelism) and
+# codeqwen1.5-7b (KVH 32: grouped head-TP), full width, depth 2
+BLOCKS = BlockSizes(archs=(("gemma-2b", ()), ("codeqwen1.5-7b", ())),
+                    reduce=False, layers=2, data=2, model=16, batch=2,
+                    seq=4096, reps=1)
+# at CPU size, on the 8 gloo ranks' grid: gemma-2b at 3 heads (context
+# parallelism over model 4) and codeqwen1.5-7b at 4 kv heads (grouped)
+BLOCKS_CPU = BlockSizes(archs=(("gemma-2b", (("n_heads", 3),)),
+                               ("codeqwen1.5-7b", (("n_kv_heads", 4),))),
+                        reduce=True, layers=2, data=2, model=4, batch=2,
+                        seq=16, reps=1)
+BLOCK_AXES = ("data", "model")
+
+
+def blocks_cfg(arch: str, kw: tuple, Z, dtype: str):
+    """Phase 16's config of `arch`: its depth cut to Z.layers, the
+    fields of `kw` replaced, in `dtype`."""
+    from repro_torch.configs.base import get_config, reduced
+    cfg = reduced(get_config(arch)) if Z.reduce else get_config(arch)
+    return dataclasses.replace(cfg, n_layers=Z.layers, dtype=dtype,
+                               **dict(kw))
+
+
+def blocks_inputs(torch, cfg, Z, dev) -> tuple:
+    """(model, the conditioned seeded parameters whole, the batch whole,
+    the decode step's tokens) of phase 16."""
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models.registry import build_model
+    model = build_model(cfg)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = conditioned(model.init(gen, device=dev), cfg)
+    batch = launch_train.make_batch_fn(cfg, Z.batch, Z.seq, device=dev)(0)
+    tokens = torch.randint(0, cfg.vocab_size, (Z.batch, 1), generator=gen,
+                           device=dev, dtype=torch.int32)
+    return model, params, batch, tokens
+
+
+def blocks_prep(torch, model, whole, batch, tokens, Z, decode=False):
+    """A rank's inputs of phase 16 on the mesh in use: its blocks of
+    `whole`, its rows of the batch and of the decode's tokens; with
+    `decode`, its decode caches (the prefill's, `decode_caches`: its
+    param-rule block of the caches padded to Z.seq + Z.model)."""
+    from repro_torch.parallel import sharding
+    prep = dict(params=sharding.shard_tree(whole, model.param_specs()),
+                rows=sharding.rows(batch), tokens=sharding.rows(tokens))
+    if decode:
+        _, caches = model.prefill(prep["params"], prep["rows"]["tokens"])
+        prep["dec"] = model.decode_caches(caches, Z.batch, Z.seq,
+                                          Z.seq + Z.model)
+    return prep
+
+
+def blocks_step(torch, model, cfg, prep, Z, step: str):
+    """A rank's step of phase 16 on its inputs (`blocks_prep`), the block
+    program: "train", one step's loss and gradient blocks
+    (`make_grads_fn`: the vocab-parallel loss, the FSDP gathers inside
+    each layer and their psum-scatters, each block reduced over its
+    replicas); "prefill", the last logits and the caches; "decode", the
+    logits of one step at the prompt's end on the caches (written in
+    place)."""
+    from repro_torch.train import train_loop
+    if step == "train":
+        (loss, _), grads = train_loop.make_grads_fn(model, cfg)(
+            prep["params"], prep["rows"])
+        return dict(loss=loss, grads=grads)
+    if step == "prefill":
+        logits, caches = model.prefill(prep["params"],
+                                       prep["rows"]["tokens"])
+        return dict(prefill=logits, caches=caches)
+    pos = torch.full((prep["tokens"].shape[0],), Z.seq, dtype=torch.int32,
+                     device=prep["tokens"].device)
+    return dict(decode=model.decode_step(prep["params"], prep["tokens"],
+                                         prep["dec"], pos)[0])
+
+
+def blocks_whole(torch, model, whole, batch, tokens, Z) -> dict:
+    """Phase 16's inputs unsharded: what `blocks_prep` gives a rank."""
+    return dict(params=whole, rows=batch, tokens=tokens,
+                dec=model.decode_caches(model.prefill(
+                    whole, batch["tokens"])[1], Z.batch, Z.seq,
+                    Z.seq + Z.model))
+
+
+def blocks_steps(torch, model, cfg, prep, Z) -> dict:
+    """Every step of `blocks_step` on `prep`."""
+    out = {}
+    for step in ("train", "prefill", "decode"):
+        out.update(blocks_step(torch, model, cfg, prep, Z, step))
+    return out
+
+
+def blocks_specs(model, cfg, Z) -> dict:
+    """Each output of `blocks_step` as {name: (its rank-block spec tree,
+    its whole shape tree)} on the (data, model) grid: the gradients by
+    their param specs, the logits by (batch, seq, vocab), the prefill's
+    caches by (layers, batch, kv_seq) as the block program lays them."""
+    from repro_torch.launch.mesh import abstract_mesh
+    from repro_torch.models import module as mod
+    from repro_torch.parallel import sharding
+    B, S, V = Z.batch, Z.seq, cfg.vocab_size
+    specs = model.param_specs()
+    with sharding.use_mesh(abstract_mesh((Z.data, Z.model), BLOCK_AXES)):
+        grads = (sharding.param_pspecs(specs),
+                 mod.tree_map_specs(lambda s: s.shape, specs))
+        logit = sharding.resolve_spec(("batch", "seq", "vocab"), (B, 1, V),
+                                      "act")
+        caches = model.cache_specs(B, S)
+        cspec = mod.tree_map_specs(lambda s: sharding.P(None) + tuple(
+            sharding.resolve_spec(("batch", "kv_seq"), s.shape[1:3], "act")),
+            caches)
+    return {"grads": grads, "prefill": (logit, (B, 1, V)),
+            "decode": (logit, (B, 1, V)),
+            "caches": (cspec, mod.tree_map_specs(lambda s: s.shape,
+                                                 caches))}
+
+
+def blocks_assemble(torch, outs: list, spec, shape, Z):
+    """The whole tensor of the ranks' blocks `outs` under `spec` on the
+    (data, model) grid, JAX's order (a tuple entry's first axis major),
+    and the largest difference between two ranks' copies of one block."""
+    import numpy as np
+    sizes = dict(zip(BLOCK_AXES, (Z.data, Z.model)))
+    whole = outs[0].new_empty(shape)
+    seen, worst = {}, 0.0
+    for r, blk in enumerate(outs):
+        coord = dict(zip(BLOCK_AXES, np.unravel_index(r, (Z.data, Z.model))))
+        where = []
+        for d, n in enumerate(shape):
+            ent = spec[d] if d < len(spec) else None
+            idx, k = 0, 1
+            for ax in (() if ent is None else (ent,) if isinstance(ent, str)
+                       else ent):
+                idx, k = idx * sizes[ax] + int(coord[ax]), k * sizes[ax]
+            where.append(slice(idx * (n // k), (idx + 1) * (n // k)))
+        key = tuple((w.start, w.stop) for w in where)
+        if key in seen:
+            worst = max(worst, float((blk - seen[key]).abs().max()))
+        else:
+            seen[key] = blk
+            whole[tuple(where)] = blk
+    return whole, worst
+
+
+def blocks_hold(torch, ranks: list, want: dict, model, cfg, Z) -> dict:
+    """Every output of the ranks, assembled, against `want` (the same
+    steps unsharded): each leaf's largest difference over its scale;
+    the ranks holding one block alike (replica differences)."""
+    from repro_torch import tree
+    specs = blocks_specs(model, cfg, Z)
+    errs, replicas = {}, 0.0
+    rel = float((ranks[0]["loss"] - want["loss"]).abs()
+                / want["loss"].abs())
+    errs["loss"] = rel
+    for r in ranks:
+        check(float(r["loss"]) == float(ranks[0]["loss"]),
+              "phase 16: the loss differs across ranks")
+    for name in ("grads", "prefill", "caches", "decode"):
+        spec, shape = specs[name]
+        if name in ("prefill", "decode"):
+            leaves = [(name, spec, shape, [r[name] for r in ranks],
+                       want[name])]
+        else:
+            keys = [k for k, _ in tree.flatten_with_keys(want[name])]
+            leaves = list(zip(
+                [f"{name}/{k}" for k in keys],
+                _leaf_list(spec, want[name]), _leaf_list(shape, want[name]),
+                zip(*[tree.leaves(r[name]) for r in ranks]),
+                tree.leaves(want[name])))
+        for key, sp, sh, outs, w in leaves:
+            got, rep = blocks_assemble(torch, list(outs), sp, tuple(sh), Z)
+            replicas = max(replicas, rep)
+            errs[key] = float((got.float() - w.float()).abs().max()
+                              / w.float().abs().max().clamp(min=1e-30))
+    return dict(errs=errs, rel_max=max(errs.values()),
+                replica_max_diff=replicas)
+
+
+def _leaf_list(tree_, like) -> list:
+    """The entries of `tree_` (specs or shapes: tuples) in the order of
+    `like`'s leaves."""
+    from repro_torch import tree
+    out = []
+    tree.map(lambda _, s: out.append(s), like, tree_)
+    return out
+
+
+def phase_blocks(torch, np, dev, Z, T) -> dict:
+    """Phase 16: the dense decoders' block program on the card, rank by
+    rank. For each arch of Z.archs, depth Z.layers at full width, on a
+    (Z.data, Z.model) (data, model) grid: the grid's ranks run
+    `blocks_step` on their `blocks_prep` inputs in turns (`parallel.turns.Turns`: each rank's program
+    runs to its next collective, the collectives as stacked tensor ops).
+    (a) In float32 on the conditioned copy: the loss, every gradient
+    block, the prefill's logits and caches and the decode step's logits,
+    assembled, within SP_HOLD of their scale of the same steps run
+    unsharded; the ranks holding one block alike. (b)
+    In bf16, the counted main path (path "blocks"): each step timed a
+    rank at a time on CUDA events (its device ms between collectives;
+    median of Z.reps runs after a warm-up), median and slowest rank,
+    beside the unsharded step; flash launched by every rank once a layer
+    in the prefill and twice in the train step (remat), at the per-rank
+    shapes phases 12-13 hold and time."""
+    from repro_torch.kernels import _build
+    from repro_torch.parallel import collectives
+    from repro_torch.parallel.turns import Turns
+    from repro_torch.launch.mesh import abstract_mesh
+    from repro_torch.parallel import sharding
+    cuda = dev.type == "cuda"
+    N = Z.data * Z.model
+    launches, flash_by_shape, out = {}, {}, {}
+    for arch, kw in Z.archs:
+        res = {}
+        # (a) float32: the block program held against the unsharded steps
+        cfg = blocks_cfg(arch, kw, Z, "float32")
+        model, whole, batch, tokens = blocks_inputs(torch, cfg, Z, dev)
+        want = blocks_steps(torch, model, cfg, blocks_whole(
+            torch, model, whole, batch, tokens, Z), Z)
+        preps = Turns((Z.data, Z.model), BLOCK_AXES).run(
+            lambda r: blocks_prep(torch, model, whole, batch, tokens, Z,
+                                  decode=True))
+        turns = Turns((Z.data, Z.model), BLOCK_AXES)
+        ranks = turns.run(lambda r: blocks_steps(torch, model, cfg,
+                                                 preps[r], Z))
+        hold = blocks_hold(torch, ranks, want, model, cfg, Z)
+        del ranks, want, preps
+        res.update(hold=hold, collectives=turns.collectives)
+        check(hold["rel_max"] <= SP_HOLD,
+              f"phase 16: {arch}'s block program differs from the "
+              f"unsharded steps by {hold['rel_max']:.4g} of scale (bound "
+              f"{SP_HOLD}): {hold['errs']}")
+        check(hold["replica_max_diff"] == 0.0,
+              f"phase 16: {arch}: replicas of a block differ by "
+              f"{hold['replica_max_diff']}")
+        del whole, batch, tokens
+        if cuda:
+            free_device_memory(torch)
+        with sharding.use_mesh(abstract_mesh((Z.data, Z.model), BLOCK_AXES)):
+            branch = collectives.attend_branch(
+                Z.seq, cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads)
+            kv_split = cfg.n_kv_heads % Z.model == 0
+        H, KVH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+        lay = ((H, KVH, hd, 0) if branch != "head_tp" else
+               (H // Z.model, (KVH if kv_split else H) // Z.model, hd, 0))
+        res["branch"] = branch
+        # (b) bf16: the counted main path, each rank timed in turn
+        cfg = blocks_cfg(arch, kw, Z, "bfloat16")
+        model, whole, batch, tokens = blocks_inputs(torch, cfg, Z, dev)
+        preps = Turns((Z.data, Z.model), BLOCK_AXES).run(
+            lambda r: blocks_prep(torch, model, whole, batch, tokens, Z,
+                                  decode=True))
+        one = blocks_whole(torch, model, whole, batch, tokens, Z)
+        res["ms"] = {}
+        for step in ("train", "prefill", "decode"):
+            runs, shapes = [], {}
+            for i in range(Z.reps + 1):
+                turns = Turns((Z.data, Z.model), BLOCK_AXES, timed=cuda)
+
+                def ranks_run(step=step, turns=turns):
+                    return turns.run(lambda r: blocks_step(
+                        torch, model, cfg, preps[r], Z, step))
+                if i == 1:          # the counted run, after a warm-up
+                    count_launches(_build, launches, ranks_run, shapes)
+                else:
+                    ranks_run()
+                if i:
+                    runs.append(turns.ms)
+            fl = shapes.get("flash_attention", {})
+            for sk, c in fl.items():
+                key = flash_key(lay, sk)
+                flash_by_shape[key] = flash_by_shape.get(key, 0) + c
+            want_fl = {"train": N * flash_calls(cfg, cfg.remat),
+                       "prefill": N * cfg.n_layers, "decode": 0}[step]
+            check(not cuda or sum(fl.values()) == want_fl,
+                  f"phase 16: {arch} {step}: flash launched "
+                  f"{sum(fl.values())} times, not {want_fl}")
+            rank_ms = [statistics.median(run[r] for run in runs)
+                       for r in range(N)]
+
+            def unsharded(step=step):
+                return blocks_step(torch, model, cfg, one, Z, step)
+            unsharded()                                     # warm-up
+            whole_ms = statistics.median(_sp_rank_ms(T, unsharded)
+                                         for _ in range(Z.reps))
+            res["ms"][step] = dict(
+                median_rank_ms=statistics.median(rank_ms),
+                max_rank_ms=max(rank_ms), ranks_sum_ms=sum(rank_ms),
+                unsharded_ms=whole_ms, flash_launches=dict(fl))
+            log(f"phase 16: {arch} {step} on ({Z.data}, {Z.model}): a rank "
+                f"median {res['ms'][step]['median_rank_ms']:.4f} ms, slowest "
+                f"{res['ms'][step]['max_rank_ms']:.4f}, sum "
+                f"{res['ms'][step]['ranks_sum_ms']:.4f} vs unsharded "
+                f"{whole_ms:.4f}; flash {dict(fl)}")
+        del whole, batch, tokens, preps, one
+        if cuda:
+            free_device_memory(torch)
+        log(f"phase 16: {arch} ({branch}) float32 block program within "
+            f"{hold['rel_max']:.3g} of scale of the unsharded steps (bound "
+            f"{SP_HOLD:g}); {res['collectives']} collective rounds")
+        out[arch] = res
+    return dict(archs=out, launches=launches, flash_by_shape=flash_by_shape,
+                grid=[Z.data, Z.model])
+
+
 class _Clock:
     """The rehearsal's stand-in for `Timer`: nothing to time on the CPU."""
 
@@ -6379,6 +6706,9 @@ def main() -> int:
     dr = phase_dryrun(torch, np, dev, DRYRUN, T)
     free_device_memory(torch)
     mark("phase 15")
+    bl = phase_blocks(torch, np, dev, BLOCKS, T)
+    free_device_memory(torch)
+    mark("phase 16")
 
     # launches per C entry point on each main path's own run
     paths = {"datapath": main_launches, "kv_leg": kv["launches"],
@@ -6390,6 +6720,7 @@ def main() -> int:
     paths["sp"] = sp["launches"]
     paths["train_mesh"] = mt["launches"]
     paths["dryrun"] = dr["launches"]
+    paths["blocks"] = bl["launches"]
     rows["flash_attention"]["by_shape"].update(cp.pop("by_shape"))
     rows["flash_attention"]["by_shape"].update(sp.pop("by_shape"))
     kernels = []
@@ -6406,7 +6737,7 @@ def main() -> int:
         for p, r in [("serve", serve), ("cluster", cluster)]
         + [(FAMILY_PATH[a], r) for a, r in families.items()]
         + [("train", train), ("cp", cp), ("sp", sp), ("train_mesh", mt),
-           ("dryrun", dr)]}
+           ("dryrun", dr), ("blocks", bl)]}
     excess, untimed = {}, set()
     for by in flash["launches_by_shape"].values():
         for shape, n in by.items():
@@ -6459,6 +6790,7 @@ def main() -> int:
                     "cluster": cluster, "storage": storage,
                     "families": families, "train": train, "cp": cp,
                     "sp": sp, "train_mesh": mt, "dryrun": dr,
+                    "blocks": bl,
                     "seconds": time.perf_counter() - t_start}))
     log(smi)
     print(json.dumps({"kernels": kernels}))

@@ -22,16 +22,20 @@ devices. Here:
     beside them each storage rounded as the CUDA caching allocator
     rounds it, what the card's `max_memory_allocated` reads).
 
-What a cell traces is what the port runs. A train cell is the sharded
-step (`train_loop.jit_train_step` under the mesh) on this rank's blocks
-of the parameters and moments (the state `shard_train_state` keeps
-between steps) and the whole batch; the step gathers the parameters
-whole, and every activation is whole on every rank (the global view).
-Prefill and decode cells call `model.prefill` / `model.decode_step`
-with the parameters, the batch and the caches whole: the port keeps no
-per-rank serving state. So `argument_bytes` of a train cell compare
-with the reference's per-device arguments, and `flops_dev` and
-`peak_bytes` measure what the global view costs.
+What a cell traces is what the port runs, and its record says which
+program (`"view"`). A model of `sharding.BLOCK_FAMILIES` (the dense
+decoders) runs the block program (`"blocks"`): a train cell is the
+sharded step (`train_loop.jit_train_step` under the mesh) on this rank's
+blocks of the parameters and moments and its rows of the batch, each
+layer's weights gathered over data inside it; prefill and decode cells
+call `model.prefill` / `model.decode_step` on the parameter blocks, the
+rank's rows and (decode) its block of the caches under the param rules,
+as the reference resolves them. So `argument_bytes`, `flops_dev` and
+`temp_bytes` compare with the reference's per device. Every other
+family keeps the global view (`"global"`): its train step gathers the
+parameters whole, every activation is whole on every rank, and its
+prefill and decode take the parameters, the batch and the caches whole;
+`flops_dev` and `peak_bytes` then measure what the global view costs.
 
 Keys are the reference's (`repro/launch/dryrun.py`). Values with no
 torch counterpart are null: `raw_cost_analysis.bytes` (XLA's bytes
@@ -122,6 +126,9 @@ def trace(step, args) -> dict:
     del out
     res = t.result()
     res["records"] = t.coll.records
+    # the flash operator's forward FLOPs: its backward recomputes one
+    res["flash_flops"] = float(t.flops.get_flop_counts()["Global"].get(
+        torch.ops.repro_torch.flash_attention, 0))
     res["memory"] = {"argument_bytes": arg_bytes, "output_bytes": out_bytes,
                      "temp_bytes": t.mem.peak - arg_bytes,
                      "peak_bytes": t.mem.peak}
@@ -134,7 +141,8 @@ def trace(step, args) -> dict:
 def cell_step(cfg, shape, flags, device):
     """(model, step, args) of a cell under the active mesh, inside the
     active FakeTensorMode: the sharded train step on this rank's blocks,
-    or prefill / decode on whole tensors (the module docstring)."""
+    or prefill / decode on blocks (the block program) or whole tensors
+    (the global view; the module docstring)."""
     model = build_model(cfg, remat_policy=flags["remat_policy"])
     specs = model.param_specs()
     ins, _ = input_specs(cfg, shape, device=device)
@@ -149,8 +157,8 @@ def cell_step(cfg, shape, flags, device):
         step = jit_train_step(model, cfg, opt_cfg,
                               microbatches=flags["microbatches"])
         return model, step, (params, opt, dict(ins))
-    params, _ = sharding.abstract_with_shardings(specs, cfg.dtype,
-                                                 whole=True, device=device)
+    params, _ = sharding.abstract_with_shardings(
+        specs, cfg.dtype, whole=not sharding.runs_blocks(cfg), device=device)
     if shape.kind == "prefill":
         def prefill(params, batch):
             return model.prefill(params, batch["tokens"],
@@ -183,6 +191,7 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool,
             FakeTensorMode(allow_non_fake_inputs=True):
         model, step, args = cell_step(cfg, shape, flags, device)
         res = trace(step, args)
+        view = "blocks" if sharding.runs_blocks(cfg) else "global"
         del args
     coll = res["collective"]
     if records is not None:
@@ -208,8 +217,10 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool,
     useful = mflops / max(1.0, flops_dev * chips)
     rec = {
         "arch": arch, "shape": shape_name, "mesh": mesh_name,
-        "chips": chips, "status": "ok", "compile_s": round(dt, 2),
-        "flops_dev": flops_dev, "bytes_dev": bytes_dev,
+        "chips": chips, "status": "ok", "view": view,
+        "compile_s": round(dt, 2),
+        "flops_dev": flops_dev, "flash_flops": res["flash_flops"],
+        "bytes_dev": bytes_dev,
         "raw_cost_analysis": {"flops": flops_dev, "bytes": None},
         "collectives": coll,
         "memory": mem,

@@ -28,8 +28,10 @@ the `torchrun` environment (`RANK`, `WORLD_SIZE`, `MASTER_ADDR`,
 and moments (`train_loop.shard_train_state`), takes the sharded step,
 and checkpoints and restarts through the spec tree (`TrainController(
 spec_tree=)`: rank 0 writes the whole tree; a restore cuts the blocks of
-the mesh in use). On a mesh `main` returns this rank's blocks, and only
-rank 0 prints.
+the mesh in use). A model that runs the block program (`sharding.
+runs_blocks`: the dense decoders) reads its (pod, data) rows of each
+step's seeded batch, the same whole batch the reference's step sees. On
+a mesh `main` returns this rank's blocks, and only rank 0 prints.
 
 A frontend config gets seeded embeddings of (batch, n_tokens, d_input)
 in every batch, a pure function of the step as the tokens are: whisper-
@@ -168,6 +170,12 @@ def _run(args, dev):
     if args.reduced:
         cfg = reduce_cfg(cfg)
     batch_fn = make_batch_fn(cfg, args.batch, args.seq, device=dev)
+    if sharding.runs_blocks(cfg):
+        whole_fn = batch_fn
+
+        def batch_fn(step: int) -> dict:
+            """This rank's rows of the step's whole batch."""
+            return sharding.rows(whole_fn(step))
     model = build_model(cfg)
     params = model.init(torch.Generator(device=dev).manual_seed(0))
     opt_cfg = optim.OptConfig(lr=args.lr,

@@ -36,19 +36,50 @@ def ffn_spec(d_model: int, d_ff: int, act: str, *, bias: bool = False) -> dict:
     }
 
 
-def ffn_apply(params, x, act: str, *, sp: bool = False):
+def ffn_apply(params, x, act: str, *, sp: bool = False, spec=None):
+    """The FFN of x. `spec`, its global `ffn_spec`, is what a block
+    program reads (`_ffn_blocks`); with `sp` a block program runs the SP
+    body on its blocks (`sharding.shard_map` in a block program: x the
+    rank's (B/dp, S/M) block, the weights its param blocks)."""
+    if spec is not None and sharding.in_blocks() and not sp:
+        return _ffn_blocks(params, x, act, spec)
     if sp:
-        return _ffn_apply_wg(params, x, act) if weight_gathered(params, x) \
-            else _ffn_apply_sp(params, x, act)
+        return (_ffn_apply_wg(params, x, act)
+                if weight_gathered(params, x, spec)
+                else _ffn_apply_sp(params, x, act))
+    return linear(params["down"], hidden(x, params.get("gate"),
+                                         params["up"], act))
+
+
+def _ffn_blocks(params, x, act: str, spec):
+    """A block program's FFN on the rank's rows: each weight block
+    gathered over data inside the layer (FSDP), gate and up column-
+    parallel over `model` (the hidden (B, S, F/M), the reference's
+    `constrain(h, "batch", "seq", "mlp")`), down row-parallel and its
+    partial sums psummed over `model`; with `mlp` unsplit, the whole
+    FFN on each rank."""
+    w = {n: {k: sharding.gather_param(a, spec[n][k].axes,
+                                      shape=spec[n][k].shape)
+             for k, a in params[n].items()} for n in params}
+    h = hidden(x, w.get("gate"), w["up"], act)
+    y = h @ w["down"]["w"]
+    if h.shape[-1] != spec["up"]["w"].shape[-1]:
+        y = sharding.psum(y, "model")
+    if "b" in w["down"]:
+        y = y + w["down"]["b"].to(y.dtype)
+    return y
+
+
+def hidden(x, gate, up, act: str):
+    """The FFN's hidden activations of x through `gate` (None without a
+    gate) and `up` ({"w", "b"?} each)."""
     f = act_fn(act)
-    if "gate" in params:
-        h = f(linear(params["gate"], x)) * linear(params["up"], x)
-    else:
-        h = f(linear(params["up"], x))
-    return linear(params["down"], h)
+    if gate is not None:
+        return f(linear(gate, x)) * linear(up, x)
+    return f(linear(up, x))
 
 
-def weight_gathered(params, x) -> bool:
+def weight_gathered(params, x, spec=None) -> bool:
     """The reference's choice of the cheaper gather: Megatron-SP moves
     the activations (2 x tokens x D bytes on the wire), the ZeRO-style
     variant the weights once (3 x D x F); small-F FFNs (shared experts)
@@ -56,6 +87,9 @@ def weight_gathered(params, x) -> bool:
     B, S, D = x.shape
     bs = sharding.axis_size(sharding.batch_axes_prefix(B))
     F = params["up"]["w"].shape[-1]
+    if sharding.in_blocks():    # x: the rank's rows and S/M positions
+        bs, S = 1, S * sharding.mesh_axis_size("model")
+        F = spec["up"]["w"].shape[-1]
     n_mats = 3 if "gate" in params else 2
     return n_mats * D * F < 2 * (B // bs) * S * D
 

@@ -14,6 +14,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.module import Spec
+from repro_torch.parallel import sharding
 
 
 # --------------------------------------------------------------------------
@@ -27,10 +28,14 @@ def rmsnorm(params, x, eps: float = 1e-5, *, zero_centered: bool = False):
     dt = x.dtype
     xf = x.float()
     var = xf.square().mean(dim=-1, keepdim=True)
-    y = xf * torch.rsqrt(var + eps)
     scale = params["scale"]
     if zero_centered:          # gemma-style (1 + scale)
         scale = 1.0 + scale
+    if xf is not x and not (torch.is_grad_enabled() and (
+            x.requires_grad or scale.requires_grad)):
+        # no graph: the float32 copy is scaled in place (the same values)
+        return xf.mul_(torch.rsqrt(var + eps)).mul_(scale).to(dt)
+    y = xf * torch.rsqrt(var + eps)
     return (y * scale).to(dt)
 
 
@@ -79,21 +84,88 @@ def proj_spec(shape: tuple, axes: tuple, *, bias_dims: tuple | None = None,
 # --------------------------------------------------------------------------
 # Embedding
 # --------------------------------------------------------------------------
+EMBED_AXES = ("vocab", "embed")
+
+
 def embedding_spec(vocab: int, dim: int) -> dict:
-    return {"table": Spec((vocab, dim), ("vocab", "embed"), scale=1.0)}
+    return {"table": Spec((vocab, dim), EMBED_AXES, scale=1.0)}
 
 
-def embed(params, tokens):
+def embed(params, tokens, *, shape: tuple | None = None):
     """The table's rows; `F.embedding`, whose backward sums a repeated
     token's gradients in a fixed order on either device (an indexing
     backward accumulates in a racing order on the CPU), so a replayed
-    train step is bit-equal."""
-    return F.embedding(tokens.long(), params["table"])
+    train step is bit-equal.
+
+    In a block program (`shape`, the table's global (V, D), given) the table
+    is this rank's block: gathered over data (FSDP), and where its vocab
+    is split over `model` the rows outside the rank's range read zero and
+    the rows are psummed over `model` (vocab-parallel)."""
+    if shape is None or not sharding.in_blocks():
+        return F.embedding(tokens.long(), params["table"])
+    table, v0 = _table_block(params["table"], shape)
+    if v0 is None:
+        return F.embedding(tokens.long(), table)
+    loc = tokens.long() - v0
+    mine = (loc >= 0) & (loc < table.shape[0])
+    e = F.embedding(loc.clamp(0, table.shape[0] - 1), table)
+    return sharding.psum(torch.where(mine[..., None], e, 0), "model")
 
 
-def unembed(params, x):
-    """Logits via the (possibly tied) embedding table."""
-    return x @ params["table"].T
+def unembed(params, x, *, shape: tuple | None = None, split_in=False):
+    """Logits via the (possibly tied) embedding table; in a block program
+    (`shape` given) the rank's vocab columns (B, S, V/M) where the vocab
+    is split over `model`, from the table gathered over data. Where the
+    vocab is whole on every rank of `model` (it does not split) the ranks
+    share the work the reference's partitioner shares: the table's
+    gradient by columns (`_WholeVocab`), and with `split_in` (a decode's
+    few rows) the product's contraction, psummed over `model`."""
+    if shape is None or not sharding.in_blocks():
+        return x @ params["table"].T
+    table, v0 = _table_block(params["table"], shape)
+    M = sharding.mesh_axis_size("model")
+    if v0 is not None or M == 1 or x.shape[-1] % M:
+        return x @ table.T
+    n = x.shape[-1] // M
+    r = sharding.axis_index("model")
+    cols = slice(r * n, (r + 1) * n)
+    if split_in:
+        return sharding.psum(x[..., cols] @ table[:, cols].T, "model")
+    return _WholeVocab.apply(x, table, cols, M)
+
+
+class _WholeVocab(torch.autograd.Function):
+    """x @ table.T on every rank of `model`, the table's gradient only in
+    this rank's `cols` (zeros elsewhere). The logits feed the loss alone,
+    the same on every rank of `model`, so each rank's cotangent is the
+    same 1/M share of the whole: M times this rank's share in its columns
+    is their whole gradient, and the replicas' sum over `model`
+    (`sharding.reduce_replicas`) the table's, each rank having computed
+    1/M of it."""
+
+    @staticmethod
+    def forward(ctx, x, table, cols, M: int):
+        ctx.save_for_backward(x, table)
+        ctx.cols, ctx.M = cols, M
+        return x @ table.T
+
+    @staticmethod
+    def backward(ctx, g):
+        x, table = ctx.saved_tensors
+        xc = x[..., ctx.cols]
+        gt = torch.zeros_like(table)
+        gt[:, ctx.cols] = (g.reshape(-1, g.shape[-1]).T
+                           @ xc.reshape(-1, xc.shape[-1])) * ctx.M
+        return g @ table, gt, None, None
+
+
+def _table_block(table, shape: tuple):
+    """(the rank's block of a (V, D) table gathered over data, its first
+    vocab row, or None where the vocab is not split over `model`)."""
+    table = sharding.gather_param(table, EMBED_AXES, shape=shape)
+    if table.shape[0] == shape[0]:
+        return table, None
+    return table, sharding.axis_index("model") * table.shape[0]
 
 
 # --------------------------------------------------------------------------

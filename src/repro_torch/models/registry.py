@@ -45,9 +45,12 @@ def input_specs(cfg: ModelConfig, shape: ShapeConfig, *,
     specs (`repro.models.registry.input_specs`): tokens and labels
     (B, S) int32 by ("batch", "seq"), a frontend's embeddings (B, F,
     d_input) by ("batch", "seq", "embed"), the decode cache by its param
-    specs and `pos`. The tensors are global: the port's step functions
-    take the global view (the batch and, for decode, the caches whole).
-    They belong to the active `FakeTensorMode`, or to one new mode."""
+    specs and `pos`. Where the model runs the block program
+    (`sharding.runs_blocks`) each tensor is this rank's block: the
+    batch's rows, the decode cache's block under the param rules (as the
+    reference resolves it: every row). Else they are global (the global
+    view takes the batch and the caches whole). They belong to the
+    active `FakeTensorMode`, or to one new mode."""
     import torch
 
     from repro_torch import device as tdevice
@@ -58,10 +61,14 @@ def input_specs(cfg: ModelConfig, shape: ShapeConfig, *,
                        else tdevice.get_default())
     ins, specs = {}, {}
 
+    blocks = sharding.runs_blocks(cfg)
+
     def sds(name, shp, dt, axes=None):
-        ins[name] = torch.empty(shp, dtype=dt, device=dev)
         specs[name] = (sharding.resolve_spec(axes, shp, table="act")
                        if axes else sharding.P())
+        if blocks:
+            shp = sharding.block_shape(shp, specs[name])
+        ins[name] = torch.empty(shp, dtype=dt, device=dev)
 
     with sharding.fake_mode():
         if shape.kind in ("train", "prefill"):
@@ -76,7 +83,7 @@ def input_specs(cfg: ModelConfig, shape: ShapeConfig, *,
         # decode: one new token against a cache of seq_len
         sds("tokens", (B, 1), torch.int32, ("batch", "seq"))
         ins["cache"], specs["cache"] = sharding.abstract_with_shardings(
-            build_model(cfg).cache_specs(B, S), cfg.dtype, whole=True,
-            device=dev)
+            build_model(cfg).cache_specs(B, S), cfg.dtype,
+            whole=not blocks, device=dev)
         sds("pos", (), torch.int32)
     return ins, specs

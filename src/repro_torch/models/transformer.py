@@ -25,6 +25,14 @@ and `decode_step` run under `torch.no_grad()`. A frontend config
 (internvl2-2b's patches) splices its embeddings over the first token
 rows, as the reference does.
 
+Under a `DeviceMesh` the dense decoders (`sharding.BLOCK_FAMILIES`) run
+the block program (`sharding.program`): `forward`, `prefill` and
+`decode_step` take and give this rank's blocks, the residual stream its
+rows (B/dp, S, D), or its S/M positions under Megatron-SP; attention
+through `_attn_blocks`, the FFN through `ffn._ffn_blocks`, the
+embedding and logits vocab-parallel (`layers.embed` / `unembed`);
+`decode_caches` turns a prefill's cache blocks into the decode's.
+
 Differences from the reference, on purpose:
 
   * `_run_groups` is a Python loop over the stacked layer dimension
@@ -157,14 +165,28 @@ def _proj(w, x):
     return y
 
 
-def _qkv(params, x, positions, cfg):
-    q = _proj(params["wq"], x)
-    k = _proj(params["wk"], x)
-    v = _proj(params["wv"], x)
-    if cfg.rope_theta:
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
-    return q, k, v
+def _qkv(params, x, positions, cfg, *, split_in=None, split=(True,) * 3):
+    """q, k, v of x, roped. `split_in` (M, r): the projections whose
+    heads `split` does not mark as split over `model` contract over the
+    rank's d_model/M columns of x and rows of the weight, their partials
+    psummed over `model` (a block program's decode: its rows are too few
+    to repeat the whole contraction on every rank, as the reference's
+    partitioner chooses too)."""
+    def proj(w, split_heads):
+        if split_in is None or split_heads:
+            return _proj(w, x)
+        M, r = split_in
+        n = x.shape[-1] // M
+        y = sharding.psum(_project(x[..., r * n:(r + 1) * n],
+                                   w["w"][r * n:(r + 1) * n]), "model")
+        return y + w["b"].to(y.dtype) if "b" in w else y
+    q, k, v = (proj(params[n], sp) for n, sp in zip(("wq", "wk", "wv"),
+                                                     split))
+    return _roped(q, positions, cfg), _roped(k, positions, cfg), v
+
+
+def _roped(y, positions, cfg):
+    return apply_rope(y, positions, cfg.rope_theta) if cfg.rope_theta else y
 
 
 def _out_proj(params, y):
@@ -213,8 +235,10 @@ def attn_apply_sp(params, x, positions, cfg):
     b = sharding.batch_axes_prefix(B) or None
     xspec, pspec = P(b, "model", None), P(b, "model")
     names = tuple(ATTN_AXES)
-    wspecs = tuple(sharding.resolve_spec(ATTN_AXES[n], params[n]["w"].shape,
-                                         "param") for n in names)
+    # specs by the global shapes: a block program's params are blocks
+    spec = attn_spec(cfg)
+    wspecs = tuple(sharding.resolve_spec(
+        ATTN_AXES[n], spec[n]["w"].shape, "param") for n in names)
     kv_sharded = wspecs[1][1] is not None             # KVH % M == 0
 
     def body(x_l, pos_l, *ws):
@@ -244,6 +268,23 @@ def attn_apply(params, x, positions, cfg, *, window=0, mode="train",
     H, KVH = cfg.n_heads, cfg.n_kv_heads
     G = H // KVH
     hd = cfg.resolved_head_dim
+    if sharding.in_blocks():
+        if window:
+            raise NotImplementedError("windowed attention on the block "
+                                      "program (no block family has it)")
+        S = positions.shape[1]
+        if x.shape[1] == S:
+            return _attn_blocks(params, x, positions, cfg, mode=mode,
+                                cache=cache, pos=pos)
+        # Megatron-SP: x is the rank's S/M positions of the stream
+        n, r = x.shape[1], sharding.axis_index("model")
+        mine = positions[:, r * n:(r + 1) * n]
+        if takes_attn_sp(cfg, S, mode=mode):
+            return attn_apply_sp(params, x, mine, cfg)
+        y, new_cache = _attn_blocks(params, sharding.all_gather(x, "model", 1),
+                                    positions, cfg, mode=mode, cache=cache,
+                                    pos=pos)
+        return sharding.relayout(y, P(), P(None, "model")), new_cache
     if takes_attn_sp(cfg, S, mode=mode, window=window):
         return attn_apply_sp(params, x, positions, cfg)
     q, k, v = _qkv(params, x, positions, cfg)
@@ -273,6 +314,103 @@ def attn_apply(params, x, positions, cfg, *, window=0, mode="train",
             force_local=decode_heads_layout(cfg))
     y = _out_proj(params, out.reshape(B, 1, H, hd))
     return y, {"k": kc, "v": vc}
+
+
+def _attn_blocks(params, x, positions, cfg, *, mode, cache, pos):
+    """`attn_apply` in a block program, on the rank's rows x (B/dp, S, D)
+    (whole over `model`) and its parameter blocks, each gathered over
+    data inside the layer (FSDP). q/k/v are column-parallel over the
+    heads the branch splits and the out-projection row-parallel:
+
+      * head-TP: the rank's H/M query heads and its kv heads (grouped)
+        or every kv head (repeated), `collectives.head_tp_block_attention`;
+        its heads' partial out-projection psummed over `model`;
+      * context parallelism: q/k/v and the out-projection on the rank's
+        S/M rows (`collectives.cp_block_attention` all-gathers K/V), the
+        output all-gathered over `model`;
+      * decode: the rank's rows against its block of the caches, every
+        row (`collectives.blocks_decode`): its kv heads where they
+        split (no collective), else its S/M positions merged over
+        `model`; a partial out-projection psummed where the heads split.
+
+    A prefill's caches are laid out as the reference constrains them:
+    (B/dp, S/M, KVH, hd) where the sequence splits over `model`."""
+    b, S, _ = x.shape
+    H, KVH = cfg.n_heads, cfg.n_kv_heads
+    G, hd = H // KVH, cfg.resolved_head_dim
+    M = sharding.mesh_axis_size("model")
+    r = sharding.axis_index("model") if M > 1 else 0
+    spec = attn_spec(cfg)
+    w = {n: {k: sharding.gather_param(a, spec[n][k].axes,
+                                      shape=spec[n][k].shape)
+             for k, a in params[n].items()} for n in params}
+    heads_split = w["wq"]["w"].shape[1] != H
+    kv_split = w["wk"]["w"].shape[1] != KVH
+    if mode == "decode":
+        q, k, v = _qkv(w, x, positions, cfg, split_in=(
+            (M, r) if M > 1 and x.shape[-1] % M == 0 else None),
+            split=(heads_split, kv_split, kv_split))
+        if heads_split and not kv_split:
+            q = sharding.all_gather(q, "model", 2)
+        # its S/M cache positions where the kv heads do not split
+        seq_split = (M > 1 and not kv_split
+                     and cache["k"].shape[1] % M == 0)
+        out, kc, vc = collectives.blocks_decode(
+            q[:, 0].reshape(b, -1, G, hd), cache["k"], cache["v"], k[:, 0],
+            v[:, 0], pos, M if seq_split else 1)
+        out = out.reshape(b, 1, -1, hd)
+        if heads_split and not kv_split:
+            n = H // M
+            out = out[:, :, r * n:(r + 1) * n]
+        y = _out_proj(w, out)
+        return (sharding.psum(y, "model") if heads_split else y,
+                {"k": kc, "v": vc})
+    branch = collectives.attend_branch(S, KVH, G)
+    s_split = M > 1 and S % M == 0          # the cache's kv_seq -> model
+    n = S // M if s_split else S
+    mine = slice(r * n, (r + 1) * n)
+    if branch == "cp":
+        x, positions = x[:, mine], positions[:, mine]
+    q = _roped(_proj(w["wq"], x), positions, cfg)
+    repeated = branch == "head_tp" and not kv_split
+    lo, kvw = 0, (w["wk"], w["wv"])
+    if repeated and mode == "prefill" and s_split:
+        # every kv head on the cache's S/M rows, all-gathered over model
+        kc = _roped(_proj(kvw[0], x[:, mine]), positions[:, mine], cfg)
+        vc = _proj(kvw[1], x[:, mine])
+        k, v = (sharding.all_gather(t, "model", 1) for t in (kc, vc))
+    else:
+        if repeated and mode == "train":
+            # only the kv heads this rank's query heads read
+            Hl = H // M
+            lo, hi = r * Hl // G, ((r + 1) * Hl - 1) // G + 1
+            kvw = tuple({k_: a[:, lo:hi] if k_ == "w" else a[lo:hi]
+                         for k_, a in w_.items()} for w_ in kvw)
+        k = _roped(_proj(kvw[0], x), positions, cfg)
+        v = _proj(kvw[1], x)
+        kc, vc = k, v
+    Sq = q.shape[1]
+    if branch == "head_tp":
+        out = collectives.head_tp_block_attention(q, k, v, G, r, lo,
+                                                  causal=True)
+    elif branch == "cp":
+        out = collectives.cp_block_attention(q.reshape(b, Sq, KVH, G, hd), k,
+                                             v, causal=True)
+    else:
+        out = chunked_attention(q.reshape(b, Sq, KVH, G, hd), k, v,
+                                causal=True)
+    y = _out_proj(w, out.reshape(b, Sq, -1, hd))
+    if heads_split:
+        y = sharding.psum(y, "model")
+    if branch == "cp":
+        y = sharding.all_gather(y, "model", 1)
+    if mode != "prefill":
+        return y, None
+    src = (P(None, "model") if branch == "cp" or (repeated and s_split)
+           else P(None, None, "model") if kv_split else P())
+    dst = P(None, "model") if s_split else P()
+    return y, {"k": sharding.relayout(kc, src, dst),
+               "v": sharding.relayout(vc, src, dst)}
 
 
 # --------------------------------------------------------------------------
@@ -435,12 +573,14 @@ def block_apply(params, x, positions, cfg, kind: LayerKind, *, mode="train",
     else:
         a = ssm.mamba2_forward(params["ssm"], h, cfg)
     x = x + a
-    S = x.shape[1]
+    S = positions.shape[1]      # x's own in a block program's SP stream
     if kind.ffn in ("dense", "dense_big"):
         h = rmsnorm(params["ln2"], x, eps, zero_centered=zc)
         up = params["ffn"]["up"]
+        d_ff = cfg.d_ff if kind.ffn == "dense" else cfg.moe.d_ff_dense
         x = x + ffn.ffn_apply(params["ffn"], h, cfg.act, sp=takes_ffn_sp(
-            cfg, S, up["w"].shape[-1], mode=mode, bias="b" in up))
+            cfg, S, up["w"].shape[-1], mode=mode, bias="b" in up),
+            spec=ffn.ffn_spec(cfg.d_model, d_ff, cfg.act))
     elif kind.ffn == "moe":
         h = rmsnorm(params["ln2"], x, eps, zero_centered=zc)
         y, aux_moe = moe.moe_apply(params["moe"], h, cfg, sp=takes_ffn_sp(
@@ -540,10 +680,35 @@ class DecoderLM:
         return init_params(self.cache_specs(batch, seq_len),
                            self.cfg.dtype, device=device)
 
+    # -- the block program --------------------------------------------------
+    def decode_caches(self, caches, batch: int, seq_len: int, max_seq: int):
+        """A prefill's caches (`batch` rows of `seq_len` tokens) padded to
+        the decode caches of `max_seq`. In a block program the prefill's
+        are the rank's (B/dp, S/M) blocks (all-gathered whole here) and
+        the decode's its block under the param rules, every row, as the
+        reference resolves its decode's caches."""
+        from repro_torch.serve.kvcache import pad_caches
+        specs = self.cache_specs(batch, max_seq)
+        if not sharding.runs_blocks(self.cfg):
+            return pad_caches(caches, seq_len, max_seq, specs)
+        ax = sharding.batch_axes_prefix(batch)
+        M = sharding.mesh_axis_size("model")
+
+        def whole(a):
+            if M > 1 and seq_len % M == 0:
+                a = sharding.all_gather(a, "model", 2)
+            return sharding.all_gather(a, ax, 1) if ax else a
+        with torch.no_grad():
+            return sharding.shard_tree(pad_caches(
+                tree.map(whole, caches), seq_len, max_seq, specs), specs)
+
     # -- shared trunk ------------------------------------------------------
     def _residual_constrain(self, x):
         """Megatron-SP keeps the residual stream sequence-sharded over
-        `model` (the mesh's `seq_parallel`); a layout, no value change."""
+        `model` (the mesh's `seq_parallel`); a layout, no value change.
+        A block program holds its layout itself (`_stream_in`)."""
+        if sharding.in_blocks():
+            return x
         if use_sp(self.cfg, x.shape[1]):
             return sharding.constrain(x, "batch", "kv_seq", None)
         return sharding.constrain(x, "batch", "seq", "embed")
@@ -552,7 +717,8 @@ class DecoderLM:
         """Token embeddings; a frontend config's `embeddings` (B, n, D)
         replace the first n rows (the reference's splice)."""
         cfg = self.cfg
-        x = embed(params["embed"], tokens).to(torch_dtype(cfg.dtype))
+        x = embed(params["embed"], tokens, shape=self._table_shape).to(
+            torch_dtype(cfg.dtype))
         if cfg.scale_embeddings:
             # the reference multiplies by a weakly typed scalar, which JAX
             # rounds to the model dtype first: so does this
@@ -560,7 +726,22 @@ class DecoderLM:
         if cfg.frontend.kind != "none" and embeddings is not None:
             n = embeddings.shape[1]
             x = torch.cat([embeddings.to(x.dtype), x[:, n:]], dim=1)
-        return self._residual_constrain(x)
+        return self._stream_in(self._residual_constrain(x))
+
+    def _stream_in(self, x):
+        """A block program's residual stream under Megatron-SP: the
+        rank's S/M positions (the reference's constrain to (batch,
+        kv_seq)); else x as it is."""
+        if sharding.in_blocks() and use_sp(self.cfg, x.shape[1]):
+            return sharding.relayout(x, P(), P(None, "model"))
+        return x
+
+    def _stream_out(self, x, S: int):
+        """The whole sequence of a block program's residual stream (an
+        all-gather over `model` where Megatron-SP split it)."""
+        if x.shape[1] != S:
+            return sharding.all_gather(x, "model", 1)
+        return x
 
     def _run_groups(self, params, x, positions, *, mode, caches=None,
                     pos=None):
@@ -568,14 +749,18 @@ class DecoderLM:
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         new_caches = []
         remat = cfg.remat and mode == "train" and torch.is_grad_enabled()
+        in_place = mode == "decode" and sharding.in_blocks()
         for gi, (subplan, count) in enumerate(self.groups):
             p_ls = unbind_layers(params["groups"][gi], count)
             c_ls = (unbind_layers(caches[gi], count) if caches is not None
                     else [None] * count)
-            fn = partial(superblock_apply, cfg=cfg, subplan=subplan,
-                         mode=mode, pos=pos)
+            # a recompute in the backward re-enters this mesh context
+            fn = partial(_in_context, sharding.current(), partial(
+                superblock_apply, cfg=cfg, subplan=subplan, mode=mode,
+                pos=pos))
             ncs = []
-            for p_l, c_l in zip(p_ls, c_ls):
+            stack = None
+            for li, (p_l, c_l) in enumerate(zip(p_ls, c_ls)):
                 if remat:
                     x, a, nc = checkpoint(fn, p_l, x, positions, cache=c_l,
                                           **self._remat)
@@ -584,20 +769,37 @@ class DecoderLM:
                 if mode != "decode":
                     x = self._residual_constrain(x)
                 aux_total = aux_total + a
+                if mode == "prefill" and tree.leaves(nc):
+                    # each layer's cache goes into the group's stack as it
+                    # comes: no second copy of the caches at the end
+                    if stack is None:
+                        stack = tree.map(lambda c: c.new_empty(
+                            (count,) + c.shape), nc)
+                    tree.map(lambda s_, c: s_[li].copy_(c), stack, nc)
+                    nc = None
                 ncs.append(nc)
-            if ncs and tree.leaves(ncs[0]):
+            if in_place:
+                new_caches.append(caches[gi])       # written in place
+            elif stack is not None:
+                new_caches.append(stack)
+            elif ncs and tree.leaves(ncs[0]):
                 new_caches.append(tree.map(lambda *xs: torch.stack(xs),
                                            *ncs))
             else:
                 new_caches.append(_empty_stack(subplan))
         return x, aux_total, new_caches
 
-    def _logits(self, params, h):
+    def _logits(self, params, h, *, decode=False):
         cfg = self.cfg
         h = rmsnorm(params["final_norm"], h, cfg.norm_eps,
                     zero_centered=cfg.zero_centered_norm)
         table = params["embed"] if cfg.tie_embeddings else params["out_embed"]
-        return softcap(unembed(table, h), cfg.logit_softcap)
+        return softcap(unembed(table, h, shape=self._table_shape,
+                               split_in=decode), cfg.logit_softcap)
+
+    @property
+    def _table_shape(self) -> tuple:
+        return (self.cfg.vocab_size, self.cfg.d_model)
 
     @staticmethod
     def _positions(B: int, S: int, device) -> torch.Tensor:
@@ -609,14 +811,17 @@ class DecoderLM:
         """Full-sequence logits (training). Returns (logits, extras): the
         MoE aux loss and, with an MTP head, its logits (``mtp_logits``,
         one row fewer)."""
-        B, S = tokens.shape
-        positions = self._positions(B, S, tokens.device)
-        x = self._embed_in(params, tokens, embeddings)
-        x, aux, _ = self._run_groups(params, x, positions, mode="train")
-        extras = {"moe_aux": aux}
-        if self.cfg.mtp_depth:
-            extras["mtp_logits"] = self._mtp(params, x, tokens, positions)
-        return self._logits(params, x), extras
+        with sharding.program(self.cfg):
+            B, S = tokens.shape
+            positions = self._positions(B, S, tokens.device)
+            x = self._embed_in(params, tokens, embeddings)
+            x, aux, _ = self._run_groups(params, x, positions, mode="train")
+            x = self._stream_out(x, S)
+            extras = {"moe_aux": aux}
+            if self.cfg.mtp_depth:
+                extras["mtp_logits"] = self._mtp(params, x, tokens,
+                                                 positions)
+            return self._logits(params, x), extras
 
     def _mtp(self, params, h, tokens, positions):
         """DeepSeek-style 1-depth multi-token prediction head: the trunk's
@@ -645,30 +850,45 @@ class DecoderLM:
         `tokens` is right-padded to a bucketed length. Rows at positions
         <= last_pos never see the pad rows (causal masking adds exact
         zeros), so the selected logits — and the cache rows a later
-        decode step attends to — match an unpadded prefill."""
-        B, S = tokens.shape
-        positions = self._positions(B, S, tokens.device)
-        x = self._embed_in(params, tokens, embeddings)
-        x, _, caches = self._run_groups(params, x, positions, mode="prefill")
-        if last_pos is None:
-            x_last = x[:, -1:]
-        else:
-            lp = torch.as_tensor(last_pos, device=x.device).long()
-            x_last = x[torch.arange(B, device=x.device), lp.reshape(B)][:, None]
-        return self._logits(params, x_last), caches
+        decode step attends to — match an unpadded prefill. In a block
+        program (`sharding.program`) `last_pos` is the rank's rows'."""
+        with sharding.program(self.cfg):
+            B, S = tokens.shape
+            positions = self._positions(B, S, tokens.device)
+            x = self._embed_in(params, tokens, embeddings)
+            x, _, caches = self._run_groups(params, x, positions,
+                                            mode="prefill")
+            x = self._stream_out(x, S)
+            if last_pos is None:
+                x_last = x[:, -1:]
+            else:
+                lp = torch.as_tensor(last_pos, device=x.device).long()
+                x_last = x[torch.arange(B, device=x.device),
+                           lp.reshape(B)][:, None]
+            return self._logits(params, x_last), caches
 
     @torch.no_grad()
     def decode_step(self, params, tokens, caches, pos):
         """One decode step. tokens: (B,1); pos: scalar or (B,) int (write
         index). Returns (logits (B,1,V), caches); the caches passed in
-        are left as they were."""
-        B = tokens.shape[0]
-        pos = torch.as_tensor(pos, dtype=torch.int32, device=tokens.device)
-        positions = pos.broadcast_to((B,))[:, None]
-        x = self._embed_in(params, tokens)
-        x, _, caches = self._run_groups(params, x, positions, mode="decode",
-                                        caches=caches, pos=pos)
-        return self._logits(params, x), caches
+        are left as they were, but in a block program (`sharding.program`:
+        pos the rank's rows', the caches written in place and handed
+        back)."""
+        with sharding.program(self.cfg):
+            B = tokens.shape[0]
+            pos = torch.as_tensor(pos, dtype=torch.int32,
+                                  device=tokens.device)
+            positions = pos.broadcast_to((B,))[:, None]
+            x = self._embed_in(params, tokens)
+            x, _, caches = self._run_groups(params, x, positions,
+                                            mode="decode", caches=caches,
+                                            pos=pos)
+            return self._logits(params, x, decode=True), caches
+
+
+def _in_context(ctx, fn, *args, **kwargs):
+    with sharding.use_context(ctx):
+        return fn(*args, **kwargs)
 
 
 def _empty_stack(subplan):

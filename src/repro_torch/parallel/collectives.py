@@ -144,10 +144,34 @@ def _head_tp_attention(q, k, v, **kw):
     return out.reshape(B, S, KVH, G, -1)
 
 
+def head_tp_block_attention(q, k, v, G: int, r: int, lo: int = 0, **kw):
+    """Rank r's head-TP attention in a block program, on its projections:
+    q (B,S,H_loc,Dk), its H/M query heads; k/v (B,S,KVH_k,D*), its KVH/M
+    kv heads (the grouped layout) or the kv heads from `lo` on (the
+    repeated layout of `_head_tp_layout`: the one each of its query
+    heads reads, one a query head). No collective; its heads' output."""
+    B, S, H_loc, Dk = q.shape
+    KVH_k = k.shape[2]
+    if KVH_k * G == H_loc:
+        return chunked_attention(q.reshape(B, S, KVH_k, G, Dk), k, v, **kw)
+    idx = (r * H_loc + torch.arange(H_loc, device=q.device)) // G - lo
+    return chunked_attention(q.reshape(B, S, H_loc, 1, Dk), k[:, :, idx],
+                             v[:, :, idx], **kw)
+
+
 def _cp_block(q_l, k, v, s0: int, **kw):
     """A rank's share of context parallelism: its query rows from s0,
     attended against the whole k/v at q_offset = s0."""
     return chunked_attention(q_l, k, v, q_offset=s0, **kw)
+
+
+def cp_block_attention(q_l, k_l, v_l, **kw):
+    """A block program's context parallelism: the rank's S/M rows of q,
+    k and v; K/V all-gathered over `model`, its rows' output."""
+    k = sharding.all_gather(k_l, "model", 1)
+    v = sharding.all_gather(v_l, "model", 1)
+    return _cp_block(q_l, k, v, sharding.axis_index("model") * q_l.shape[1],
+                     **kw)
 
 
 def _context_parallel_attention(q, k, v, **kw):
@@ -268,6 +292,36 @@ def _whole_caches(k_cache, v_cache, k_new, v_new, pos, mla: bool):
     the whole caches, returns (a local write; no gather)."""
     return (_update(k_cache, k_new, pos),
             None if mla else _update(v_cache, v_new, pos))
+
+
+def blocks_decode(q, k_cache, v_cache, k_new, v_new, pos, M: int, *,
+                  cap=0.0, sm_scale=None):
+    """A block program's decode: q (b,KVH_l,G,Dk), the new entries
+    (b,KVH_l,D*) and pos (scalar or (b,)) are the rank's b rows; the
+    caches (B,S,KVH_l,D*) its block of every row under the param rules,
+    every row's new entry (all-gathered over the batch axes) written
+    into them in place, nothing else. The rank's rows attend its S/M
+    cache positions, merged over `model` (M > 1), or every position
+    (M = 1: its kv heads, or a cache that does not split). Returns (out
+    (b,KVH_l,G,Dv), k_cache, v_cache)."""
+    b, n = q.shape[0], k_cache.shape[1] // M
+    pos = torch.as_tensor(pos, device=q.device).long().broadcast_to((b,))
+    ax = sharding.batch_axes_prefix(k_cache.shape[0])
+
+    def every_row(t):
+        return sharding.all_gather(t, ax, 0) if ax else t
+    rows = torch.arange(k_cache.shape[0], device=k_cache.device)
+    p = every_row(pos)
+    k_cache.index_put_((rows, p), every_row(k_new).to(k_cache.dtype))
+    v_cache.index_put_((rows, p), every_row(v_new).to(v_cache.dtype))
+    r0 = sharding.axis_index(ax) * b if ax else 0
+    s0 = sharding.axis_index("model") * n if M > 1 else 0
+    acc, m, l = _decode_block(q, k_cache[r0:r0 + b, s0:s0 + n],
+                              v_cache[r0:r0 + b, s0:s0 + n], pos, s0,
+                              cap=cap, sm_scale=sm_scale)
+    if M > 1:
+        acc, l = merge_partials(acc, m, l, "model")
+    return finalize_partials(acc, l).to(q.dtype), k_cache, v_cache
 
 
 def _sharded_decode(q, k_cache, v_cache, k_new, v_new, pos, **kw):

@@ -56,10 +56,26 @@ by global rank, so the collectives permute blocks to JAX's order.
 
 Why not DTensor with `local_map`: it would push DTensors through every
 model function, while a plain body is what one process can also run
-rank by rank on the card (`chip_smoke.py` phases 13-14), with the
-collectives done as stacked tensor ops. The cost of the global view is
-memory: every rank holds the whole activations, which the reference
-shards. `constrain` resolves its spec and returns its tensor as it is.
+rank by rank on the card (`chip_smoke.py` phases 13-16, `parallel.
+turns`), with the collectives done as stacked tensor ops. The cost of
+the global view is memory and work: every rank holds the whole
+activations and computes on them, which the reference shards.
+`constrain` resolves its spec and returns its tensor as it is.
+
+The block program. A model of `BLOCK_FAMILIES` (the dense decoders;
+later slices widen the set) runs each rank's own program under a
+`DeviceMesh` instead (`runs_blocks`, `program`): its inputs are this
+rank's blocks (the parameters under their param specs, the batch's
+rows, `rows`), its outputs stay blocks, and a tensor changes layout only
+where the reference has a `constrain`, by an explicit, differentiable
+`relayout`. Inside it (`in_blocks`) the layers read their blocks: the
+weights gathered over data inside each layer (FSDP, `gather_param`),
+the branches of `parallel.collectives` on the rank's q/k/v. Its
+gradients are the collectives' transposes with every rank seeding the
+one loss by 1 / (the mesh's ranks), so a collective's transpose sums
+the ranks' shares; a parameter's gradient comes out as its block,
+psum-scattered over data by the FSDP gather's transpose, and is summed
+over the ranks that hold the same block (`reduce_replicas`).
 
 Gradients. The collectives but `pmax` are autograd Functions whose
 backward is JAX's transpose: `psum` -> `psum`, `all_gather` <->
@@ -166,6 +182,7 @@ class MeshContext:
     capacity_factor: Optional[float] = None   # overrides MoEConfig's
     seq_parallel: bool = False      # Megatron-SP residual stream
     decode_layout: str = "seq"      # 'seq' | 'heads' (KV cache sharding)
+    blocks: bool = False            # inside a block program
 
 
 _CTX: contextvars.ContextVar[Optional[MeshContext]] = contextvars.ContextVar(
@@ -251,6 +268,7 @@ class _Line:
     ranks: tuple            # global ranks in JAX's order (first axis major)
     order: tuple            # order[j]: group rank of JAX index j
     index: int              # this rank's JAX index on the line
+    turns: object = None    # the `turns.Turns` running a LocalMesh's ranks
 
 
 def _line(axis) -> _Line:
@@ -283,6 +301,11 @@ def _make_line(mesh, axes) -> _Line:
     lines = [tuple(int(r) for r in row)
              for row in grid.reshape(-1, math.prod(
                  grid.shape[len(names) - len(axes):]))]
+    turns = getattr(mesh, "turns", None)
+    if turns is not None:           # every rank in this process, in turns
+        line = next(line for line in lines if mesh.rank in line)
+        return _Line(None, line, tuple(range(len(line))),
+                     line.index(mesh.rank), turns)
     if len(axes) == 1:
         group = mesh.get_group(axes[0])
     else:
@@ -315,9 +338,15 @@ def _to_group_order(blocks, ln: _Line) -> list:
     return [blocks[inv[g]] for g in range(len(blocks))]
 
 
+def _in_turns(ln, op, x, *args):
+    return ln.turns.exchange(ln.ranks[ln.index], ln, op, x, *args)
+
+
 def _all_gather(x, axis, dim: int):
     import torch.distributed as dist
     ln = _line(axis)
+    if ln.turns is not None:
+        return _in_turns(ln, "all_gather", x, dim)
     parts = [torch.empty_like(x) for _ in ln.ranks]
     dist.all_gather(parts, x.contiguous(), group=ln.group)
     return torch.cat([parts[g] for g in ln.order], dim)
@@ -326,6 +355,8 @@ def _all_gather(x, axis, dim: int):
 def _psum_scatter(x, axis, dim: int):
     import torch.distributed as dist
     ln = _line(axis)
+    if ln.turns is not None:
+        return _in_turns(ln, "psum_scatter", x, dim)
     n = len(ln.ranks)
     blocks = [b.contiguous() for b in
               _to_group_order(list(x.chunk(n, dim)), ln)]
@@ -337,6 +368,8 @@ def _psum_scatter(x, axis, dim: int):
 def _all_to_all(x, axis, split_dim: int, concat_dim: int):
     import torch.distributed as dist
     ln = _line(axis)
+    if ln.turns is not None:
+        return _in_turns(ln, "all_to_all", x, split_dim, concat_dim)
     n = len(ln.ranks)
     send = torch.stack(_to_group_order(list(x.chunk(n, split_dim)), ln))
     recv = torch.empty_like(send)
@@ -346,9 +379,11 @@ def _all_to_all(x, axis, split_dim: int, concat_dim: int):
 
 def _all_reduce(x, axis, op):
     import torch.distributed as dist
+    ln = _line(axis)
+    if ln.turns is not None:
+        return _in_turns(ln, op, x)
     out = x.clone(memory_format=torch.contiguous_format)
-    dist.all_reduce(out, op=getattr(dist.ReduceOp, op),
-                    group=_line(axis).group)
+    dist.all_reduce(out, op=getattr(dist.ReduceOp, op), group=ln.group)
     return out
 
 
@@ -358,6 +393,8 @@ def _ppermute(x, axis, shift: int):
     n = len(ln.ranks)
     if shift % n == 0:
         return x.clone()
+    if ln.turns is not None:
+        raise NotImplementedError("ppermute in turns")
     x = x.contiguous()
     out = torch.empty_like(x)
     ops = [dist.P2POp(dist.isend, x, ln.ranks[(ln.index + shift) % n],
@@ -459,8 +496,9 @@ def _unblock(x, spec):
     return x
 
 
-def _unnamed(spec) -> tuple:
-    """The mesh axes `spec` does not name, in mesh order."""
+def unnamed_axes(spec) -> tuple:
+    """The mesh axes `spec` does not name, in mesh order: a block's
+    replicas lie along them."""
     named = {a for ent in spec if ent is not None for a in _axes(ent)}
     return tuple(a for a in axis_sizes(current().mesh) if a not in named)
 
@@ -472,7 +510,7 @@ class _Enter(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, spec):
-        ctx.mesh, ctx.spec, ctx.unnamed = current(), spec, _unnamed(spec)
+        ctx.mesh, ctx.spec, ctx.unnamed = current(), spec, unnamed_axes(spec)
         if ctx.unnamed:
             _line(ctx.unnamed)      # every rank makes the group now
         return _block(x, spec).clone()
@@ -493,7 +531,7 @@ class _Exit(torch.autograd.Function):
     @staticmethod
     def forward(ctx, y, spec):
         ctx.mesh, ctx.spec = current(), spec
-        ctx.n = axis_size(_unnamed(spec))
+        ctx.n = axis_size(unnamed_axes(spec))
         out = _unblock(y, spec)
         return y.clone() if out is y else out
 
@@ -541,10 +579,14 @@ def shard_map(body, in_specs, out_specs):
     spec (None: not a tensor, passed as it is), `body` runs on the
     blocks, and each output's global value is rebuilt from its out-spec.
     `out_specs` is one spec (one output) or a tuple of them. Its
-    gradient is the reference's transpose (the module docstring)."""
+    gradient is the reference's transpose (the module docstring). In a
+    block program the arguments are this rank's blocks under
+    `in_specs` already and the outputs stay its blocks: `body` alone."""
     single = isinstance(out_specs, PartitionSpec)
 
     def run(*args):
+        if in_blocks():         # the arguments are this rank's blocks
+            return body(*args)
         blocks = [a if s is None else _enter(a, s)
                   for a, s in zip(args, in_specs, strict=True)]
         out = body(*blocks)
@@ -553,6 +595,122 @@ def shard_map(body, in_specs, out_specs):
         return tuple(o if s is None else _exit(o, s)
                      for o, s in zip(out, out_specs, strict=True))
     return run
+
+
+# --------------------------------------------------------------------------
+# The block program
+# --------------------------------------------------------------------------
+# The model families whose DecoderLM runs each rank's own program on its
+# blocks under a DeviceMesh; every other family keeps the global view.
+BLOCK_FAMILIES = frozenset({"dense", "vlm"})
+
+
+def runs_blocks(cfg) -> bool:
+    """`cfg`'s model runs the block program: a DeviceMesh is in use and
+    its family is one of `BLOCK_FAMILIES`."""
+    return ranks_in_use() and cfg.family in BLOCK_FAMILIES
+
+
+def program(cfg):
+    """The context a step of `cfg`'s model runs in: `block_program()`
+    where it runs one (`runs_blocks`: a DeviceMesh and a family of
+    `BLOCK_FAMILIES`), else none. In a block program every input is this
+    rank's block: the parameters under their param specs, the batch's
+    rows (`rows`), a decode's caches under the param rules (every row;
+    written in place); and every output stays one: the logits (B/dp, S,
+    V/M) where the vocab splits over `model`, a prefill's caches (B/dp,
+    S/M, KVH, hd)."""
+    return block_program() if runs_blocks(cfg) else contextlib.nullcontext()
+
+
+@contextlib.contextmanager
+def block_program():
+    """Mark the current mesh context as running a block program (what
+    `shard_map`, `constrain` and the model's layers read)."""
+    with use_context(dataclasses.replace(current(), blocks=True)) as ctx:
+        yield ctx
+
+
+def in_blocks() -> bool:
+    ctx = current()
+    return ctx is not None and ctx.blocks
+
+
+def batch_axes() -> tuple:
+    """The mesh axes of the batch's activation rule on the mesh, in the
+    rule's order: a block program's loss sums over them (a batch that
+    does not split over some holds the same rows on their ranks, which
+    its mean counts alike)."""
+    ctx = current()
+    want = ctx.act_rules.get("batch") if ctx is not None else None
+    sizes = axis_sizes(ctx.mesh) if ctx is not None else {}
+    return tuple(a for a in _axes(want) if a in sizes) if want else ()
+
+
+def rows(x):
+    """This rank's rows (dim 0) of a whole batch tensor, or of every leaf
+    of a dict of them, split as the batch's activation spec resolves on
+    its size (`batch_axes_prefix`; JAX's order, the first axis major)."""
+    if isinstance(x, dict):
+        return {k: rows(v) for k, v in x.items()}
+    ax = batch_axes_prefix(x.shape[0])
+    return _block(x, P(ax)) if ax else x
+
+
+def relayout(x, src, dst):
+    """`x`, this rank's block under `src`, as its block under `dst` (two
+    specs of one tensor, single-axis entries): per mesh axis that moves,
+    an all-to-all (sharded on another dim), an all-gather (sharded no
+    more) or a cut (newly sharded). Differentiable: each step's
+    gradient is its transpose."""
+    def dims(spec):
+        out = {}
+        for d, ent in enumerate(spec):
+            if ent is not None:
+                if not isinstance(ent, str):
+                    raise NotImplementedError(f"relayout of {spec}")
+                out[ent] = d
+        return out
+    have, want = dims(src), dims(dst)
+    for a in axis_sizes(current().mesh):
+        i, j = have.get(a), want.get(a)
+        if i == j:
+            continue
+        if i is not None and j is not None:
+            x = all_to_all(x, a, j, i)
+        elif i is not None:
+            x = all_gather(x, a, i)
+        else:
+            n = x.shape[j] // axis_size(a)
+            x = x.narrow(j, axis_index(a) * n, n)
+    return x
+
+
+def reduce_replicas(grads, pspecs):
+    """Each leaf's gradient block summed over the axes its param spec
+    does not name (no graph): a block program's gradient of a block on
+    one rank holds that rank's share of it (the batch rows it saw, the
+    model rank's part of a replicated computation); the sum is the
+    block's gradient, the same on every replica."""
+    def red(g, spec):
+        ax = unnamed_axes(spec)
+        return _all_reduce(g, ax, "SUM") if ax else g
+    with torch.no_grad():
+        return tree.map(red, grads, pspecs)
+
+
+def leaf_specs(tree_, pspecs) -> list:
+    """`pspecs`' PartitionSpecs (a tree like `tree_`'s) in the order of
+    `tree.leaves(tree_)`."""
+    out = []
+    tree.map(lambda _, s: out.append(s), tree_, pspecs)
+    return out
+
+
+def param_pspecs(specs):
+    """A spec tree's resolved param PartitionSpecs (the active mesh's)."""
+    return mod.tree_map_specs(
+        lambda s: resolve_spec(s.axes, s.shape, "param"), specs)
 
 
 # --------------------------------------------------------------------------
@@ -692,8 +850,7 @@ def abstract_with_shardings(specs, default_dtype: str, *, whole=False,
     from repro_torch import device as tdevice
     dev = torch.device(device if device is not None
                        else tdevice.get_default())
-    pspecs = mod.tree_map_specs(
-        lambda s: resolve_spec(s.axes, s.shape, "param"), specs)
+    pspecs = param_pspecs(specs)
 
     def leaf(s, spec):
         shape = s.shape if whole else block_shape(s.shape, spec)

@@ -15,7 +15,8 @@ into the tensors it was given (the analogue of the reference's
 only while that leaf is updated, so a full-width model's update needs
 no second copy of its state. On a mesh the leaves are a rank's blocks,
 the moments cut by `opt_state_specs` as the parameters by their specs
-(`train_loop.shard_train_state`), and the clip's norm comes in whole.
+(`train_loop.shard_train_state`), and the clip's norm comes in whole
+(`global_norm` of the blocks with their specs, in a block program).
 """
 from __future__ import annotations
 
@@ -27,6 +28,7 @@ import torch
 from repro_torch import tree
 from repro_torch.models import module as mod
 from repro_torch.models.module import torch_dtype
+from repro_torch.parallel import sharding
 
 
 @dataclass(frozen=True)
@@ -71,8 +73,23 @@ def _schedule(step, opt_cfg: OptConfig):
     return opt_cfg.lr * warm
 
 
-def global_norm(tree_) -> torch.Tensor:
-    sq = sum(x.float().square().sum() for x in tree.leaves(tree_))
+def global_norm(tree_, pspecs=None) -> torch.Tensor:
+    """The gradient's global norm. With `pspecs` (a block program's param
+    specs) each leaf is a rank's block: its sum of squares is psummed
+    over the axes its spec names, once per set of them, so each leaf
+    counts once whatever its replicas."""
+    leaves = tree.leaves(tree_)
+    if pspecs is None:
+        return torch.sqrt(sum(x.float().square().sum() for x in leaves))
+    groups: dict = {}
+    for x, s in zip(leaves, sharding.leaf_specs(tree_, pspecs)):
+        named = tuple(a for a in sharding.axis_sizes(sharding.current().mesh)
+                      if a not in sharding.unnamed_axes(s))
+        groups.setdefault(named, []).append(x.float().square().sum())
+    sq = 0
+    for named, parts in groups.items():
+        part = torch.stack(parts).sum()
+        sq = sq + (sharding.psum(part, named) if named else part)
     return torch.sqrt(sq)
 
 

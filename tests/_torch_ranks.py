@@ -68,6 +68,16 @@ def _n(t):
     return t.detach().float().numpy().copy()
 
 
+def _whole_logits(lg, vocab: int, B: int):
+    """A block program's logits (B/dp, S, V/M or V) of a batch of B rows
+    gathered whole."""
+    from repro_torch.parallel import sharding
+    if lg.shape[-1] != vocab:
+        lg = sharding.all_gather(lg, "model", lg.ndim - 1)
+    ax = sharding.batch_axes_prefix(B)
+    return sharding.all_gather(lg, ax, 0) if ax else lg
+
+
 # -- slice 8a ------------------------------------------------------------------
 def shard_shapes(rank, payload):
     """The local shape DTensor gives this rank for each parameter leaf of
@@ -126,6 +136,21 @@ def _counting(names):
             counts[_n] += 1
             return _fn(*a, **kw)
         setattr(collectives, n, wrapped)
+    return counts
+
+
+def _count_block_decodes(counts):
+    """Wrap `collectives.blocks_decode` to count its calls into `counts`:
+    "blocks_decode/seq" where the cache's positions split over `model`
+    (its M > 1), else "blocks_decode/heads"; returns the counts."""
+    from repro_torch.parallel import collectives
+    fn = collectives.blocks_decode
+    counts.update({"blocks_decode/seq": 0, "blocks_decode/heads": 0})
+
+    def wrapped(*a, **kw):
+        counts["blocks_decode/seq" if a[6] > 1 else "blocks_decode/heads"] += 1
+        return fn(*a, **kw)
+    collectives.blocks_decode = wrapped
     return counts
 
 
@@ -192,16 +217,16 @@ def model_on_mesh(rank, payload):
     """Reduced gemma-2b on a (1, 8) (data, model) mesh, on the
     reference's parameters: `forward`, then `prefill` and decode steps
     on caches padded to payload max_seq (H 4 and KVH 1 over model = 8:
-    context parallelism and the sharded decode)."""
+    context parallelism and the sharded decode), each on this rank's
+    blocks (the block program), its outputs gathered whole."""
     from repro_torch import tree
     from repro_torch.configs.base import get_config, reduced
     from repro_torch.convert import params_from_numpy
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models.registry import build_model
     from repro_torch.parallel import sharding
-    from repro_torch.serve.kvcache import pad_caches
 
-    counts = _counting(("_context_parallel_attention", "_sharded_decode"))
+    counts = _count_block_decodes(_counting(("cp_block_attention",)))
     model = build_model(reduced(get_config("gemma-2b")))
     specs = model.param_specs()
     params = params_from_numpy(tree.unflatten(specs, [
@@ -211,19 +236,23 @@ def model_on_mesh(rank, payload):
     S, max_seq = toks.shape[1], int(payload["model/max_seq"])
     mesh = make_mesh((1, 8), ("data", "model"))
     out = {}
+    V, B = model.cfg.vocab_size, toks.shape[0]
     with sharding.use_mesh(mesh):
-        logits, _ = model.forward(params, toks)
-        out["model/forward"] = _n(logits)
-        logits, caches = model.prefill(params, toks)
-        out["model/prefill"] = _n(logits)
-        caches = pad_caches(caches, S, max_seq,
-                            model.cache_specs(toks.shape[0], max_seq))
+        # the block program: this rank's blocks in, its blocks out
+        params = sharding.shard_tree(params, specs)
+        rows = sharding.rows(toks)
+        logits, _ = model.forward(params, rows)
+        out["model/forward"] = _n(_whole_logits(logits, V, B))
+        logits, caches = model.prefill(params, rows)
+        out["model/prefill"] = _n(_whole_logits(logits, V, B))
+        caches = model.decode_caches(caches, B, S, max_seq)
         for i in range(steps.shape[0]):
-            pos = torch.full((toks.shape[0],), S + i, dtype=torch.int32)
-            logits, caches = model.decode_step(params, steps[i], caches, pos)
-            out[f"model/decode{i}"] = _n(logits)
-    out["model/counts"] = np.asarray([counts["_context_parallel_attention"],
-                                      counts["_sharded_decode"]])
+            pos = torch.full((rows.shape[0],), S + i, dtype=torch.int32)
+            logits, caches = model.decode_step(
+                params, sharding.rows(steps[i]), caches, pos)
+            out[f"model/decode{i}"] = _n(_whole_logits(logits, V, B))
+    out["model/counts"] = np.asarray([counts["cp_block_attention"],
+                                      counts["blocks_decode/seq"]])
     return out
 
 
@@ -328,13 +357,13 @@ def seq_parallel(rank, payload):
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import ffn, mla, transformer
     from repro_torch.parallel import collectives, sharding
-    from repro_torch.serve.kvcache import pad_caches
 
     counts = _count_calls(transformer, ("attn_apply_sp",))
     _count_calls(mla, ("mla_forward_sp",), counts)
     _count_calls(ffn, ("_ffn_apply_wg", "_ffn_apply_sp"), counts)
-    _count_calls(collectives, ("_head_tp_attention", "_heads_decode"),
-                 counts)
+    _count_calls(collectives, ("_head_tp_attention",
+                               "head_tp_block_attention"), counts)
+    _count_block_decodes(counts)
     m24 = make_mesh((2, 4), ("data", "model"))
     m42 = make_mesh((4, 2), ("data", "model"))
     out = {}
@@ -378,15 +407,19 @@ def seq_parallel(rank, payload):
         snap(f"tp/{lay}")
     toks, steps = _t(payload["sp/dec/toks"]), _t(payload["sp/dec/steps"])
     S, max_seq = toks.shape[1], int(payload["sp/dec/max_seq"])
+    V, B = cfg.vocab_size, toks.shape[0]
     with sharding.use_mesh(m42, decode_layout="heads"):
-        logits, caches = model.prefill(params, toks)
-        out["sp/dec/prefill"] = _n(logits)
-        caches = pad_caches(caches, S, max_seq,
-                            model.cache_specs(toks.shape[0], max_seq))
+        # the block program: this rank's blocks in, its blocks out
+        blocks = sharding.shard_tree(params, model.param_specs())
+        rows = sharding.rows(toks)
+        logits, caches = model.prefill(blocks, rows)
+        out["sp/dec/prefill"] = _n(_whole_logits(logits, V, B))
+        caches = model.decode_caches(caches, B, S, max_seq)
         for i in range(steps.shape[0]):
-            pos = torch.full((toks.shape[0],), S + i, dtype=torch.int32)
-            logits, caches = model.decode_step(params, steps[i], caches, pos)
-            out[f"sp/dec/decode{i}"] = _n(logits)
+            pos = torch.full((rows.shape[0],), S + i, dtype=torch.int32)
+            logits, caches = model.decode_step(
+                blocks, sharding.rows(steps[i]), caches, pos)
+            out[f"sp/dec/decode{i}"] = _n(_whole_logits(logits, V, B))
     snap("dec")
     out["sp/count_names"] = np.asarray(sorted(counts))
     return out
@@ -524,7 +557,8 @@ def mesh_train(rank, payload):
     batches, for each arch of payload["mt/archs"] (remat on for those of
     payload["mt/remat"]): the whole gradient of the first batch, two
     steps' losses and grad norms and the parameters after each; for
-    gemma-2b the whole gradient and a step at microbatches=2, and its
+    gemma-2b the whole gradient and a step at microbatches=2 on (1, 2, 4)
+    (two rows a rank), and its
     state after the two steps checkpointed on (2, 2, 2), restored on
     (1, 2, 4) and stepped once there and on (2, 2, 2) (the second
     moments after that step too)."""
@@ -561,10 +595,23 @@ def mesh_train(rank, payload):
         batches = [{k: _t(payload[f"{pre}batch{i}/{k}"]) for k in (
             "tokens", "labels", "embeddings")
             if f"{pre}batch{i}/{k}" in payload} for i in range(3)]
+        pspecs = model.param_specs()
         with sharding.use_mesh(m222):
+            # the block program takes this rank's blocks and rows and
+            # gives its gradient blocks, gathered whole here
+            blocks = sharding.runs_blocks(cfg)
+
+            def cut(p):
+                return sharding.shard_tree(p, pspecs) if blocks else p
+
+            def rows(b):
+                return sharding.rows(b) if blocks else b
+
+            def gathered(g):
+                return sharding.unshard_tree(g, pspecs) if blocks else g
             (loss, _), grads = train_loop.make_grads_fn(model, cfg)(
-                params(), batches[0])
-            put(pre + "grad/", grads)
+                cut(params()), rows(batches[0]))
+            put(pre + "grad/", gathered(grads))
             out[pre + "loss0"] = _n(loss)
             p0 = params()
             state = train_loop.shard_train_state(
@@ -575,7 +622,7 @@ def mesh_train(rank, payload):
             step = train_loop.jit_train_step(model, cfg, opt_cfg)
             losses, norms = [], []
             for i in range(2):
-                *state, m = step(*state, batches[i])
+                *state, m = step(*state, rows(batches[i]))
                 losses.append(float(m["loss"]))
                 norms.append(float(m["grad_norm"]))
                 whole = train_loop.unshard_train_state(model, opt_cfg,
@@ -586,23 +633,31 @@ def mesh_train(rank, payload):
             if arch != "gemma-2b":
                 continue
             p0 = params()
-            _, grads = train_loop.make_grads_fn(model, cfg, microbatches=2)(
-                p0, batches[0])
-            put(pre + "mb2grad/", grads)
-            mb = train_loop.jit_train_step(model, cfg, opt_cfg,
-                                           microbatches=2)
-            blocks = train_loop.shard_train_state(
-                model, opt_cfg, p0, optim.init_opt_state(p0, opt_cfg))
-            *blocks, m = mb(*blocks, batches[0])
-            out[pre + "mb2/loss"] = _n(m["loss"])
-            put(pre + "mb2/", train_loop.unshard_train_state(
-                model, opt_cfg, *blocks)[0])
+            try:        # one row a rank on (2, 2, 2): it splits no row
+                train_loop.make_grads_fn(model, cfg, microbatches=2)(
+                    cut(p0), rows(batches[0]))
+                out[pre + "mb2_refused"] = np.asarray(False)
+            except ValueError:
+                out[pre + "mb2_refused"] = np.asarray(True)
+            # on (1, 2, 4): two rows a rank, which its microbatches split
+            with sharding.use_mesh(m124):
+                _, grads = train_loop.make_grads_fn(
+                    model, cfg, microbatches=2)(cut(p0), rows(batches[0]))
+                put(pre + "mb2grad/", gathered(grads))
+                mb = train_loop.jit_train_step(model, cfg, opt_cfg,
+                                               microbatches=2)
+                mstate = train_loop.shard_train_state(
+                    model, opt_cfg, p0, optim.init_opt_state(p0, opt_cfg))
+                *mstate, m = mb(*mstate, rows(batches[0]))
+                out[pre + "mb2/loss"] = _n(m["loss"])
+                put(pre + "mb2/", train_loop.unshard_train_state(
+                    model, opt_cfg, *mstate)[0])
             specs = train_loop.state_specs(model, opt_cfg)
             ck = Checkpointer(str(payload["mt/ckpt_dir"]))
             ck.save(2, {"params": state[0], "opt": state[1]},
                     spec_tree=specs)
             ck.close()
-            *state, m = step(*state, batches[2])
+            *state, m = step(*state, rows(batches[2]))
             out[pre + "step3/loss"] = _n(m["loss"])
             p3, o3 = train_loop.unshard_train_state(model, opt_cfg, *state)
             put(pre + "step3/", p3)
@@ -616,7 +671,9 @@ def mesh_train(rank, payload):
             put(pre + "m124/restored/", train_loop.unshard_train_state(
                 model, opt_cfg, got["params"], got["opt"])[0])
             step = train_loop.jit_train_step(model, cfg, opt_cfg)
-            *state, m = step(got["params"], got["opt"], batches[2])
+            *state, m = step(got["params"], got["opt"],
+                             sharding.rows(batches[2]) if blocks
+                             else batches[2])
             out[pre + "m124/loss"] = _n(m["loss"])
             put(pre + "m124/step3/", train_loop.unshard_train_state(
                 model, opt_cfg, *state)[0])
@@ -689,7 +746,7 @@ def dryrun_cell(rank, payload):
             model, opt_cfg, params, optim.init_opt_state(params, opt_cfg))
         step = train_loop.jit_train_step(model, cfg, opt_cfg)
         with hlo_cost.Trace() as t:
-            step(*state, batch)
+            step(*state, sharding.rows(batch))       # the block program
     res = t.result()
     coll = res["collective"]
     ops = sorted(coll["counts"])
@@ -701,9 +758,169 @@ def dryrun_cell(rank, payload):
             "dr/flops": np.asarray(res["flops"])}
 
 
+# -- slice 15: the block program ---------------------------------------------
+def block_cfg(arch: str, kw_json: str):
+    """A reduced config with the fields of `kw_json` replaced."""
+    import dataclasses
+    import json
+
+    from repro_torch.configs.base import get_config, reduced
+    return dataclasses.replace(reduced(get_config(arch)),
+                               **json.loads(kw_json))
+
+
+def blocks(rank, payload):
+    """The dense decoders' block program on a (2, 2, 2) (pod, data,
+    model) mesh, for each case of payload["bl/cases"] (a reduced config
+    with fields replaced, on the conditioned copy of the reference's
+    parameters): the first batch's loss and this rank's gradient blocks
+    (and the gradient gathered whole), two `jit_train_step`s (the
+    parameters after each, gathered whole), the prefill's last logits and
+    caches and one decode step's logits (gathered whole); and the shapes
+    a rank's step holds: the residual stream entering each layer, the
+    FFN hidden and the logits; with Megatron-SP (a case's fourth field
+    "1") the SP bodies its steps called."""
+    from repro_torch import tree
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import ffn, transformer
+    from repro_torch.models.registry import build_model
+    from repro_torch.parallel import sharding
+    from repro_torch.train import optimizer as optim
+    from repro_torch.train import train_loop
+
+    mesh = make_mesh((2, 2, 2), ("pod", "data", "model"))
+    opt_cfg = optim.OptConfig(**{k: payload[f"bl/opt/{k}"].item() for k in (
+        "lr", "warmup_steps", "weight_decay")})
+    seen = {"residual": set(), "hidden": set()}
+    block_fn, hidden_fn = transformer.superblock_apply, ffn.hidden
+    sp_names = ("attn_apply_sp", "_ffn_apply_sp", "_ffn_apply_wg")
+    sp_fns = {n: getattr(transformer if n == "attn_apply_sp" else ffn, n)
+              for n in sp_names}
+    sp_calls = []
+
+    def sp_counted(name):
+        def call(*a, **kw):
+            if name not in sp_calls:
+                sp_calls.append(name)
+            return sp_fns[name](*a, **kw)
+        return call
+    transformer.attn_apply_sp = sp_counted("attn_apply_sp")
+    ffn._ffn_apply_sp = sp_counted("_ffn_apply_sp")
+    ffn._ffn_apply_wg = sp_counted("_ffn_apply_wg")
+
+    def residual(params, x, *a, **kw):
+        seen["residual"].add(tuple(x.shape))
+        return block_fn(params, x, *a, **kw)
+
+    def hidden(*a, **kw):
+        h = hidden_fn(*a, **kw)
+        seen["hidden"].add(tuple(h.shape))
+        return h
+    transformer.superblock_apply, ffn.hidden = residual, hidden
+    out = {}
+
+    def put(prefix, t):
+        out.update({prefix + k: _n(a) for k, a in tree.flatten_with_keys(t)})
+    try:
+        for case, arch, kw, sp in payload["bl/cases"].tolist():
+            cfg = block_cfg(arch, kw)
+            sp_calls.clear()
+            model = build_model(cfg)
+            specs = model.param_specs()
+            pre = f"bl/{case}/"
+            whole = _tree(payload, pre + "param/", specs)
+            batches = [{k: _t(payload[f"{pre}batch{i}/{k}"]) for k in (
+                "tokens", "labels", "embeddings")
+                if f"{pre}batch{i}/{k}" in payload} for i in range(2)]
+            B, S = batches[0]["tokens"].shape
+            V = cfg.vocab_size
+            with sharding.use_mesh(mesh, seq_parallel=sp == "1"):
+                assert sharding.runs_blocks(cfg)
+                params = sharding.shard_tree(whole, specs)
+                rows = [sharding.rows(b) for b in batches]
+                seen["residual"].clear()
+                seen["hidden"].clear()
+                (loss, _), grads = train_loop.make_grads_fn(model, cfg)(
+                    params, rows[0])
+                out[pre + "loss0"] = _n(loss)
+                put(pre + "gblock/", grads)
+                put(pre + "grad/", sharding.unshard_tree(grads, specs))
+                out[pre + "shapes/residual"] = np.asarray(
+                    sorted(seen["residual"]))
+                out[pre + "shapes/hidden"] = np.asarray(
+                    sorted(seen["hidden"]))
+                logits, _ = model.forward(params, rows[0]["tokens"],
+                                          embeddings=rows[0].get(
+                                              "embeddings"))
+                out[pre + "shapes/logits"] = np.asarray(logits.shape)
+                state = train_loop.shard_train_state(
+                    model, opt_cfg, whole, optim.init_opt_state(whole,
+                                                                opt_cfg))
+                step = train_loop.jit_train_step(model, cfg, opt_cfg)
+                losses, norms = [], []
+                for i in range(2):
+                    *state, m = step(*state, rows[i])
+                    losses.append(float(m["loss"]))
+                    norms.append(float(m["grad_norm"]))
+                    put(pre + f"step{i + 1}/", train_loop.unshard_train_state(
+                        model, opt_cfg, *state)[0])
+                out[pre + "losses"] = np.asarray(losses)
+                out[pre + "gnorms"] = np.asarray(norms)
+                logits, caches = model.prefill(
+                    params, rows[0]["tokens"],
+                    embeddings=rows[0].get("embeddings"))
+                out[pre + "prefill"] = _n(_whole_logits(logits, V, B))
+                max_seq = int(payload["bl/max_seq"])
+                dec = model.decode_caches(caches, B, S, max_seq)
+                put(pre + "cache/", tree.map(lambda a: a[:, :, :S],
+                                             sharding.unshard_tree(
+                                                 dec, model.cache_specs(
+                                                     B, max_seq))))
+                tok = sharding.rows(_t(payload[pre + "step_tokens"]))
+                pos = torch.full((tok.shape[0],), S, dtype=torch.int32)
+                logits, _ = model.decode_step(params, tok, dec, pos)
+                out[pre + "decode"] = _n(_whole_logits(logits, V, B))
+            out[pre + "sp_calls"] = np.asarray(sp_calls or [""])
+    finally:
+        transformer.superblock_apply, ffn.hidden = block_fn, hidden_fn
+        transformer.attn_apply_sp = sp_fns["attn_apply_sp"]
+        ffn._ffn_apply_sp = sp_fns["_ffn_apply_sp"]
+        ffn._ffn_apply_wg = sp_fns["_ffn_apply_wg"]
+    return out
+
+
+def phase16(rank, payload):
+    """`chip_smoke.py`'s phase 16 at CPU size (`BLOCKS_CPU`) on real
+    ranks: each arch's inputs (`blocks_inputs`, float32) through
+    `blocks_prep` and `blocks_steps` on a (data 2, model 4) mesh of the 8
+    gloo ranks; this rank's outputs (its blocks)."""
+    import sys
+    from pathlib import Path
+
+    from repro_torch import tree
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.parallel import sharding
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    import chip_smoke as cs
+    Z = cs.BLOCKS_CPU
+    dev = torch.device("cpu")
+    out = {}
+    for arch, kw in Z.archs:
+        cfg = cs.blocks_cfg(arch, kw, Z, "float32")
+        model, whole, batch, tokens = cs.blocks_inputs(torch, cfg, Z, dev)
+        with sharding.use_mesh(make_mesh((Z.data, Z.model), cs.BLOCK_AXES)):
+            prep = cs.blocks_prep(torch, model, whole, batch, tokens, Z,
+                                  decode=True)
+            got = cs.blocks_steps(torch, model, cfg, prep, Z)
+        out.update({f"p16/{arch}/{k}": _n(a)
+                    for k, a in tree.flatten_with_keys(got)})
+    return out
+
+
 JOBS = {"shard_shapes": shard_shapes, "compress": compress,
         "context_parallel": context_parallel,
         "model_on_mesh": model_on_mesh, "expert_parallel": expert_parallel,
         "seq_parallel": seq_parallel, "wire": wire,
         "mesh_grads": mesh_grads, "mesh_train": mesh_train,
-        "mesh_cli": mesh_cli, "dryrun_cell": dryrun_cell}
+        "mesh_cli": mesh_cli, "dryrun_cell": dryrun_cell,
+        "blocks": blocks, "phase16": phase16}

@@ -14,11 +14,15 @@ data, model) mesh, three ways at once:
     counters.
 
 The trace's `argument_bytes` (this rank's blocks of the parameters and
-moments, and the whole batch: the port's global view) is within 1 % of
-the reference's; its collectives (wire bytes, and counts and bytes by
-op) and FLOPs are equal to what rank 0 of the gloo run dispatched, and
-every gloo rank dispatched the same: the fake trace counts what the
-real program does."""
+moments, and its rows of the batch: gemma-2b runs the block program) is
+within 1 % of the reference's; its collectives (wire bytes, and counts
+and bytes by op) and FLOPs are equal to what rank 0 of the gloo run
+dispatched, and every gloo rank dispatched the same: the fake trace
+counts what the real program does. The train, prefill (4 x 32) and
+decode (4 slots of 32) cells each cost what the reference's compiled
+cell does per device: FLOPs within 5 % (less the flash recompute in
+train), arguments within 1 %, temp bytes within 2× in train and
+prefill."""
 import json
 import os
 import subprocess
@@ -34,6 +38,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORLD = 8
 B, S = 4, 32
 ARG_REL = 0.01
+FLOP_REL = 0.05
+TEMP_X = 2.0
 
 FAKE = f"""
 import json
@@ -49,13 +55,16 @@ device.set_default("cpu")
 dist.init_process_group("fake", rank=0, world_size=8, store=FakeStore())
 mesh = make_mesh((2, 2, 2), ("pod", "data", "model"))
 cfg = reduced(get_config("gemma-2b"))
-with sharding.use_mesh(mesh), FakeTensorMode(allow_non_fake_inputs=True):
-    _, step, args = dryrun.cell_step(cfg, ShapeConfig("t", {S}, {B}, "train"),
-                                     dict(dryrun.FLAGS), "cpu")
-    res = dryrun.trace(step, args)
+out = {{}}
+for kind in ("train", "prefill", "decode"):
+    with sharding.use_mesh(mesh), FakeTensorMode(allow_non_fake_inputs=True):
+        _, step, args = dryrun.cell_step(cfg, ShapeConfig("t", {S}, {B}, kind),
+                                         dict(dryrun.FLAGS), "cpu")
+        res = dryrun.trace(step, args)
+    out[kind] = {{k: res[k] for k in ("flops", "flash_flops", "collective",
+                                      "memory")}}
 dist.destroy_process_group()
-print(json.dumps({{"flops": res["flops"], "collective": res["collective"],
-                   "memory": res["memory"]}}))
+print(json.dumps(out))
 """
 
 REFERENCE = f"""
@@ -70,21 +79,34 @@ from repro.models.registry import build_model, input_specs
 from repro.parallel import sharding
 from repro.train import optimizer as optim
 from repro.train.train_loop import make_train_step
+from repro.utils import hlo_cost
 cfg = reduced(get_config("gemma-2b"))
 mesh = make_mesh((2, 2, 2), ("pod", "data", "model"))
+out = {{}}
 with sharding.use_mesh(mesh):
     model = build_model(cfg)
     specs = model.param_specs()
     params = sharding.abstract_with_shardings(specs, cfg.dtype)
-    ins = input_specs(cfg, ShapeConfig("t", {S}, {B}, "train"))
-    opt_cfg = optim.OptConfig()
-    opt = sharding.abstract_with_shardings(
-        optim.opt_state_specs(specs, opt_cfg), "float32")
-    step = make_train_step(model, cfg, opt_cfg)
-    compiled = jax.jit(step, donate_argnums=(0, 1)).lower(
-        params, opt, dict(ins)).compile()
-print(json.dumps({{"argument_bytes":
-                   compiled.memory_analysis().argument_size_in_bytes}}))
+    for kind in ("train", "prefill", "decode"):
+        ins = input_specs(cfg, ShapeConfig("t", {S}, {B}, kind))
+        if kind == "train":
+            opt_cfg = optim.OptConfig()
+            opt = sharding.abstract_with_shardings(
+                optim.opt_state_specs(specs, opt_cfg), "float32")
+            step = make_train_step(model, cfg, opt_cfg)
+            compiled = jax.jit(step, donate_argnums=(0, 1)).lower(
+                params, opt, dict(ins)).compile()
+        elif kind == "prefill":
+            compiled = jax.jit(lambda p, b: model.prefill(
+                p, b["tokens"])).lower(params, ins).compile()
+        else:
+            compiled = jax.jit(model.decode_step, donate_argnums=(2,)).lower(
+                params, ins["tokens"], ins["cache"], ins["pos"]).compile()
+        mem = compiled.memory_analysis()
+        out[kind] = {{"argument_bytes": mem.argument_size_in_bytes,
+                      "temp_bytes": mem.temp_size_in_bytes,
+                      "flops": hlo_cost.analyze(compiled.as_text())["flops"]}}
+print(json.dumps(out))
 """
 
 
@@ -120,6 +142,7 @@ def runs(tmp_path_factory):
 
 def test_argument_bytes_are_the_reference_s_per_device_arguments(runs):
     fake, ref, _ = runs
+    fake, ref = fake["train"], ref["train"]
     got, want = fake["memory"]["argument_bytes"], ref["argument_bytes"]
     print("argument bytes: port", got, "reference", want)
     assert abs(got - want) <= ARG_REL * want
@@ -127,8 +150,32 @@ def test_argument_bytes_are_the_reference_s_per_device_arguments(runs):
         - 1 and fake["memory"]["temp_bytes"] > 0
 
 
+@pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
+def test_block_program_cell_costs_the_reference_s_per_device(runs, kind):
+    """The block program traced (this rank's blocks, its rows; decode
+    on its param-rule block of the caches) against the reference's
+    compiled cell: `flops_dev`, less the recompute in the train cell
+    (one flash forward a layer: the port's flash backward recomputes it),
+    within FLOP_REL; the arguments within ARG_REL; the temp bytes within
+    TEMP_X of the reference's in train and prefill (a decode's writes its
+    caches in place and is only printed)."""
+    fake, ref, _ = runs
+    fake, ref = fake[kind], ref[kind]
+    flops = fake["flops"] - (fake["flash_flops"] if kind == "train" else 0)
+    mem = fake["memory"]
+    print(kind, "flops", flops, ref["flops"], "args", mem["argument_bytes"],
+          ref["argument_bytes"], "temp", mem["temp_bytes"],
+          ref["temp_bytes"])
+    assert abs(flops - ref["flops"]) <= FLOP_REL * ref["flops"]
+    assert abs(mem["argument_bytes"] - ref["argument_bytes"]) <= \
+        ARG_REL * ref["argument_bytes"]
+    if kind != "decode":
+        assert mem["temp_bytes"] <= TEMP_X * ref["temp_bytes"]
+
+
 def test_fake_trace_counts_what_the_gloo_ranks_moved(runs):
     fake, _, ranks = runs
+    fake = fake["train"]
     coll = fake["collective"]
     ops = sorted(coll["counts"])
     assert ops and coll["wire_bytes"] > 0

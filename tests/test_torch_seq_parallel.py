@@ -160,7 +160,8 @@ np.savez(sys.argv[1], **{k: np.asarray(a) for k, a in out.items()})
 
 # the port's calls on each run: sorted counter names
 COUNTS = ("_ffn_apply_sp", "_ffn_apply_wg", "_head_tp_attention",
-          "_heads_decode", "attn_apply_sp", "mla_forward_sp")
+          "attn_apply_sp", "blocks_decode/heads", "blocks_decode/seq",
+          "head_tp_block_attention", "mla_forward_sp")
 
 
 @pytest.fixture(scope="module")
@@ -273,8 +274,11 @@ def test_heads_decode_layout_matches_the_reference(ranks):
     for name in ("prefill", "decode0", "decode1", "decode2"):
         _held(got, f"sp/dec/{name}", ref[f"dec/{name}"], TOL, name)
     c, prev = _counts(got[0], "dec"), _counts(got[0], "tp/repeated")
-    assert c["_heads_decode"] - prev["_heads_decode"] == 3 * layers
-    assert c["_head_tp_attention"] - prev["_head_tp_attention"] == layers
+    assert (c["blocks_decode/heads"] - prev["blocks_decode/heads"]
+            == 3 * layers)
+    assert c["blocks_decode/seq"] == prev["blocks_decode/seq"]
+    assert (c["head_tp_block_attention"] - prev["head_tp_block_attention"]
+            == layers)
 
 
 def test_use_sp_and_heads_layout_match_the_reference_on_production_meshes():
