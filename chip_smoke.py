@@ -221,16 +221,23 @@ Phases (any failure exits non-zero):
      launched in the real run and not in the trace; each step's card
      time (CUDA events, median of Z.reps) against its H100 roofline
      (`utils.roofline`, its bytes from `utils.costmodel`);
- 16. the dense decoders' block program rank by rank on a (data 2, model
-     16) grid: gemma-2b (context parallelism) and codeqwen1.5-7b
-     (grouped head-TP) at full width, depth 2, 2 x 4096 tokens, the 32
-     ranks' programs in turns (`parallel.turns`: each runs to its next
-     collective, the collectives as stacked tensor ops): one train step
-     (the vocab-parallel loss, the FSDP gathers, every gradient block),
-     one prefill and one decode step on the prefill's caches; in float32
-     everything assembled within SP_HOLD of the same steps unsharded, in
-     bf16 each rank's device ms (median, slowest) beside the unsharded
-     step's, flash counted on the path "blocks".
+ 16. the block program rank by rank on a (data 2, model 16) grid:
+     gemma-2b (context parallelism), codeqwen1.5-7b (grouped head-TP)
+     and granite-moe-1b-a400m (repeated head-TP, 32 experts) at full
+     width, depth 2, and deepseek-v3-671b (MLA, three dense_big layers
+     and one MoE layer of 256 experts, no MTP head; prefill and decode,
+     Megatron-SP, fsdp off, every rank's blocks views of the whole
+     parameters), 2 x 4096 tokens, the 32 ranks' programs in turns
+     (`parallel.turns`: each runs to its next collective, the
+     collectives as stacked tensor ops): one train step (the
+     vocab-parallel loss, the FSDP gathers, every gradient block), one
+     prefill and one decode step on the prefill's caches; in float32
+     everything assembled within SP_HOLD of the same steps unsharded
+     (an MoE on a copy whose router spreads its tokens, `routed`, at a
+     capacity factor where none of its assignments drops), in bf16 each
+     rank's device ms (median, slowest) beside the unsharded step's and
+     an MoE's drop share at its config's capacity factor, flash counted
+     on the path "blocks".
 Phase 2 also holds flash_attention (its TMA/wgmma entry) and
 flash_attention_generic (its mma.sync entry) against their plain version
 at every prefill shape the main paths launch, FLASH_SHAPES: phases 6
@@ -262,6 +269,7 @@ with a row per kernel, and `{"ok": true, "device": {...}}`.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -2730,12 +2738,13 @@ FAMILIES = FamilySizes(archs=("granite-moe-1b-a400m", "recurrentgemma-2b",
                               "deepseek-v3-671b"),
                        reduce=False, max_batch=4, max_seq=4096, page=16,
                        prompts=SERVE.prompts, new=24, pd_batch=2,
-                       pd_prompt=1024, pd_steps=16, pd_seq=2048, reps=2,
+                       pd_prompt=1024, pd_steps=16, pd_seq=2048, reps=1,
                        seed=0, layers=(("deepseek-v3-671b", 4),),
                        mtp_len=512)
-# (24 new tokens and 2 timing repetitions, down from 32 and 3, since a
+# (24 new tokens and 1 timing repetition, down from 32 and 3, since a
 # full run passed 900 s of its 1200 s limit on a slow host, phase 10
-# taking 537 s of it)
+# taking 537 s of it; the second repetition went when phase 16 took on
+# the MoE configs)
 # phase 10's main paths, by arch: the names of their rows in the kernels
 # line's launches_by_path
 FAMILY_PATH = {"granite-moe-1b-a400m": "moe", "recurrentgemma-2b": "hybrid",
@@ -2911,8 +2920,8 @@ def batch_witness(torch, model, params, prompt, toks, max_seq, dev,
                 hid.append(out[0][0, -1].float())
             return out
 
-        def route(p, x, c):
-            out = route0(p, x, c)
+        def route(p, x, c, **kw):
+            out = route0(p, x, c, **kw)
             if x.shape[-2] == 1:                    # decode steps only
                 lg = x[0, -1].float() @ p["router"]["w"]
                 sel = (torch.sigmoid(lg) + p["router"]["bias"]
@@ -5179,15 +5188,21 @@ def conditioned(params, cfg):
     a float32 ulp of its parameters moves whisper-base's logits by 1.05
     of scale (on the CPU, where this copy moves them by ~5e-7).
     Different arithmetic for one function (decode against forward, two
-    microbatches against one) can agree only on such a copy."""
+    microbatches against one) can agree only on such a copy. MLA's
+    query and key up-projections, (in, heads, dim) drawn at 1/sqrt(heads)
+    too, are scaled to the fan-in of their input dim (the q-lora, the
+    kv-lora or d_model)."""
     from repro_torch import tree
     import re
     qk = re.compile(r"(^|/)x?attn/w[qk]/w$")
+    mla_qk = re.compile(r"(^|/)mla/w_(uq|uk|q)$")
     emb = re.compile(r"(^|/)(out_)?embed/table$")
 
     def scale(k, a):
         if qk.search(k):
             return a * math.sqrt(cfg.n_heads / cfg.d_model)
+        if mla_qk.search(k):
+            return a * math.sqrt(cfg.n_heads / a.shape[-3])
         if emb.search(k):
             return a / math.sqrt(cfg.d_model)
         return a
@@ -6208,64 +6223,180 @@ def phase_dryrun(torch, np, dev, Z, T) -> dict:
 class BlockSizes:
     archs: tuple        # (arch, ((field, value), ...) replaced) each
     reduce: bool        # reduced() widths (the CPU test), else full width
-    layers: int         # the depth cut
+    layers: int         # the depth cut (a field of an arch's own wins)
     data: int           # the (data, model) grid
     model: int
     batch: int          # rows of the train step and the prefill
     seq: int            # their tokens a row (the decode's cache: + model)
     reps: int           # timed runs of each bf16 step (their median)
+    # archs whose float32 tree nearly fills the card (deepseek-v3's 56
+    # GiB): prefill and decode only (float32 gradients would not fit;
+    # the train step is held on the CPU's gloo ranks); fsdp off, every
+    # rank's blocks views of the whole tree (no rank gathers a copy: the
+    # card holds the 32 ranks at once); Megatron-SP (a 16th of each
+    # rank's float32 stream)
+    lean: tuple = ()
 
 
 # gemma-2b (H 8 / KVH 1 over model 16: context parallelism) and
-# codeqwen1.5-7b (KVH 32: grouped head-TP), full width, depth 2
-BLOCKS = BlockSizes(archs=(("gemma-2b", ()), ("codeqwen1.5-7b", ())),
+# codeqwen1.5-7b (KVH 32: grouped head-TP), full width, depth 2; the MoE
+# family: granite-moe-1b-a400m (H 16 / KVH 8: repeated head-TP, 32
+# experts over model 16), depth 2, and deepseek-v3-671b (MLA, 8 heads a
+# rank; three dense_big layers, then one MoE layer of 256 experts),
+# depth 4 with no MTP head, lean (prefill and decode only, fsdp off,
+# Megatron-SP); both MoE configs on the routed copy (`routed`)
+BLOCKS = BlockSizes(archs=(("gemma-2b", ()), ("codeqwen1.5-7b", ()),
+                           ("granite-moe-1b-a400m", ()),
+                           ("deepseek-v3-671b", (("n_layers", 4),
+                                                 ("mtp_depth", 0)))),
                     reduce=False, layers=2, data=2, model=16, batch=2,
-                    seq=4096, reps=1)
+                    seq=4096, reps=1, lean=("deepseek-v3-671b",))
 # at CPU size, on the 8 gloo ranks' grid: gemma-2b at 3 heads (context
-# parallelism over model 4) and codeqwen1.5-7b at 4 kv heads (grouped)
+# parallelism over model 4) and codeqwen1.5-7b at 4 kv heads (grouped);
+# reduced granite-moe (4 experts) and deepseek-v3 (MLA, one dense_big
+# layer, then MoE, no MTP head as on the card), at 4 heads over model 4
 BLOCKS_CPU = BlockSizes(archs=(("gemma-2b", (("n_heads", 3),)),
-                               ("codeqwen1.5-7b", (("n_kv_heads", 4),))),
+                               ("codeqwen1.5-7b", (("n_kv_heads", 4),)),
+                               ("granite-moe-1b-a400m", ()),
+                               ("deepseek-v3-671b", (("n_layers", 3),
+                                                     ("mtp_depth", 0)))),
                         reduce=True, layers=2, data=2, model=4, batch=2,
                         seq=16, reps=1)
 BLOCK_AXES = ("data", "model")
+# a hold's capacity: the most assignments one rank's block of the tokens
+# sends one expert, plus this many slots (a sharded step's float32
+# rounding may turn a router's near tie); one, as deepseek-v3's float32
+# hold fills the card (each slot an expert of every rank: 32 x 256 x
+# 7168 float32, 224 MiB, twice at an all-to-all in turns)
+HOLD_SLOTS = 1
 
 
 def blocks_cfg(arch: str, kw: tuple, Z, dtype: str):
-    """Phase 16's config of `arch`: its depth cut to Z.layers, the
-    fields of `kw` replaced, in `dtype`."""
+    """Phase 16's config of `arch`: its depth cut to Z.layers (or its
+    own), the fields of `kw` replaced, in `dtype`."""
     from repro_torch.configs.base import get_config, reduced
     cfg = reduced(get_config(arch)) if Z.reduce else get_config(arch)
-    return dataclasses.replace(cfg, n_layers=Z.layers, dtype=dtype,
-                               **dict(kw))
+    return dataclasses.replace(cfg, **dict(dict(n_layers=Z.layers,
+                                                dtype=dtype), **dict(kw)))
+
+
+def blocks_steps_of(arch: str, Z) -> tuple:
+    """The steps phase 16 runs for `arch`."""
+    return (("prefill", "decode") if arch in Z.lean
+            else ("train", "prefill", "decode"))
+
+
+def routed(params, cfg):
+    """The conditioned copy `params` of an MoE made to route each token
+    by its own stream, as a trained router spreads its tokens: the value
+    and out projections at their fan-in too (drawn at 1/sqrt(kv heads)
+    and 1/sqrt(head_dim), they make the attention's output sqrt(D / KVH)
+    and sqrt(H) times the stream's scale), and the input embedding table
+    back at its drawn scale 1; a table tied to the logits keeps them at
+    the conditioned copy's scale through the final norm's, 1/sqrt(D).
+    On the conditioned copy alone a block's attention outputs, near one
+    mean of its values, outweigh every token's own part of the stream,
+    and the random router sends the block's tokens to the same experts
+    (`tools/blocks/probe.py --routing`)."""
+    from repro_torch import tree
+    import re
+    v = re.compile(r"(^|/)(attn/wv/w|mla/w_uv)$")
+    o = re.compile(r"(^|/)(attn/wo/w|mla/w_o)$")
+
+    def scale(k, a):
+        if v.search(k):                   # (..., in, kv heads, dim)
+            return a * math.sqrt(a.shape[-2] / a.shape[-3])
+        if o.search(k):                   # (..., heads, dim, D)
+            return a / math.sqrt(a.shape[-3])
+        if k == "embed/table":
+            return a * math.sqrt(cfg.d_model)
+        if k == "final_norm/scale" and cfg.tie_embeddings:
+            return a / math.sqrt(cfg.d_model)
+        return a
+    return tree.unflatten(params, [scale(k, a) for k, a in
+                                   tree.flatten_with_keys(params)])
 
 
 def blocks_inputs(torch, cfg, Z, dev) -> tuple:
-    """(model, the conditioned seeded parameters whole, the batch whole,
-    the decode step's tokens) of phase 16."""
+    """(model, the conditioned seeded parameters whole, routed for an
+    MoE (`routed`), the batch whole, the decode step's tokens) of phase
+    16."""
     from repro_torch.launch import train as launch_train
     from repro_torch.models.registry import build_model
     model = build_model(cfg)
     gen = torch.Generator(device=dev).manual_seed(0)
     params = conditioned(model.init(gen, device=dev), cfg)
+    if cfg.moe is not None:
+        params = routed(params, cfg)
     batch = launch_train.make_batch_fn(cfg, Z.batch, Z.seq, device=dev)(0)
     tokens = torch.randint(0, cfg.vocab_size, (Z.batch, 1), generator=gen,
                            device=dev, dtype=torch.int32)
     return model, params, batch, tokens
 
 
-def blocks_prep(torch, model, whole, batch, tokens, Z, decode=False):
+def blocks_prep(torch, model, whole, batch, tokens, Z, decode=False,
+                views=False):
     """A rank's inputs of phase 16 on the mesh in use: its blocks of
-    `whole`, its rows of the batch and of the decode's tokens; with
-    `decode`, its decode caches (the prefill's, `decode_caches`: its
-    param-rule block of the caches padded to Z.seq + Z.model)."""
+    `whole` (views of it with `views`), its rows of the batch and of the
+    decode's tokens; with `decode`, its decode caches (the prefill's,
+    `decode_caches`: its param-rule block of the caches padded to Z.seq
+    + Z.model)."""
     from repro_torch.parallel import sharding
-    prep = dict(params=sharding.shard_tree(whole, model.param_specs()),
+    prep = dict(params=sharding.shard_tree(whole, model.param_specs(),
+                                           copy=not views),
                 rows=sharding.rows(batch), tokens=sharding.rows(tokens))
     if decode:
         _, caches = model.prefill(prep["params"], prep["rows"]["tokens"])
         prep["dec"] = model.decode_caches(caches, Z.batch, Z.seq,
                                           Z.seq + Z.model)
     return prep
+
+
+@contextlib.contextmanager
+def blocks_moe_watch(torch):
+    """Within: every `moe.route`'s expert ids (`routes`) and every
+    dispatch's dropped real assignments and real assignments (`drops`,
+    `kept`; a replicated rank's dummy expert not counted)."""
+    from repro_torch.models import moe
+    route, disp = moe.route, moe._dispatch_indices
+    seen = dict(routes=[], drops=0, total=0)
+
+    def routed(*a, **kw):
+        out = route(*a, **kw)
+        seen["routes"].append(out[1].detach())
+        return out
+
+    def dispatched(idx, w, E, C):
+        slot, keep = disp(idx, w, E, C)
+        real = idx < E - 1
+        seen["drops"] += int((~keep & real).sum())
+        seen["total"] += int(real.sum())
+        return slot, keep
+    moe.route, moe._dispatch_indices = routed, dispatched
+    try:
+        yield seen
+    finally:
+        moe.route, moe._dispatch_indices = route, disp
+
+
+def blocks_hold_cf(torch, cfg, routes: list, Z) -> float:
+    """The capacity factor at which no assignment of these routings
+    drops on the (Z.data, Z.model) grid: the largest count one rank's
+    tokens (a row's S/M positions; a decode's row) send one expert, plus
+    HOLD_SLOTS, as a factor of the rank's tokens' k assignments over E
+    experts."""
+    E, k = cfg.moe.n_experts, cfg.moe.top_k
+    need, tokens = 0, 1
+    for idx in routes:
+        B, S = idx.shape[:2]
+        b = B // Z.data if B % Z.data == 0 else B
+        n = S // Z.model if S % Z.model == 0 else S
+        for i in range(0, B, b):
+            for j in range(0, S, n):
+                blk = idx[i:i + b, j:j + n].reshape(-1).long()
+                need = max(need, int(torch.bincount(blk, minlength=E).max()))
+                tokens = max(tokens, b * n)
+    return (need + HOLD_SLOTS) * E / (tokens * k)
 
 
 def blocks_step(torch, model, cfg, prep, Z, step: str):
@@ -6299,10 +6430,16 @@ def blocks_whole(torch, model, whole, batch, tokens, Z) -> dict:
                     Z.seq + Z.model))
 
 
-def blocks_steps(torch, model, cfg, prep, Z) -> dict:
-    """Every step of `blocks_step` on `prep`."""
+def blocks_steps(torch, model, cfg, prep, Z, steps=("train", "prefill",
+                                                     "decode")) -> dict:
+    """The `steps` of `blocks_step` on `prep`. Where `prep` has no decode
+    caches the decode takes its own prefill's (`decode_caches`), made
+    after it, so that no rank holds them through its prefill."""
     out = {}
-    for step in ("train", "prefill", "decode"):
+    for step in steps:
+        if step == "decode" and "dec" not in prep:
+            prep = dict(prep, dec=model.decode_caches(
+                out["caches"], Z.batch, Z.seq, Z.seq + Z.model))
         out.update(blocks_step(torch, model, cfg, prep, Z, step))
     return out
 
@@ -6366,13 +6503,15 @@ def blocks_hold(torch, ranks: list, want: dict, model, cfg, Z) -> dict:
     from repro_torch import tree
     specs = blocks_specs(model, cfg, Z)
     errs, replicas = {}, 0.0
-    rel = float((ranks[0]["loss"] - want["loss"]).abs()
-                / want["loss"].abs())
-    errs["loss"] = rel
-    for r in ranks:
-        check(float(r["loss"]) == float(ranks[0]["loss"]),
-              "phase 16: the loss differs across ranks")
+    if "loss" in want:
+        errs["loss"] = float((ranks[0]["loss"] - want["loss"]).abs()
+                             / want["loss"].abs())
+        for r in ranks:
+            check(float(r["loss"]) == float(ranks[0]["loss"]),
+                  "phase 16: the loss differs across ranks")
     for name in ("grads", "prefill", "caches", "decode"):
+        if name not in want:
+            continue
         spec, shape = specs[name]
         if name in ("prefill", "decode"):
             leaves = [(name, spec, shape, [r[name] for r in ranks],
@@ -6403,21 +6542,48 @@ def _leaf_list(tree_, like) -> list:
 
 
 def phase_blocks(torch, np, dev, Z, T) -> dict:
-    """Phase 16: the dense decoders' block program on the card, rank by
-    rank. For each arch of Z.archs, depth Z.layers at full width, on a
+    """Phase 16: the block program on the card, rank by rank. For each
+    arch of Z.archs, at full width and depth Z.layers (or its own), on a
     (Z.data, Z.model) (data, model) grid: the grid's ranks run
-    `blocks_step` on their `blocks_prep` inputs in turns (`parallel.turns.Turns`: each rank's program
-    runs to its next collective, the collectives as stacked tensor ops).
-    (a) In float32 on the conditioned copy: the loss, every gradient
-    block, the prefill's logits and caches and the decode step's logits,
-    assembled, within SP_HOLD of their scale of the same steps run
-    unsharded; the ranks holding one block alike. (b)
-    In bf16, the counted main path (path "blocks"): each step timed a
-    rank at a time on CUDA events (its device ms between collectives;
-    median of Z.reps runs after a warm-up), median and slowest rank,
-    beside the unsharded step; flash launched by every rank once a layer
-    in the prefill and twice in the train step (remat), at the per-rank
-    shapes phases 12-13 hold and time."""
+    `blocks_step` on their `blocks_prep` inputs in turns
+    (`parallel.turns.Turns`: each rank's program runs to its next
+    collective, the collectives as stacked tensor ops); an arch of
+    Z.lean runs prefill and decode only, with fsdp=False, its blocks
+    views of the whole parameters, and Megatron-SP. (a) In
+    float32 on the conditioned copy (an MoE's routed, `routed`): the
+    loss, every gradient block, the prefill's logits and caches and the
+    decode step's logits, assembled, within SP_HOLD of their scale of
+    the same steps run unsharded; the ranks holding one block alike. An
+    MoE holds at a capacity factor at which none of the unsharded steps'
+    routings drops an assignment (`blocks_hold_cf`), and its block
+    program must drop none: the unsharded `_moe_local`, with no
+    capacity, computes the same function. (b) In bf16, at the config's
+    capacity factor (its drop share printed), the counted main path
+    (path "blocks"): each step timed a rank at a time on CUDA events
+    (its device ms between collectives; median of Z.reps runs after a
+    warm-up), median and slowest rank, beside the unsharded step;
+    flash launched by every rank once a layer in the prefill and twice
+    in the train step (remat), at the per-rank shapes phases 12-13 hold
+    and time, on the TMA entry alone. On the card the allocator's
+    segments grow in place (`expandable_segments`) for the phase:
+    deepseek-v3's 32 float32 ranks fill the card, and the gaps between
+    fixed segments would leave them no room."""
+    if dev.type != "cuda":
+        return _phase_blocks(torch, np, dev, Z, T)
+    settings = getattr(torch._C, "_accelerator_setAllocatorSettings",
+                       None) or torch.cuda.memory._set_allocator_settings
+    free_device_memory(torch)
+    settings("expandable_segments:True")
+    try:
+        return _phase_blocks(torch, np, dev, Z, T)
+    finally:
+        free_device_memory(torch)
+        settings("expandable_segments:False")
+
+
+def _phase_blocks(torch, np, dev, Z, T) -> dict:
+    """`phase_blocks` on the allocator it sets."""
+
     from repro_torch.kernels import _build
     from repro_torch.parallel import collectives
     from repro_torch.parallel.turns import Turns
@@ -6425,23 +6591,42 @@ def phase_blocks(torch, np, dev, Z, T) -> dict:
     from repro_torch.parallel import sharding
     cuda = dev.type == "cuda"
     N = Z.data * Z.model
+    grid = (Z.data, Z.model)
     launches, flash_by_shape, out = {}, {}, {}
     for arch, kw in Z.archs:
         res = {}
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        steps = blocks_steps_of(arch, Z)
+        lean = arch in Z.lean
+        mesh_kw = dict(fsdp=not lean, seq_parallel=lean)
         # (a) float32: the block program held against the unsharded steps
         cfg = blocks_cfg(arch, kw, Z, "float32")
         model, whole, batch, tokens = blocks_inputs(torch, cfg, Z, dev)
-        want = blocks_steps(torch, model, cfg, blocks_whole(
-            torch, model, whole, batch, tokens, Z), Z)
-        preps = Turns((Z.data, Z.model), BLOCK_AXES).run(
-            lambda r: blocks_prep(torch, model, whole, batch, tokens, Z,
-                                  decode=True))
-        turns = Turns((Z.data, Z.model), BLOCK_AXES)
-        ranks = turns.run(lambda r: blocks_steps(torch, model, cfg,
-                                                 preps[r], Z))
+        with blocks_moe_watch(torch) as seen:
+            want = blocks_steps(torch, model, cfg, blocks_whole(
+                torch, model, whole, batch, tokens, Z), Z, steps)
+        hold_kw = dict(mesh_kw)
+        if cfg.moe is not None:
+            hold_kw["capacity_factor"] = blocks_hold_cf(torch, cfg,
+                                                        seen["routes"], Z)
+        with blocks_moe_watch(torch) as seen:
+            turns = Turns(grid, BLOCK_AXES, **hold_kw)
+            ranks = turns.run(lambda r: blocks_steps(
+                torch, model, cfg, blocks_prep(torch, model, whole, batch,
+                                               tokens, Z, views=lean),
+                Z, steps))
         hold = blocks_hold(torch, ranks, want, model, cfg, Z)
-        del ranks, want, preps
-        res.update(hold=hold, collectives=turns.collectives)
+        del ranks, want
+        res.update(hold=hold, collectives=turns.collectives, steps=steps,
+                   fsdp=not lean)
+        if cfg.moe is not None:
+            cf = hold_kw.get("capacity_factor", cfg.moe.capacity_factor)
+            res.update(hold_capacity_factor=cf, hold_drops=seen["drops"],
+                       hold_assignments=seen["total"])
+            check(seen["drops"] == 0,
+                  f"phase 16: {arch}'s float32 hold dropped {seen['drops']}"
+                  f" assignments at capacity factor {cf:.4g}")
         check(hold["rel_max"] <= SP_HOLD,
               f"phase 16: {arch}'s block program differs from the "
               f"unsharded steps by {hold['rel_max']:.4g} of scale (bound "
@@ -6451,33 +6636,45 @@ def phase_blocks(torch, np, dev, Z, T) -> dict:
               f"{hold['replica_max_diff']}")
         del whole, batch, tokens
         if cuda:
+            res["float32_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
             free_device_memory(torch)
-        with sharding.use_mesh(abstract_mesh((Z.data, Z.model), BLOCK_AXES)):
-            branch = collectives.attend_branch(
-                Z.seq, cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads)
-            kv_split = cfg.n_kv_heads % Z.model == 0
-        H, KVH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
-        lay = ((H, KVH, hd, 0) if branch != "head_tp" else
-               (H // Z.model, (KVH if kv_split else H) // Z.model, hd, 0))
+            torch.cuda.reset_peak_memory_stats()
+        H, M = cfg.n_heads, Z.model
+        if cfg.use_mla:
+            branch = "mla"
+            lay = (H // M, H // M, flash_layout(cfg)[2], 0)
+        else:
+            with sharding.use_mesh(abstract_mesh(grid, BLOCK_AXES)):
+                branch = collectives.attend_branch(
+                    Z.seq, cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads)
+            kv_split = cfg.n_kv_heads % M == 0
+            KVH, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+            lay = ((H, KVH, hd, 0) if branch != "head_tp" else
+                   (H // M, (KVH if kv_split else H) // M, hd, 0))
         res["branch"] = branch
         # (b) bf16: the counted main path, each rank timed in turn
         cfg = blocks_cfg(arch, kw, Z, "bfloat16")
         model, whole, batch, tokens = blocks_inputs(torch, cfg, Z, dev)
-        preps = Turns((Z.data, Z.model), BLOCK_AXES).run(
+        preps = Turns(grid, BLOCK_AXES, **mesh_kw).run(
             lambda r: blocks_prep(torch, model, whole, batch, tokens, Z,
-                                  decode=True))
+                                  decode=True, views=lean))
         one = blocks_whole(torch, model, whole, batch, tokens, Z)
         res["ms"] = {}
-        for step in ("train", "prefill", "decode"):
+        for step in steps:
             runs, shapes = [], {}
             for i in range(Z.reps + 1):
-                turns = Turns((Z.data, Z.model), BLOCK_AXES, timed=cuda)
+                turns = Turns(grid, BLOCK_AXES, timed=cuda, **mesh_kw)
 
                 def ranks_run(step=step, turns=turns):
                     return turns.run(lambda r: blocks_step(
                         torch, model, cfg, preps[r], Z, step))
                 if i == 1:          # the counted run, after a warm-up
                     count_launches(_build, launches, ranks_run, shapes)
+                elif cfg.moe is not None and step != "decode":
+                    with blocks_moe_watch(torch) as seen:   # the warm-up
+                        ranks_run()
+                    res.setdefault("drop_share", {})[step] = (
+                        seen["drops"] / max(seen["total"], 1))
                 else:
                     ranks_run()
                 if i:
@@ -6491,6 +6688,9 @@ def phase_blocks(torch, np, dev, Z, T) -> dict:
             check(not cuda or sum(fl.values()) == want_fl,
                   f"phase 16: {arch} {step}: flash launched "
                   f"{sum(fl.values())} times, not {want_fl}")
+            check(not shapes.get("flash_attention_generic"),
+                  f"phase 16: {arch} {step}: a per-rank shape took "
+                  f"flash_attention_generic: {shapes}")
             rank_ms = [statistics.median(run[r] for run in runs)
                        for r in range(N)]
 
@@ -6507,13 +6707,23 @@ def phase_blocks(torch, np, dev, Z, T) -> dict:
                 f"median {res['ms'][step]['median_rank_ms']:.4f} ms, slowest "
                 f"{res['ms'][step]['max_rank_ms']:.4f}, sum "
                 f"{res['ms'][step]['ranks_sum_ms']:.4f} vs unsharded "
-                f"{whole_ms:.4f}; flash {dict(fl)}")
+                f"{whole_ms:.4f}; flash {dict(fl)}"
+                + (f"; drop share {res['drop_share'][step]:.4f} at capacity "
+                   f"factor {cfg.moe.capacity_factor}"
+                   if step in res.get("drop_share", {}) else ""))
         del whole, batch, tokens, preps, one
         if cuda:
+            res["bf16_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
             free_device_memory(torch)
         log(f"phase 16: {arch} ({branch}) float32 block program within "
             f"{hold['rel_max']:.3g} of scale of the unsharded steps (bound "
-            f"{SP_HOLD:g}); {res['collectives']} collective rounds")
+            f"{SP_HOLD:g}); {res['collectives']} collective rounds"
+            + (f"; peak {res['float32_peak_gib']:.2f} GiB float32, "
+               f"{res['bf16_peak_gib']:.2f} bf16" if cuda else "")
+            + (f"; held at capacity factor {res['hold_capacity_factor']:.4g}"
+               f", {res['hold_drops']} of {res['hold_assignments']} "
+               f"assignments dropped"
+               if "hold_drops" in res else ""))
         out[arch] = res
     return dict(archs=out, launches=launches, flash_by_shape=flash_by_shape,
                 grid=[Z.data, Z.model])

@@ -23,10 +23,12 @@ devices. Here:
     rounds it, what the card's `max_memory_allocated` reads).
 
 What a cell traces is what the port runs, and its record says which
-program (`"view"`). A model of `sharding.BLOCK_FAMILIES` (the dense
-decoders) runs the block program (`"blocks"`): a train cell is the
+program (`"view"`). A model of `sharding.BLOCK_FAMILIES` (the dense and
+MoE decoders) runs the block program (`"blocks"`): a train cell is the
 sharded step (`train_loop.jit_train_step` under the mesh) on this rank's
-blocks of the parameters and moments and its rows of the batch, each
+blocks of the parameters and moments and its rows of the batch (its
+share of each microbatch; `"chunks"` records the microbatches the step
+ran), each
 layer's weights gathered over data inside it; prefill and decode cells
 call `model.prefill` / `model.decode_step` on the parameter blocks, the
 rank's rows and (decode) its block of the caches under the param rules,
@@ -123,9 +125,13 @@ def trace(step, args) -> dict:
         arg_bytes, arg_alloc = t.mem.track(args)
         out = step(*args)
         out_bytes, _ = hlo_cost.LiveBytes().track(out)
+    # a train step's metrics say how many microbatches it ran
+    chunks = (out[2].get("chunks") if isinstance(out, tuple) and len(out) == 3
+              and isinstance(out[2], dict) else None)
     del out
     res = t.result()
     res["records"] = t.coll.records
+    res["chunks"] = chunks
     # the flash operator's forward FLOPs: its backward recomputes one
     res["flash_flops"] = float(t.flops.get_flop_counts()["Global"].get(
         torch.ops.repro_torch.flash_attention, 0))
@@ -145,7 +151,8 @@ def cell_step(cfg, shape, flags, device):
     (the global view; the module docstring)."""
     model = build_model(cfg, remat_policy=flags["remat_policy"])
     specs = model.param_specs()
-    ins, _ = input_specs(cfg, shape, device=device)
+    ins, _ = input_specs(cfg, shape, device=device, microbatches=(
+        flags["microbatches"] if shape.kind == "train" else 1))
     if shape.kind == "train":
         moment_dtype = ("bfloat16" if count_params_analytic(cfg) > 5e10
                         else "float32")
@@ -159,6 +166,9 @@ def cell_step(cfg, shape, flags, device):
         return model, step, (params, opt, dict(ins))
     params, _ = sharding.abstract_with_shardings(
         specs, cfg.dtype, whole=not sharding.runs_blocks(cfg), device=device)
+    # the reference's jit prunes the arguments a step does not read
+    # (keep_unused=False): serving reads no MTP head
+    params.pop("mtp", None)
     if shape.kind == "prefill":
         def prefill(params, batch):
             return model.prefill(params, batch["tokens"],
@@ -218,6 +228,7 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool,
     rec = {
         "arch": arch, "shape": shape_name, "mesh": mesh_name,
         "chips": chips, "status": "ok", "view": view,
+        "chunks": res["chunks"],
         "compile_s": round(dt, 2),
         "flops_dev": flops_dev, "flash_flops": res["flash_flops"],
         "bytes_dev": bytes_dev,

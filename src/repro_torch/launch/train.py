@@ -29,8 +29,9 @@ and moments (`train_loop.shard_train_state`), takes the sharded step,
 and checkpoints and restarts through the spec tree (`TrainController(
 spec_tree=)`: rank 0 writes the whole tree; a restore cuts the blocks of
 the mesh in use). A model that runs the block program (`sharding.
-runs_blocks`: the dense decoders) reads its (pod, data) rows of each
-step's seeded batch, the same whole batch the reference's step sees. On
+runs_blocks`: the dense and MoE decoders) reads its (pod, data) rows
+of each microbatch of each step's seeded batch, the same whole batch the
+reference's step sees. On
 a mesh `main` returns this rank's blocks, and only rank 0 prints.
 
 A frontend config gets seeded embeddings of (batch, n_tokens, d_input)
@@ -174,8 +175,9 @@ def _run(args, dev):
         whole_fn = batch_fn
 
         def batch_fn(step: int) -> dict:
-            """This rank's rows of the step's whole batch."""
-            return sharding.rows(whole_fn(step))
+            """This rank's rows of each microbatch of the step's whole
+            batch."""
+            return sharding.rows(whole_fn(step), args.microbatches)
     model = build_model(cfg)
     params = model.init(torch.Generator(device=dev).manual_seed(0))
     opt_cfg = optim.OptConfig(lr=args.lr,

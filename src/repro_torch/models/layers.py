@@ -112,14 +112,17 @@ def embed(params, tokens, *, shape: tuple | None = None):
     return sharding.psum(torch.where(mine[..., None], e, 0), "model")
 
 
-def unembed(params, x, *, shape: tuple | None = None, split_in=False):
+def unembed(params, x, *, shape: tuple | None = None, split_in=False,
+            tied=False):
     """Logits via the (possibly tied) embedding table; in a block program
     (`shape` given) the rank's vocab columns (B, S, V/M) where the vocab
     is split over `model`, from the table gathered over data. Where the
     vocab is whole on every rank of `model` (it does not split) the ranks
     share the work the reference's partitioner shares: the table's
-    gradient by columns (`_WholeVocab`), and with `split_in` (a decode's
-    few rows) the product's contraction, psummed over `model`."""
+    gradient by columns (`_WholeVocab`), with `tied` (the table is the
+    embedding's too) the input's gradient by vocab rows, and with
+    `split_in` (a decode's few rows) the product's contraction, psummed
+    over `model`."""
     if shape is None or not sharding.in_blocks():
         return x @ params["table"].T
     table, v0 = _table_block(params["table"], shape)
@@ -131,7 +134,9 @@ def unembed(params, x, *, shape: tuple | None = None, split_in=False):
     cols = slice(r * n, (r + 1) * n)
     if split_in:
         return sharding.psum(x[..., cols] @ table[:, cols].T, "model")
-    return _WholeVocab.apply(x, table, cols, M)
+    V = table.shape[0]
+    rows = slice(r * V // M, (r + 1) * V // M) if tied else None
+    return _WholeVocab.apply(x, table, cols, rows, M)
 
 
 class _WholeVocab(torch.autograd.Function):
@@ -141,12 +146,15 @@ class _WholeVocab(torch.autograd.Function):
     same 1/M share of the whole: M times this rank's share in its columns
     is their whole gradient, and the replicas' sum over `model`
     (`sharding.reduce_replicas`) the table's, each rank having computed
-    1/M of it."""
+    1/M of it. With `rows` (a vocab range a rank) x's gradient is M times
+    this rank's rows' part of the contraction: the ranks' shares of it
+    sum to the whole at the collectives' transposes below, every
+    backward being linear in its cotangent."""
 
     @staticmethod
-    def forward(ctx, x, table, cols, M: int):
+    def forward(ctx, x, table, cols, rows, M: int):
         ctx.save_for_backward(x, table)
-        ctx.cols, ctx.M = cols, M
+        ctx.cols, ctx.rows, ctx.M = cols, rows, M
         return x @ table.T
 
     @staticmethod
@@ -156,7 +164,10 @@ class _WholeVocab(torch.autograd.Function):
         gt = torch.zeros_like(table)
         gt[:, ctx.cols] = (g.reshape(-1, g.shape[-1]).T
                            @ xc.reshape(-1, xc.shape[-1])) * ctx.M
-        return g @ table, gt, None, None
+        if ctx.rows is None:
+            return g @ table, gt, None, None, None
+        gx = (g[..., ctx.rows] @ table[ctx.rows]) * ctx.M
+        return gx, gt, None, None, None
 
 
 def _table_block(table, shape: tuple):

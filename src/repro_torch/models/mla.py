@@ -19,6 +19,18 @@ that follows the latents' all-gather, `sp_heads` (the rank's H/M heads
 over the whole sequence through the flash kernel, and their partial
 out-projection), whose partials are reduce-scattered back to the
 sequence blocks.
+
+In a block program (`sharding.in_blocks`) each function runs on the
+rank's rows and its weight blocks, each gathered over data inside the
+layer (FSDP, `_gathered`): `mla_forward` the latents of its S/M
+positions, all-gathered over `model`, and its H/M heads through the
+flash kernel at Dk 192 / Dv 128, its heads' partial out-projection
+psummed over `model`; `mla_forward_sp` its S/M
+positions' latents; `mla_decode` every head's absorbed query (all-
+gathered over `model`) against its S/M positions of its block of the
+latent cache (every row), merged over `model`, then its heads' values
+and out-projection. A prefill's latent cache comes out as the reference
+constrains it: (B/dp, S/M, 1, C).
 """
 from __future__ import annotations
 
@@ -26,9 +38,10 @@ import math
 
 import torch
 
+from repro_torch import tree
 from repro_torch.models import attention
 from repro_torch.models.layers import apply_rope, rmsnorm, rmsnorm_spec
-from repro_torch.models.module import Spec
+from repro_torch.models.module import Spec, is_spec
 from repro_torch.parallel import collectives, sharding
 from repro_torch.parallel.sharding import P
 
@@ -96,6 +109,20 @@ HEAD_AXES = {"w_uq": ("q_lora", "heads", "head_dim"),
              "w_o": ("heads", "head_dim", "embed")}
 
 
+def _gathered(params, cfg, names=None):
+    """A block program's MLA weights (those of `names`, or all), each
+    block gathered over data (FSDP), a head dim's split over `model`
+    kept; the specs by the global shapes."""
+    spec = mla_spec(cfg)
+    names = tuple(params) if names is None else names
+    return {n: tree.map(lambda s_, a: sharding.gather_param(
+        a, s_.axes, shape=s_.shape), spec[n], params[n], is_leaf=is_spec)
+        for n in names}
+
+
+LATENT_NAMES = ("w_dq", "q_norm", "w_dkv", "kv_norm", "w_kr")
+
+
 def sp_latents(params, x, positions, cfg):
     """The latents of a block of tokens (pointwise over the sequence):
     the normed q-lora latent, the normed kv latent and the roped shared
@@ -150,7 +177,9 @@ def mla_forward_sp(params, x, positions, cfg, *, q_chunk=512, kv_chunk=1024):
                                      1)
     # the latents are pointwise over the sequence: computed whole, as the
     # reference computes them outside its region, and entered by block
-    lat = sp_latents(params, x, positions, cfg)
+    # (in a block program, on the rank's S/M positions: its block)
+    lat = sp_latents(_gathered(params, cfg, LATENT_NAMES)
+                     if sharding.in_blocks() else params, x, positions, cfg)
     return sharding.shard_map(body, (lspec, pspec) + wspecs, lspec)(
         lat, positions, *(params[n] for n in names))
 
@@ -162,6 +191,8 @@ def mla_forward(params, x, positions, cfg, *, return_cache: bool = False,
     reference's `q_chunk` / `kv_chunk` tile its chunked attention; the
     flash kernel's tiles are fixed, so they change nothing."""
     del q_chunk, kv_chunk
+    if sharding.in_blocks():
+        return _forward_blocks(params, x, positions, cfg, return_cache)
     a = cfg.mla
     B, S, D = x.shape
     H = cfg.n_heads
@@ -180,9 +211,104 @@ def mla_forward(params, x, positions, cfg, *, return_cache: bool = False,
     return y, torch.cat([ckv, kr], dim=-1)[:, :, None, :]
 
 
+def _forward_blocks(params, x, positions, cfg, return_cache: bool):
+    """`mla_forward` in a block program, on the rank's rows x: (b, S, D)
+    whole over `model`, or under Megatron-SP its S/M positions (b, S/M,
+    D). The latents (pointwise over the tokens) of its S/M positions,
+    all-gathered over `model` (where S splits), then its H/M heads'
+    queries, expanded keys and values (every head where they do not
+    split) from them, the flash kernel over them, and its heads' partial
+    out-projection psummed over `model` (psum-scattered back to its S/M
+    positions under Megatron-SP). A prefill's latent cache is the rank's
+    S/M positions' latents (the reference's constraint to (batch,
+    kv_seq))."""
+    a = cfg.mla
+    w = _gathered(params, cfg)
+    b, S = x.shape[0], positions.shape[1]
+    M = sharding.mesh_axis_size("model")
+    sp = x.shape[1] != S
+    split = M > 1 and S % M == 0
+    xs, ps = x, positions
+    if split:
+        n, r = S // M, sharding.axis_index("model")
+        xs, ps = (x if sp else x[:, r * n:(r + 1) * n],
+                  positions[:, r * n:(r + 1) * n])
+    ckv, kr = _latent(w, xs, ps, cfg)
+    lat = [ckv, kr]
+    if a.q_lora_rank:
+        lat.insert(0, rmsnorm(w["q_norm"], xs @ w["w_dq"], cfg.norm_eps))
+    mine = torch.cat([ckv, kr], dim=-1)[:, :, None, :]
+    lat = torch.cat(lat, dim=-1)
+    if split:
+        lat = sharding.all_gather(lat, "model", 1)
+    *ql, ckv, kr = lat.split(([a.q_lora_rank] if a.q_lora_rank else [])
+                             + [a.kv_lora_rank, a.qk_rope_head_dim], dim=-1)
+    q = (_up(ql[0], w["w_uq"]) if ql else _up(
+        sharding.all_gather(x, "model", 1) if sp else x, w["w_q"]))
+    qr = apply_rope(q[..., a.qk_nope_head_dim:], positions, cfg.rope_theta)
+    Hl = q.shape[2]
+    q = torch.cat([q[..., :a.qk_nope_head_dim], qr], dim=-1)  # (b,S,Hl,qk)
+    k = torch.cat([_up(ckv, w["w_uk"]), kr[:, :, None].expand(
+        b, S, Hl, a.qk_rope_head_dim)], dim=-1)             # materialised
+    out = attention.chunked_attention(q.unsqueeze(3), k, _up(ckv, w["w_uv"]),
+                                      causal=True)
+    del q, qr, k, lat, ql, ckv, kr
+    y = _out(out.reshape(b, S, Hl, a.v_head_dim), w["w_o"])
+    del out
+    if sp and Hl != cfg.n_heads:
+        y = sharding.psum_scatter(y, "model", 1)
+    elif sp:
+        y = sharding.relayout(y, P(), P(None, "model"))
+    elif Hl != cfg.n_heads:
+        y = sharding.psum(y, "model")
+    return (y, mine) if return_cache else y
+
+
+def _decode_blocks(params, x, cache, pos, cfg):
+    """`mla_decode` in a block program: the rank's rows x (b, 1, D), its
+    block of the latent cache (every row, written in place). Every
+    head's absorbed query (the rank's H/M heads', all-gathered over
+    `model`) against its S/M cache positions, merged over `model`
+    (`collectives.blocks_decode`); then its heads' values and partial
+    out-projection, psummed over `model`. Where the heads or the cache
+    do not split, a rank does the whole of that part."""
+    a = cfg.mla
+    w = _gathered(params, cfg)
+    b = x.shape[0]
+    positions = torch.as_tensor(pos, dtype=torch.int32,
+                                device=x.device).broadcast_to((b,))[:, None]
+    qn, qr = _queries(w, x, positions, cfg)                 # (b,1,Hl,*)
+    q_eff = torch.einsum("bhn,rhn->bhr", qn[:, 0], w["w_uk"])
+    q_full = torch.cat([q_eff, qr[:, 0]], dim=-1)           # (b,Hl,C)
+    ckv, kr = _latent(w, x, positions, cfg)
+    new = torch.cat([ckv, kr], dim=-1)[:, 0]
+    Hl = q_full.shape[1]
+    M = sharding.mesh_axis_size("model")
+    seq_split = M > 1 and cache.shape[1] % M == 0
+    gather = Hl != cfg.n_heads and seq_split
+    if gather:
+        q_full = sharding.all_gather(q_full, "model", 1)
+    qk_dim = a.qk_nope_head_dim + a.qk_rope_head_dim
+    out, cache, _ = collectives.blocks_decode(
+        q_full[:, None], cache, None, new[:, None], None, pos,
+        M if seq_split else 1, sm_scale=1.0 / math.sqrt(qk_dim),
+        v_dims=a.kv_lora_rank)
+    out = out[:, 0]
+    if gather:
+        r = sharding.axis_index("model")
+        out = out[:, r * Hl:(r + 1) * Hl]
+    o = torch.einsum("bhr,rhv->bhv", out.float(),
+                     w["w_uv"].float()).to(x.dtype)
+    y = _out(o[:, None], w["w_o"])
+    return (sharding.psum(y, "model") if Hl != cfg.n_heads else y), cache
+
+
 def mla_decode(params, x, cache, pos, cfg):
     """Absorbed-form single-token decode. x: (B,1,D); cache: (B,S,1,C);
-    pos: scalar or (B,) write index."""
+    pos: scalar or (B,) write index. In a block program the cache is
+    the rank's block, written in place (`_decode_blocks`)."""
+    if sharding.in_blocks():
+        return _decode_blocks(params, x, cache, pos, cfg)
     a = cfg.mla
     B = x.shape[0]
     positions = torch.as_tensor(pos, dtype=torch.int32,

@@ -85,8 +85,13 @@ def _router_type(cfg) -> str:
 # --------------------------------------------------------------------------
 # Routing (the "header" computation)
 # --------------------------------------------------------------------------
-def route(params, x, cfg):
-    """x: (..., D) -> (weights (..., k) f32, idx (..., k) i32, aux f32)."""
+def route(params, x, cfg, *, token_axes=None):
+    """x: (..., D) -> (weights (..., k) f32, idx (..., k) i32, aux f32).
+    `token_axes` (a block program: the mesh axes over which the tokens
+    of x are this rank's share) makes the aux loss the reference's
+    global one: the counts and the probability sums psummed over them,
+    over the global count (a row replicated on some ranks counted on
+    each, in the sums and the count alike)."""
     m = cfg.moe
     logits = x.float() @ params["router"]["w"]
     if _router_type(cfg) == "sigmoid_bias":
@@ -107,8 +112,17 @@ def route(params, x, cfg):
     counts = torch.zeros((E,), dtype=torch.float32,
                          device=x.device).index_add_(
         0, idx_f, torch.ones_like(idx_f, dtype=torch.float32))
-    f_e = counts / max(idx_f.shape[0], 1)
-    p_e = probs.reshape(-1, E).mean(0)
+    if token_axes is None:
+        f_e = counts / max(idx_f.shape[0], 1)
+        p_e = probs.reshape(-1, E).mean(0)
+    else:
+        p_sum = probs.reshape(-1, E).sum(0)
+        n = sharding.axis_size(token_axes)
+        if token_axes:
+            counts = sharding.psum(counts, token_axes)
+            p_sum = sharding.psum(p_sum, token_axes)
+        f_e = counts / max(idx_f.shape[0] * n, 1)
+        p_e = p_sum / max(probs.numel() // E * n, 1)
     aux = E * torch.sum(f_e * p_e)
     return w, idx.to(torch.int32), aux
 
@@ -186,19 +200,51 @@ def combine(out, slot, w, k: int):
 # --------------------------------------------------------------------------
 # Implementations
 # --------------------------------------------------------------------------
-def moe_apply(params, x, cfg, *, sp: bool = False):
+def moe_apply(params, x, cfg, *, sp: bool = False, S: int | None = None):
     """x: (B, S, D) -> (y, aux_loss). With no mesh, M == 1 or experts
     off a multiple of M: `_moe_local`; else `_moe_a2a` where the
     sequence splits over `model` and the mesh's `moe_impl` is 'a2a',
     else `_moe_replicated`. `sp`: the shared experts' FFN is
-    sequence-parallel."""
+    sequence-parallel. `S`: the sequence's tokens, x's own but in a
+    block program's Megatron-SP stream, where x holds the rank's S/M
+    positions.
+
+    In a block program x is the rank's rows and the weights its blocks:
+    `_moe_a2a` and its router on its S/M positions (cut from a stream
+    whole over `model`, the output all-gathered back), `_moe_replicated`
+    and its router on its rows' whole sequence (gathered from a
+    Megatron-SP stream, the output cut back), `_moe_local` (M == 1) on
+    its rows with the experts gathered whole; the aux loss global
+    (`route`); the shared experts through the block program's FFN."""
     m = cfg.moe
-    w, idx, aux = route(params, x, cfg)          # header: control path
-    y = {"local": _moe_local, "a2a": _moe_a2a,
-         "replicated": _moe_replicated}[moe_branch(cfg, x.shape[1])](
-        params, x, w, idx, cfg)
+    S = x.shape[1] if S is None else S
+    branch = moe_branch(cfg, S)
+    impl = {"local": _moe_local, "a2a": _moe_a2a,
+            "replicated": _moe_replicated}[branch]
+    if not sharding.in_blocks():
+        w, idx, aux = route(params, x, cfg)          # header: control path
+        y = impl(params, x, w, idx, cfg)
+    else:
+        M = sharding.mesh_axis_size("model")
+        r, n = (sharding.axis_index("model") if M > 1 else 0), S // M
+        whole = x.shape[1] == S
+        # the tokens the rank routes: a2a's are its S/M positions
+        x_r = x[:, r * n:(r + 1) * n] if branch == "a2a" and whole else x
+        w, idx, aux = route(params, x_r, cfg, token_axes=(
+            sharding.batch_axes() + (("model",) if x_r.shape[1] != S
+                                     else ())))
+        if branch == "replicated" and not whole:
+            x_f, w_f, idx_f = (sharding.all_gather(t, "model", 1)
+                               for t in (x, w, idx))
+            y = impl(params, x_f, w_f, idx_f, cfg)[:, r * n:(r + 1) * n]
+        else:
+            y = impl(params, x_r, w, idx, cfg)
+            if x_r is not x:
+                y = sharding.all_gather(y, "model", 1)
     if m.n_shared:
-        y = y + ffn.ffn_apply(params["shared"], x, cfg.act, sp=sp)
+        y = y + ffn.ffn_apply(params["shared"], x, cfg.act, sp=sp,
+                              spec=ffn.ffn_spec(cfg.d_model, m.n_shared
+                                                * m.d_ff_shared, cfg.act))
     return y, aux
 
 
@@ -219,9 +265,19 @@ def moe_branch(cfg, S: int) -> str:
 def _moe_local(params, x, w, idx, cfg):
     """Dense loop over the experts: every token through every expert,
     weighted by the gate it gave that expert (0 if unchosen), summed in
-    float32."""
-    y = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    float32. In a block program (a model axis of 1: GSPMD's partition of
+    this loop) x is the rank's rows and the experts are gathered whole
+    from their blocks; experts off a multiple of M > 1 raise."""
     ex = params["experts"]
+    if sharding.in_blocks():
+        if sharding.mesh_axis_size("model") > 1:
+            raise NotImplementedError(
+                "_moe_local in a block program: the experts do not split "
+                "over the model axis")
+        ex = {n: sharding.gather_param(ex[n], EXPERT_AXES[n], shape=shape)
+              for n, shape in zip(("gate", "up", "down"),
+                                  _expert_shapes(cfg))}
+    y = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
     f = act_fn(cfg.act)
     for e in range(cfg.moe.n_experts):
         we = torch.where(idx == e, w, 0.0).sum(-1)            # (B, S)
@@ -246,50 +302,62 @@ def _batch_shards(B: int) -> int:
 def _ep_axes(cfg) -> tuple:
     """Mesh axes the expert dim shards over (('model',) or ('model',
     'data'))."""
-    ex_shape = (cfg.moe.n_experts, cfg.d_model, cfg.moe.d_ff_expert)
-    ent = sharding.resolve_spec(EXPERT_AXES["gate"], ex_shape, "param")[0]
+    ent = sharding.resolve_spec(EXPERT_AXES["gate"], _expert_shapes(cfg)[0],
+                                "param")[0]
     if ent is None:
         return ("model",)
     return (ent,) if isinstance(ent, str) else tuple(ent)
 
 
-def _expert_specs(ex) -> tuple:
-    return tuple(sharding.resolve_spec(EXPERT_AXES[n], ex[n].shape, "param")
-                 for n in ("gate", "up", "down"))
+def _expert_shapes(cfg) -> tuple:
+    """The global shapes of the gate, up and down expert weights."""
+    E, D, Fw = cfg.moe.n_experts, cfg.d_model, cfg.moe.d_ff_expert
+    return (E, D, Fw), (E, D, Fw), (E, Fw, D)
 
 
-def _expert_blocks(ex, wg, wu, wd) -> tuple:
-    """The rank's experts' weights, FSDP-gathered."""
-    return tuple(_gather_fsdp(w, EXPERT_AXES[n], ex[n].shape)
-                 for n, w in zip(("gate", "up", "down"), (wg, wu, wd)))
+def _expert_specs(cfg) -> tuple:
+    return tuple(sharding.resolve_spec(EXPERT_AXES[n], shape, "param")
+                 for n, shape in zip(("gate", "up", "down"),
+                                     _expert_shapes(cfg)))
+
+
+def _expert_blocks(cfg, wg, wu, wd) -> tuple:
+    """The rank's experts' weights, FSDP-gathered (specs by the global
+    shapes: a block program's weights are blocks)."""
+    return tuple(_gather_fsdp(w, EXPERT_AXES[n], shape)
+                 for n, w, shape in zip(("gate", "up", "down"),
+                                        (wg, wu, wd), _expert_shapes(cfg)))
 
 
 def _moe_a2a(params, x, w, idx, cfg):
     """FlexiNS path: sequence-parallel tokens and a direct all_to_all of
     the payload over the whole expert-parallel group (model, or model x
     data for EP over data). Capacity is per rank: the tokens it owns
-    after the sequence split."""
+    after the sequence split (in a block program, x's own: the rank's
+    rows and S/M positions)."""
     m = cfg.moe
     B, S, D = x.shape
     E, k = m.n_experts, m.top_k
     ep = _ep_axes(cfg)
     M = sharding.mesh_axis_size("model")
-    C = _capacity((B // _batch_shards(B)) * (S // M), cfg)
+    C = _capacity(B * S if sharding.in_blocks()
+                  else (B // _batch_shards(B)) * (S // M), cfg)
     b = sharding.batch_axes_prefix(B) or None
     xspec = P(b, "model", None)
     ex = params["experts"]
     axis = ep if len(ep) > 1 else ep[0]
 
     def body(x_l, w_l, idx_l, wg, wu, wd):
-        wg, wu, wd = _expert_blocks(ex, wg, wu, wd)
         Bl, Sl, _ = x_l.shape
         disp, slot = dispatch(x_l.reshape(Bl * Sl, D), idx_l, E, C, k)
         # the wire: the payload moves once, source rank -> expert's rank
         disp = sharding.all_to_all(disp, axis, 0, 1)    # (E_loc, ep C, D)
+        wg, wu, wd = _expert_blocks(cfg, wg, wu, wd)
         out = _experts_ffn(wg, wu, wd, disp, cfg.act)
+        del wg, wu, wd, disp
         out = sharding.all_to_all(out, axis, 1, 0)      # (E, C, D)
         return combine(out, slot, w_l, k).reshape(Bl, Sl, D)
-    f = sharding.shard_map(body, (xspec, xspec, xspec) + _expert_specs(ex),
+    f = sharding.shard_map(body, (xspec, xspec, xspec) + _expert_specs(cfg),
                            xspec)
     return f(x, w.to(x.dtype), idx, ex["gate"], ex["up"], ex["down"])
 
@@ -314,32 +382,37 @@ def replicated_rank(x, w, idx, wg, wu, wd, r: int, E_loc: int, C: int,
 def _moe_replicated(params, x, w, idx, cfg):
     """Staged baseline: tokens replicated over the expert axis, each
     rank's partial output psum'd; under EP over data the tokens are
-    first gathered over data, and the rank's batch rows sliced back."""
+    first gathered over data, and the rank's batch rows sliced back (in
+    a block program x is the rank's rows, split over every batch axis of
+    the mesh)."""
     m = cfg.moe
     B, S = x.shape[:2]
     ep = _ep_axes(cfg)
     E_loc = m.n_experts // sharding.axis_size(ep)
-    b_axes = sharding.batch_axes_prefix(B)
+    blocks = sharding.in_blocks()
+    b_axes = sharding.batch_axes() if blocks else \
+        sharding.batch_axes_prefix(B)
     # EP over data: tokens are gathered over data iff the batch shards there
     gather_data = "data" in ep and "data" in b_axes
     nd = sharding.mesh_axis_size("data")
-    C = _capacity((B // _batch_shards(B)) * (nd if gather_data else 1) * S,
-                  cfg)
+    C = _capacity((B if blocks else B // _batch_shards(B))
+                  * (nd if gather_data else 1) * S, cfg)
     xspec = P(b_axes or None, None, None)
     ex = params["experts"]
 
     def body(x_l, w_l, idx_l, wg, wu, wd):
-        wg, wu, wd = _expert_blocks(ex, wg, wu, wd)
+        wg, wu, wd = _expert_blocks(cfg, wg, wu, wd)
         if gather_data:
             x_l, w_l, idx_l = (sharding.all_gather(t, "data", 0)
                                for t in (x_l, w_l, idx_l))
         y = replicated_rank(x_l, w_l, idx_l, wg, wu, wd,
                             sharding.axis_index(ep), E_loc, C, cfg)
+        del wg, wu, wd
         y = sharding.psum(y, ep)                        # staged combine
         if gather_data:
             n = y.shape[0] // nd
             y = y[sharding.axis_index("data") * n:][:n]
         return y
-    f = sharding.shard_map(body, (xspec, xspec, xspec) + _expert_specs(ex),
+    f = sharding.shard_map(body, (xspec, xspec, xspec) + _expert_specs(cfg),
                            xspec)
     return f(x, w.to(x.dtype), idx, ex["gate"], ex["up"], ex["down"])

@@ -38,7 +38,7 @@ def count_params_analytic(cfg: ModelConfig, active_only: bool = False) -> int:
 
 
 def input_specs(cfg: ModelConfig, shape: ShapeConfig, *,
-                device=None) -> tuple[dict, dict]:
+                device=None, microbatches: int = 1) -> tuple[dict, dict]:
     """(stand-ins, specs): fake tensors for every step-function input
     (allocating nothing, `sharding.abstract_with_shardings`) and their
     resolved PartitionSpecs, with the reference's shapes, dtypes and
@@ -48,7 +48,8 @@ def input_specs(cfg: ModelConfig, shape: ShapeConfig, *,
     specs and `pos`. Where the model runs the block program
     (`sharding.runs_blocks`) each tensor is this rank's block: the
     batch's rows, the decode cache's block under the param rules (as the
-    reference resolves it: every row). Else they are global (the global
+    reference resolves it: every row; a train batch of `microbatches`
+    its share of each, `sharding.rows`). Else they are global (the global
     view takes the batch and the caches whole). They belong to the
     active `FakeTensorMode`, or to one new mode."""
     import torch
@@ -66,8 +67,13 @@ def input_specs(cfg: ModelConfig, shape: ShapeConfig, *,
     def sds(name, shp, dt, axes=None):
         specs[name] = (sharding.resolve_spec(axes, shp, table="act")
                        if axes else sharding.P())
-        if blocks:
-            shp = sharding.block_shape(shp, specs[name])
+        if blocks and axes:
+            # the rank's share of each microbatch (`sharding.rows`)
+            m = microbatches if axes[0] == "batch" else 1
+            mb = (shp[0] // m,) + tuple(shp[1:])
+            blk = sharding.block_shape(mb, sharding.resolve_spec(
+                axes, mb, table="act"))
+            shp = (m * blk[0],) + tuple(blk[1:])
         ins[name] = torch.empty(shp, dtype=dt, device=dev)
 
     with sharding.fake_mode():

@@ -25,13 +25,16 @@ and `decode_step` run under `torch.no_grad()`. A frontend config
 (internvl2-2b's patches) splices its embeddings over the first token
 rows, as the reference does.
 
-Under a `DeviceMesh` the dense decoders (`sharding.BLOCK_FAMILIES`) run
-the block program (`sharding.program`): `forward`, `prefill` and
-`decode_step` take and give this rank's blocks, the residual stream its
-rows (B/dp, S, D), or its S/M positions under Megatron-SP; attention
-through `_attn_blocks`, the FFN through `ffn._ffn_blocks`, the
-embedding and logits vocab-parallel (`layers.embed` / `unembed`);
-`decode_caches` turns a prefill's cache blocks into the decode's.
+Under a `DeviceMesh` the dense and MoE decoders (`sharding.
+BLOCK_FAMILIES`) run the block program (`sharding.program`): `forward`,
+`prefill` and `decode_step` take and give this rank's blocks, the
+residual stream its rows (B/dp, S, D), or its S/M positions under
+Megatron-SP; GQA attention through `_attn_blocks`, MLA through `mla`'s
+block functions (`mla_apply`), the FFN through `ffn._ffn_blocks`, the
+MoE through `moe.moe_apply` on the rank's tokens (the aux loss global),
+the MTP head on the rank's rows, the embedding and logits vocab-
+parallel (`layers.embed` / `unembed`); `decode_caches` turns a
+prefill's cache blocks (GQA or latent) into the decode's.
 
 Differences from the reference, on purpose:
 
@@ -413,6 +416,29 @@ def _attn_blocks(params, x, positions, cfg, *, mode, cache, pos):
                "v": sharding.relayout(vc, src, dst)}
 
 
+def mla_apply(params, x, positions, cfg, *, mode="train", cache=None,
+              pos=None):
+    """The MLA mixer of `block_apply`: (y, new_cache), the latent cache
+    {"ckv"} of a prefill or a decode, None in training. Megatron-SP
+    training takes `mla.mla_forward_sp`. In a block program x is the
+    rank's rows, its S/M positions under Megatron-SP, which a prefill's
+    `mla.mla_forward` takes as they are (its latents from them, its
+    output psum-scattered back to them)."""
+    if mode == "decode":
+        a, ckv = mla.mla_decode(params, x, cache["ckv"], pos, cfg)
+        return a, {"ckv": ckv}
+    if takes_mla_sp(cfg, positions.shape[1], mode=mode):
+        if sharding.in_blocks():        # x: the rank's S/M positions
+            n, r = x.shape[1], sharding.axis_index("model")
+            positions = positions[:, r * n:(r + 1) * n]
+        return mla.mla_forward_sp(params, x, positions, cfg), None
+    if mode == "prefill":
+        a, ckv = mla.mla_forward(params, x, positions, cfg,
+                                 return_cache=True)
+        return a, {"ckv": ckv}
+    return mla.mla_forward(params, x, positions, cfg), None
+
+
 # --------------------------------------------------------------------------
 # Cache specs
 # --------------------------------------------------------------------------
@@ -430,7 +456,9 @@ def decode_heads_layout(cfg) -> bool:
 def use_sp(cfg, S: int) -> bool:
     """Megatron-SP residual applies: the mesh's `seq_parallel` on, a
     sequence that splits over `model`, and an arch family whose blocks
-    tolerate a sequence-sharded stream."""
+    tolerate a sequence-sharded stream (the dense and MoE decoders, the
+    block families, whose block program then holds the rank's S/M
+    positions of the stream)."""
     ctx = sharding.current()
     M = sharding.mesh_axis_size("model")
     return (ctx is not None and ctx.seq_parallel and M > 1 and S % M == 0
@@ -533,7 +561,9 @@ def block_spec(cfg, kind: LayerKind) -> dict:
 
 def block_apply(params, x, positions, cfg, kind: LayerKind, *, mode="train",
                 cache=None, pos=None):
-    """Returns (x, aux, new_cache)."""
+    """Returns (x, aux, new_cache). In a block program (the dense and MoE
+    decoders, `sharding.BLOCK_FAMILIES`) x is the rank's rows, its S/M
+    positions under Megatron-SP, and every branch reads its blocks."""
     _check_kind(kind)
     zc = cfg.zero_centered_norm
     eps = cfg.norm_eps
@@ -546,17 +576,8 @@ def block_apply(params, x, positions, cfg, kind: LayerKind, *, mode="train",
                                   window=window, mode=mode, cache=cache,
                                   pos=pos)
     elif kind.mix == "mla":
-        if mode == "decode":
-            a, ckv = mla.mla_decode(params["mla"], h, cache["ckv"], pos, cfg)
-            new_cache = {"ckv": ckv}
-        elif mode == "prefill":
-            a, ckv = mla.mla_forward(params["mla"], h, positions, cfg,
-                                     return_cache=True)
-            new_cache = {"ckv": ckv}
-        elif takes_mla_sp(cfg, x.shape[1], mode=mode):
-            a = mla.mla_forward_sp(params["mla"], h, positions, cfg)
-        else:
-            a = mla.mla_forward(params["mla"], h, positions, cfg)
+        a, new_cache = mla_apply(params["mla"], h, positions, cfg,
+                                 mode=mode, cache=cache, pos=pos)
     elif kind.mix == "rec":
         if mode == "decode":
             a, new_cache = rglru.rglru_decode(params["rec"], h, cache, cfg)
@@ -576,15 +597,14 @@ def block_apply(params, x, positions, cfg, kind: LayerKind, *, mode="train",
     S = positions.shape[1]      # x's own in a block program's SP stream
     if kind.ffn in ("dense", "dense_big"):
         h = rmsnorm(params["ln2"], x, eps, zero_centered=zc)
-        up = params["ffn"]["up"]
         d_ff = cfg.d_ff if kind.ffn == "dense" else cfg.moe.d_ff_dense
         x = x + ffn.ffn_apply(params["ffn"], h, cfg.act, sp=takes_ffn_sp(
-            cfg, S, up["w"].shape[-1], mode=mode, bias="b" in up),
+            cfg, S, d_ff, mode=mode, bias="b" in params["ffn"]["up"]),
             spec=ffn.ffn_spec(cfg.d_model, d_ff, cfg.act))
     elif kind.ffn == "moe":
         h = rmsnorm(params["ln2"], x, eps, zero_centered=zc)
         y, aux_moe = moe.moe_apply(params["moe"], h, cfg, sp=takes_ffn_sp(
-            cfg, S, cfg.moe.n_shared * cfg.moe.d_ff_shared, mode=mode))
+            cfg, S, cfg.moe.n_shared * cfg.moe.d_ff_shared, mode=mode), S=S)
         aux = aux + aux_moe
         x = x + y
     return x, aux, new_cache
@@ -795,7 +815,8 @@ class DecoderLM:
                     zero_centered=cfg.zero_centered_norm)
         table = params["embed"] if cfg.tie_embeddings else params["out_embed"]
         return softcap(unembed(table, h, shape=self._table_shape,
-                               split_in=decode), cfg.logit_softcap)
+                               split_in=decode, tied=cfg.tie_embeddings),
+                       cfg.logit_softcap)
 
     @property
     def _table_shape(self) -> tuple:
@@ -827,19 +848,29 @@ class DecoderLM:
         """DeepSeek-style 1-depth multi-token prediction head: the trunk's
         hidden state at t and the embedding of token t + 1, normed,
         concatenated and projected, through one block of the last
-        layer's kind, to logits for token t + 2."""
+        layer's kind, to logits for token t + 2. In a block program: the
+        rank's rows, the embedding and the logits vocab-parallel, the
+        projection gathered over data, the block on blocks (its stream
+        the rank's S/M positions where Megatron-SP splits S - 1)."""
         cfg = self.cfg
         mp = params["mtp"]
-        emb_next = embed(params["embed"], tokens[:, 1:]).to(h.dtype)
+        emb_next = embed(params["embed"], tokens[:, 1:],
+                         shape=self._table_shape).to(h.dtype)
         hh = rmsnorm(mp["norm_h"], h[:, :-1], cfg.norm_eps)
         ee = rmsnorm(mp["norm_e"], emb_next, cfg.norm_eps)
-        z = torch.cat([hh, ee], dim=-1) @ mp["proj"]
+        proj = mp["proj"]
+        if sharding.in_blocks():
+            proj = sharding.gather_param(proj, (None, "embed"), shape=(
+                2 * cfg.d_model, cfg.d_model))
+        z = self._stream_in(torch.cat([hh, ee], dim=-1) @ proj)
         kind = layer_plan(cfg)[-1]
         z, _, _ = block_apply(mp["block"], z, positions[:, 1:], cfg, kind,
                               mode="train")
+        z = self._stream_out(z, positions.shape[1] - 1)
         z = rmsnorm(params["final_norm"], z, cfg.norm_eps)
         table = params["embed"] if cfg.tie_embeddings else params["out_embed"]
-        return softcap(unembed(table, z), cfg.logit_softcap)
+        return softcap(unembed(table, z, shape=self._table_shape,
+                               tied=cfg.tie_embeddings), cfg.logit_softcap)
 
     @torch.no_grad()
     def prefill(self, params, tokens, *, embeddings=None, last_pos=None):

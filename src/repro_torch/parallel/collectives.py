@@ -295,15 +295,17 @@ def _whole_caches(k_cache, v_cache, k_new, v_new, pos, mla: bool):
 
 
 def blocks_decode(q, k_cache, v_cache, k_new, v_new, pos, M: int, *,
-                  cap=0.0, sm_scale=None):
+                  cap=0.0, sm_scale=None, v_dims=None):
     """A block program's decode: q (b,KVH_l,G,Dk), the new entries
     (b,KVH_l,D*) and pos (scalar or (b,)) are the rank's b rows; the
     caches (B,S,KVH_l,D*) its block of every row under the param rules,
     every row's new entry (all-gathered over the batch axes) written
     into them in place, nothing else. The rank's rows attend its S/M
     cache positions, merged over `model` (M > 1), or every position
-    (M = 1: its kv heads, or a cache that does not split). Returns (out
-    (b,KVH_l,G,Dv), k_cache, v_cache)."""
+    (M = 1: its kv heads, or a cache that does not split). `v_dims`:
+    MLA's absorbed mode (V is k_cache[..., :v_dims], the latent;
+    v_cache and v_new None). Returns (out (b,KVH_l,G,Dv), k_cache,
+    v_cache)."""
     b, n = q.shape[0], k_cache.shape[1] // M
     pos = torch.as_tensor(pos, device=q.device).long().broadcast_to((b,))
     ax = sharding.batch_axes_prefix(k_cache.shape[0])
@@ -313,12 +315,15 @@ def blocks_decode(q, k_cache, v_cache, k_new, v_new, pos, M: int, *,
     rows = torch.arange(k_cache.shape[0], device=k_cache.device)
     p = every_row(pos)
     k_cache.index_put_((rows, p), every_row(k_new).to(k_cache.dtype))
-    v_cache.index_put_((rows, p), every_row(v_new).to(v_cache.dtype))
+    if v_dims is None:
+        v_cache.index_put_((rows, p), every_row(v_new).to(v_cache.dtype))
     r0 = sharding.axis_index(ax) * b if ax else 0
     s0 = sharding.axis_index("model") * n if M > 1 else 0
-    acc, m, l = _decode_block(q, k_cache[r0:r0 + b, s0:s0 + n],
-                              v_cache[r0:r0 + b, s0:s0 + n], pos, s0,
-                              cap=cap, sm_scale=sm_scale)
+    k_l = k_cache[r0:r0 + b, s0:s0 + n]
+    v_l = (k_l[..., :v_dims] if v_dims is not None
+           else v_cache[r0:r0 + b, s0:s0 + n])
+    acc, m, l = _decode_block(q, k_l, v_l, pos, s0, cap=cap,
+                              sm_scale=sm_scale)
     if M > 1:
         acc, l = merge_partials(acc, m, l, "model")
     return finalize_partials(acc, l).to(q.dtype), k_cache, v_cache

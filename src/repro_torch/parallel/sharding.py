@@ -62,8 +62,9 @@ the global view is memory and work: every rank holds the whole
 activations and computes on them, which the reference shards.
 `constrain` resolves its spec and returns its tensor as it is.
 
-The block program. A model of `BLOCK_FAMILIES` (the dense decoders;
-later slices widen the set) runs each rank's own program under a
+The block program. A model of `BLOCK_FAMILIES` (the dense decoders and
+the MoE decoders; later slices widen the set) runs each rank's own
+program under a
 `DeviceMesh` instead (`runs_blocks`, `program`): its inputs are this
 rank's blocks (the parameters under their param specs, the batch's
 rows, `rows`), its outputs stay blocks, and a tensor changes layout only
@@ -601,8 +602,10 @@ def shard_map(body, in_specs, out_specs):
 # The block program
 # --------------------------------------------------------------------------
 # The model families whose DecoderLM runs each rank's own program on its
-# blocks under a DeviceMesh; every other family keeps the global view.
-BLOCK_FAMILIES = frozenset({"dense", "vlm"})
+# blocks under a DeviceMesh: the dense decoders ("dense", "vlm") and the
+# MoE decoders ("moe": the router, the experts, MLA and the MTP head);
+# every other family keeps the global view.
+BLOCK_FAMILIES = frozenset({"dense", "vlm", "moe"})
 
 
 def runs_blocks(cfg) -> bool:
@@ -647,22 +650,38 @@ def batch_axes() -> tuple:
     return tuple(a for a in _axes(want) if a in sizes) if want else ()
 
 
-def rows(x):
+def rows(x, microbatches: int = 1):
     """This rank's rows (dim 0) of a whole batch tensor, or of every leaf
     of a dict of them, split as the batch's activation spec resolves on
-    its size (`batch_axes_prefix`; JAX's order, the first axis major)."""
+    its size (`batch_axes_prefix`; JAX's order, the first axis major).
+    With `microbatches` m, the batch is the reference's m microbatches
+    (microbatch i the rows [i B/m, (i + 1) B/m)), each split as the spec
+    resolves on B/m rows, and the rank's rows of each are concatenated
+    in order: a microbatch too small to split over every batch axis
+    stays whole on the ranks that cannot split it, as GSPMD lays it
+    out."""
     if isinstance(x, dict):
-        return {k: rows(v) for k, v in x.items()}
-    ax = batch_axes_prefix(x.shape[0])
-    return _block(x, P(ax)) if ax else x
+        return {k: rows(v, microbatches) for k, v in x.items()}
+    B = x.shape[0]
+    if B % microbatches:
+        raise ValueError(f"batch {B} does not split into {microbatches} "
+                         "microbatches")
+    n = B // microbatches
+    ax = batch_axes_prefix(n)
+    if not ax:
+        return x
+    if microbatches == 1:
+        return _block(x, P(ax))
+    return torch.cat([_block(c, P(ax)) for c in x.split(n)])
 
 
 def relayout(x, src, dst):
     """`x`, this rank's block under `src`, as its block under `dst` (two
     specs of one tensor, single-axis entries): per mesh axis that moves,
     an all-to-all (sharded on another dim), an all-gather (sharded no
-    more) or a cut (newly sharded). Differentiable: each step's
-    gradient is its transpose."""
+    more) or a cut (newly sharded; a tensor of its own, so that the
+    whole it was cut from is freed: a view would keep it). Differentiable:
+    each step's gradient is its transpose."""
     def dims(spec):
         out = {}
         for d, ent in enumerate(spec):
@@ -682,7 +701,8 @@ def relayout(x, src, dst):
             x = all_gather(x, a, i)
         else:
             n = x.shape[j] // axis_size(a)
-            x = x.narrow(j, axis_index(a) * n, n)
+            x = x.narrow(j, axis_index(a) * n, n).clone(
+                memory_format=torch.contiguous_format)
     return x
 
 
@@ -716,14 +736,16 @@ def param_pspecs(specs):
 # --------------------------------------------------------------------------
 # A tree of parameters (or moments) by their param specs
 # --------------------------------------------------------------------------
-def shard_tree(whole, specs):
+def shard_tree(whole, specs, *, copy: bool = True):
     """This rank's block of every leaf of `whole` under its param spec
-    in `specs` (a tree of module Specs): contiguous copies (a donated
-    update of the blocks leaves `whole` as it is), no collective."""
-    return tree.map(lambda s, a: _block(a, resolve_spec(
-        s.axes, s.shape, "param")).clone(
-            memory_format=torch.contiguous_format),
-        specs, whole, is_leaf=mod.is_spec)
+    in `specs` (a tree of module Specs), no collective: contiguous
+    copies (a donated update of the blocks leaves `whole` as it is), or
+    with `copy=False` views of `whole` (one process holding every
+    rank's blocks beside the whole tree: `parallel.turns`)."""
+    def cut(s, a):
+        b = _block(a, resolve_spec(s.axes, s.shape, "param"))
+        return b.clone(memory_format=torch.contiguous_format) if copy else b
+    return tree.map(cut, specs, whole, is_leaf=mod.is_spec)
 
 
 def unshard_tree(blocks, specs):

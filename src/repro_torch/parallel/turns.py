@@ -200,18 +200,22 @@ def _stacked(op: str, xs: list, args: tuple) -> list:
     order: each rank's result, a tensor of its own."""
     n = len(xs)
     if op == "all_gather":
-        whole = torch.cat(xs, args[0])
-        return [whole.clone() for _ in range(n)]
+        return _owned(torch.cat(xs, args[0]), n)
     if op == "psum_scatter":
-        return [c.contiguous() for c in sum(xs).chunk(n, args[0])]
+        return [c.clone(memory_format=torch.contiguous_format)
+                for c in sum(xs).chunk(n, args[0])]
     if op == "all_to_all":
         split, concat = args
         parts = [x.chunk(n, split) for x in xs]
         return [torch.cat([p[j] for p in parts], concat) for j in range(n)]
     if op == "SUM":
-        total = sum(xs[1:], xs[0].clone())
-        return [total.clone() for _ in range(n)]
+        return _owned(sum(xs[1:], xs[0].clone()), n)
     if op == "MAX":
-        top = torch.stack(xs).amax(0)
-        return [top.clone() for _ in range(n)]
+        return _owned(torch.stack(xs).amax(0), n)
     raise ValueError(op)
+
+
+def _owned(t, n: int) -> list:
+    """`t` for the first rank and a copy of it for each other: every
+    rank's result a tensor of its own."""
+    return [t] + [t.clone() for _ in range(n - 1)]

@@ -17,7 +17,8 @@ reference's `jit(in_shardings=, out_shardings=)` from `param_shardings`:
 between steps each rank holds its block of every parameter and moment
 under its param spec (`shard_train_state`; FSDP's embed -> data
 included). A model of `sharding.BLOCK_FAMILIES` runs the block program:
-the step takes the rank's rows of the batch (`sharding.rows`) and
+the step takes the rank's rows of the batch (`sharding.rows(batch,
+microbatches)`: its share of each of the reference's microbatches) and
 
   1. takes the loss (vocab-parallel, over the global batch) and each
      leaf's gradient block on the blocks (`_block_grads_fn`: a layer's
@@ -137,7 +138,8 @@ def make_loss_fn(model, cfg, *, aux_coef: float = 0.01,
             loss = loss + aux_coef * extras["moe_aux"]
             metrics["moe_aux"] = extras["moe_aux"]
         if "mtp_logits" in extras:
-            mtp = cross_entropy(extras["mtp_logits"], batch["labels"][:, 1:])
+            mtp = cross_entropy(extras["mtp_logits"], batch["labels"][:, 1:],
+                                vocab=cfg.vocab_size)
             loss = loss + mtp_coef * mtp
             metrics["mtp_ce"] = mtp
         return loss, metrics
@@ -195,17 +197,24 @@ def make_grads_fn(model, cfg, *, microbatches: int = 1):
 
 
 def _block_grads_fn(model, loss_fn, microbatches: int):
-    """The block program's `grads_fn(param blocks, batch rows)`: every
-    rank seeds the loss (the same on every rank) with 1 / (the mesh's
+    """The block program's `grads_fn(param blocks, batch rows)`. The rows
+    are this rank's share of each of the reference's microbatches, in
+    order (`sharding.rows(batch, microbatches)`: microbatch i is the
+    global rows [i B/m, (i + 1) B/m), split over the batch axes as the
+    spec resolves on B/m rows, whole on the ranks that cannot split
+    it), so chunk i of the rank's rows is its share of microbatch i.
+    Each chunk's loss is that microbatch's one loss, the same on every
+    rank (the vocab-parallel loss and the MoE aux psum over every batch
+    axis, a replicated row counted on each of its ranks in the sum and
+    in the count alike); every rank seeds it with 1 / (the mesh's
     ranks), so that each collective's transpose sums the ranks' shares
-    into the gradient of the one loss; the microbatches split the rank's
-    rows (a rank splits no row, so its rows must divide by the count;
-    for a dense model the mean over equal chunks is the one gradient
-    however they fall), their gradients summed in float32 over the
-    count; then
-    each leaf's block is summed over the ranks that hold the same block
-    (`sharding.reduce_replicas`), a psum-scatter over data already done
-    where FSDP gathered it."""
+    into its gradient, and a rank that holds a row another holds too
+    seeds its own copy of the same loss: the sum over the ranks is the
+    gradient once. The chunks' gradients are summed in float32 over the
+    count (the reference's scan); then each leaf's block is summed over
+    the ranks that hold the same block (`sharding.reduce_replicas`), a
+    psum-scatter over data already done where FSDP gathered it. The
+    metrics carry the chunk count run ("chunks")."""
     ctx = sharding.current()
     pspecs = sharding.param_pspecs(model.param_specs())
     seed = 1.0 / math.prod(sharding.axis_sizes(ctx.mesh).values())
@@ -214,8 +223,10 @@ def _block_grads_fn(model, loss_fn, microbatches: int):
         with sharding.use_context(ctx):
             b = batch["tokens"].shape[0]
             if b % microbatches:
-                raise ValueError(f"this rank's {b} rows do not split into "
-                                 f"{microbatches} microbatches")
+                raise ValueError(
+                    f"this rank's {b} rows are not {microbatches} equal "
+                    "shares of microbatches (`sharding.rows(batch, "
+                    "microbatches)` lays them out)")
             chunks, n = microbatches, b // microbatches
             grads, losses, mets = None, [], []
             for i in range(chunks):
@@ -232,6 +243,7 @@ def _block_grads_fn(model, loss_fn, microbatches: int):
                 mets.append(metrics)
             metrics = {k: torch.stack([m[k] for m in mets]).mean()
                        for k in mets[0]}
+            metrics["chunks"] = chunks
             return ((torch.stack(losses).mean(), metrics),
                     sharding.reduce_replicas(grads, pspecs))
 

@@ -347,7 +347,8 @@ def _model(arch):
 
 def seq_parallel(rank, payload):
     """Megatron-SP on the reference's parameters: reduced granite-moe's
-    and deepseek-v3's `forward` with `seq_parallel` on a (2, 4) mesh;
+    and deepseek-v3's `forward` with `seq_parallel` on a (2, 4) mesh (the
+    block program: the rank's blocks and rows, the logits gathered);
     stablelm-12b's attention block through `attn_apply_sp` on (2, 4)
     (its 2 kv heads sliced) and (4, 2) (kv heads sharded); a dense
     FFN's two SP bodies, with and without FSDP; head-TP `attend` (kv
@@ -373,14 +374,19 @@ def seq_parallel(rank, payload):
             counts)])
     for arch in ("granite-moe-1b-a400m", "deepseek-v3-671b"):
         model = _model(arch)
-        params = _tree(payload, f"sp/{arch}/param/", model.param_specs())
+        specs = model.param_specs()
+        params = _tree(payload, f"sp/{arch}/param/", specs)
+        toks = _t(payload["sp/tokens"])
+        V, B = model.cfg.vocab_size, toks.shape[0]
         with sharding.use_mesh(m24, fsdp=False, seq_parallel=True,
                                capacity_factor=8.0):
-            logits, extras = model.forward(params,
-                                           _t(payload["sp/tokens"]))
-        out[f"sp/{arch}/forward"] = _n(logits)
-        if "mtp_logits" in extras:
-            out[f"sp/{arch}/mtp"] = _n(extras["mtp_logits"])
+            # the block program: this rank's blocks in, its blocks out
+            logits, extras = model.forward(sharding.shard_tree(params, specs),
+                                           sharding.rows(toks))
+            out[f"sp/{arch}/forward"] = _n(_whole_logits(logits, V, B))
+            if "mtp_logits" in extras:
+                out[f"sp/{arch}/mtp"] = _n(_whole_logits(
+                    extras["mtp_logits"], V, B))
         snap(arch)
     model = _model("stablelm-12b")
     cfg = model.cfg
@@ -557,8 +563,10 @@ def mesh_train(rank, payload):
     batches, for each arch of payload["mt/archs"] (remat on for those of
     payload["mt/remat"]): the whole gradient of the first batch, two
     steps' losses and grad norms and the parameters after each; for
-    gemma-2b the whole gradient and a step at microbatches=2 on (1, 2, 4)
-    (two rows a rank), and its
+    granite-moe the loss, aux loss and whole gradient on (2, 4, 1) (a
+    model axis of 1); for gemma-2b the whole gradient at microbatches=2 on (2, 2, 2) (each
+    microbatch split over pod alone) and the same and a step on (1, 2, 4)
+    (split over data), and its
     state after the two steps checkpointed on (2, 2, 2), restored on
     (1, 2, 4) and stepped once there and on (2, 2, 2) (the second
     moments after that step too)."""
@@ -575,6 +583,7 @@ def mesh_train(rank, payload):
 
     m222 = make_mesh((2, 2, 2), ("pod", "data", "model"))
     m124 = make_mesh((1, 2, 4), ("pod", "data", "model"))
+    m241 = make_mesh((2, 4, 1), ("pod", "data", "model"))
     opt_cfg = optim.OptConfig(**{k: payload[f"mt/opt/{k}"].item() for k in (
         "lr", "warmup_steps", "weight_decay")})
     remat = set(payload["mt/remat"].tolist())
@@ -604,8 +613,8 @@ def mesh_train(rank, payload):
             def cut(p):
                 return sharding.shard_tree(p, pspecs) if blocks else p
 
-            def rows(b):
-                return sharding.rows(b) if blocks else b
+            def rows(b, microbatches=1):
+                return sharding.rows(b, microbatches) if blocks else b
 
             def gathered(g):
                 return sharding.unshard_tree(g, pspecs) if blocks else g
@@ -630,25 +639,33 @@ def mesh_train(rank, payload):
                 put(pre + f"step{i + 1}/", whole[0])
             out[pre + "losses"] = np.asarray(losses)
             out[pre + "gnorms"] = np.asarray(norms)
+            if arch == "granite-moe-1b-a400m":
+                # a model axis of 1: `_moe_local` on the rank's rows
+                with sharding.use_mesh(m241):
+                    (loss, mets), grads = train_loop.make_grads_fn(
+                        model, cfg)(cut(params()), rows(batches[0]))
+                    put(pre + "m1grad/", gathered(grads))
+                out[pre + "m1/loss"] = _n(loss)
+                out[pre + "m1/moe_aux"] = _n(mets["moe_aux"])
             if arch != "gemma-2b":
                 continue
             p0 = params()
-            try:        # one row a rank on (2, 2, 2): it splits no row
-                train_loop.make_grads_fn(model, cfg, microbatches=2)(
-                    cut(p0), rows(batches[0]))
-                out[pre + "mb2_refused"] = np.asarray(False)
-            except ValueError:
-                out[pre + "mb2_refused"] = np.asarray(True)
-            # on (1, 2, 4): two rows a rank, which its microbatches split
+            # on (2, 2, 2): a microbatch of two rows splits over pod alone
+            # and stays whole over data, as GSPMD lays it out
+            (_, mets), grads = train_loop.make_grads_fn(
+                model, cfg, microbatches=2)(cut(p0), rows(batches[0], 2))
+            put(pre + "mb2grad222/", gathered(grads))
+            out[pre + "mb2chunks"] = np.asarray(mets["chunks"])
+            # on (1, 2, 4): each microbatch's two rows split over data
             with sharding.use_mesh(m124):
                 _, grads = train_loop.make_grads_fn(
-                    model, cfg, microbatches=2)(cut(p0), rows(batches[0]))
+                    model, cfg, microbatches=2)(cut(p0), rows(batches[0], 2))
                 put(pre + "mb2grad/", gathered(grads))
                 mb = train_loop.jit_train_step(model, cfg, opt_cfg,
                                                microbatches=2)
                 mstate = train_loop.shard_train_state(
                     model, opt_cfg, p0, optim.init_opt_state(p0, opt_cfg))
-                *mstate, m = mb(*mstate, rows(batches[0]))
+                *mstate, m = mb(*mstate, rows(batches[0], 2))
                 out[pre + "mb2/loss"] = _n(m["loss"])
                 put(pre + "mb2/", train_loop.unshard_train_state(
                     model, opt_cfg, *mstate)[0])
@@ -760,29 +777,56 @@ def dryrun_cell(rank, payload):
 
 # -- slice 15: the block program ---------------------------------------------
 def block_cfg(arch: str, kw_json: str):
-    """A reduced config with the fields of `kw_json` replaced."""
+    """A reduced config with the fields of `kw_json` replaced (a "moe"
+    entry a dict of the MoE config's fields)."""
     import dataclasses
     import json
 
     from repro_torch.configs.base import get_config, reduced
-    return dataclasses.replace(reduced(get_config(arch)),
-                               **json.loads(kw_json))
+    cfg = reduced(get_config(arch))
+    kw = json.loads(kw_json)
+    if "moe" in kw:
+        kw["moe"] = dataclasses.replace(cfg.moe, **kw["moe"])
+    return dataclasses.replace(cfg, **kw)
+
+
+def _record_assignments(moe):
+    """Wrap `moe._dispatch_indices` to list, while `on` holds a list,
+    each call's expert ids and whether each assignment kept its slot;
+    returns (the switch, the original function)."""
+    on = [None]
+    fn = moe._dispatch_indices
+
+    def wrapped(idx, w, E, C):
+        slot, keep = fn(idx, w, E, C)
+        if on[0] is not None:
+            on[0].append([idx.tolist(), keep.tolist()])
+        return slot, keep
+    moe._dispatch_indices = wrapped
+    return on, fn
 
 
 def blocks(rank, payload):
-    """The dense decoders' block program on a (2, 2, 2) (pod, data,
-    model) mesh, for each case of payload["bl/cases"] (a reduced config
-    with fields replaced, on the conditioned copy of the reference's
-    parameters): the first batch's loss and this rank's gradient blocks
-    (and the gradient gathered whole), two `jit_train_step`s (the
-    parameters after each, gathered whole), the prefill's last logits and
-    caches and one decode step's logits (gathered whole); and the shapes
-    a rank's step holds: the residual stream entering each layer, the
-    FFN hidden and the logits; with Megatron-SP (a case's fourth field
-    "1") the SP bodies its steps called."""
+    """The block program on a (2, 2, 2) (pod, data, model) mesh, for each
+    case of payload["bl/cases"] (a reduced config with fields replaced,
+    on the conditioned copy of the reference's parameters): the first
+    batch's loss (and an MoE's aux loss and MTP loss) and this rank's
+    gradient blocks (and the gradient gathered whole), two
+    `jit_train_step`s (the parameters after each, gathered whole), the
+    prefill's last logits and caches and one decode step's logits
+    (gathered whole); and the shapes a rank's step holds: the residual
+    stream entering each layer, the FFN hidden and the logits; with
+    Megatron-SP (a case's fourth field "1") the SP bodies its steps
+    called. An MoE case also gives one forward's MTP logits (gathered
+    whole) and its assignments (each dispatch's expert ids and kept
+    slots, as JSON); with a fifth field "1", the loss, aux loss,
+    gradient (gathered whole) and assignments of `make_grads_fn(
+    microbatches=2)` on the rank's share of each microbatch."""
+    import json
+
     from repro_torch import tree
     from repro_torch.launch.mesh import make_mesh
-    from repro_torch.models import ffn, transformer
+    from repro_torch.models import ffn, mla, moe, transformer
     from repro_torch.models.registry import build_model
     from repro_torch.parallel import sharding
     from repro_torch.train import optimizer as optim
@@ -793,9 +837,10 @@ def blocks(rank, payload):
         "lr", "warmup_steps", "weight_decay")})
     seen = {"residual": set(), "hidden": set()}
     block_fn, hidden_fn = transformer.superblock_apply, ffn.hidden
-    sp_names = ("attn_apply_sp", "_ffn_apply_sp", "_ffn_apply_wg")
-    sp_fns = {n: getattr(transformer if n == "attn_apply_sp" else ffn, n)
-              for n in sp_names}
+    sp_names = ("attn_apply_sp", "_ffn_apply_sp", "_ffn_apply_wg",
+                "mla_forward_sp")
+    sp_mods = {"attn_apply_sp": transformer, "mla_forward_sp": mla}
+    sp_fns = {n: getattr(sp_mods.get(n, ffn), n) for n in sp_names}
     sp_calls = []
 
     def sp_counted(name):
@@ -804,9 +849,8 @@ def blocks(rank, payload):
                 sp_calls.append(name)
             return sp_fns[name](*a, **kw)
         return call
-    transformer.attn_apply_sp = sp_counted("attn_apply_sp")
-    ffn._ffn_apply_sp = sp_counted("_ffn_apply_sp")
-    ffn._ffn_apply_wg = sp_counted("_ffn_apply_wg")
+    for n in sp_names:
+        setattr(sp_mods.get(n, ffn), n, sp_counted(n))
 
     def residual(params, x, *a, **kw):
         seen["residual"].add(tuple(x.shape))
@@ -817,12 +861,13 @@ def blocks(rank, payload):
         seen["hidden"].add(tuple(h.shape))
         return h
     transformer.superblock_apply, ffn.hidden = residual, hidden
+    assignments, dispatch_fn = _record_assignments(moe)
     out = {}
 
     def put(prefix, t):
         out.update({prefix + k: _n(a) for k, a in tree.flatten_with_keys(t)})
     try:
-        for case, arch, kw, sp in payload["bl/cases"].tolist():
+        for case, arch, kw, sp, mb in payload["bl/cases"].tolist():
             cfg = block_cfg(arch, kw)
             sp_calls.clear()
             model = build_model(cfg)
@@ -840,19 +885,43 @@ def blocks(rank, payload):
                 rows = [sharding.rows(b) for b in batches]
                 seen["residual"].clear()
                 seen["hidden"].clear()
-                (loss, _), grads = train_loop.make_grads_fn(model, cfg)(
+                (loss, mets), grads = train_loop.make_grads_fn(model, cfg)(
                     params, rows[0])
                 out[pre + "loss0"] = _n(loss)
+                for k in ("moe_aux", "mtp_ce"):
+                    if k in mets:
+                        out[pre + k + "0"] = _n(mets[k])
                 put(pre + "gblock/", grads)
                 put(pre + "grad/", sharding.unshard_tree(grads, specs))
                 out[pre + "shapes/residual"] = np.asarray(
                     sorted(seen["residual"]))
                 out[pre + "shapes/hidden"] = np.asarray(
                     sorted(seen["hidden"]))
-                logits, _ = model.forward(params, rows[0]["tokens"],
-                                          embeddings=rows[0].get(
-                                              "embeddings"))
+                assignments[0] = [] if cfg.moe is not None else None
+                logits, extras = model.forward(params, rows[0]["tokens"],
+                                               embeddings=rows[0].get(
+                                                   "embeddings"))
                 out[pre + "shapes/logits"] = np.asarray(logits.shape)
+                if cfg.moe is not None:
+                    out[pre + "assignments"] = np.asarray(json.dumps(
+                        sorted(assignments[0])))
+                    assignments[0] = None
+                if "mtp_logits" in extras:
+                    out[pre + "mtp"] = _n(_whole_logits(
+                        extras["mtp_logits"], V, B))
+                if mb == "1":
+                    assignments[0] = []
+                    (loss, mets), grads = train_loop.make_grads_fn(
+                        model, cfg, microbatches=2)(
+                            params, sharding.rows(batches[0], 2))
+                    out[pre + "mb2/assignments"] = np.asarray(json.dumps(
+                        sorted(assignments[0])))
+                    assignments[0] = None
+                    out[pre + "mb2/loss"] = _n(loss)
+                    out[pre + "mb2/moe_aux"] = _n(mets["moe_aux"])
+                    out[pre + "mb2/chunks"] = np.asarray(mets["chunks"])
+                    put(pre + "mb2grad/", sharding.unshard_tree(grads,
+                                                                specs))
                 state = train_loop.shard_train_state(
                     model, opt_cfg, whole, optim.init_opt_state(whole,
                                                                 opt_cfg))
@@ -882,10 +951,10 @@ def blocks(rank, payload):
                 out[pre + "decode"] = _n(_whole_logits(logits, V, B))
             out[pre + "sp_calls"] = np.asarray(sp_calls or [""])
     finally:
+        moe._dispatch_indices = dispatch_fn
         transformer.superblock_apply, ffn.hidden = block_fn, hidden_fn
-        transformer.attn_apply_sp = sp_fns["attn_apply_sp"]
-        ffn._ffn_apply_sp = sp_fns["_ffn_apply_sp"]
-        ffn._ffn_apply_wg = sp_fns["_ffn_apply_wg"]
+        for n in sp_names:
+            setattr(sp_mods.get(n, ffn), n, sp_fns[n])
     return out
 
 

@@ -1,27 +1,37 @@
-"""The dense decoders' block program on 8 gloo ranks, held against the
-JAX package's sharded step on 8 fake XLA devices.
+"""The block program on 8 gloo ranks, held against the JAX package's
+sharded step on 8 fake XLA devices.
 
-Under a `DeviceMesh` a model of `sharding.BLOCK_FAMILIES` (dense, vlm)
-runs each rank's own program on its blocks: the batch split over (pod,
-data), each layer's weights gathered over data inside it (FSDP), q/k/v
-and the FFN column-parallel and the out-projections row-parallel over
-`model`, the embedding and the loss vocab-parallel. The reference gets
-the same partition from GSPMD. One case a branch, each a reduced config
-`dataclasses.replace`d the same way in both packages, on a (2, 2, 2)
-(pod, data, model) mesh:
+Under a `DeviceMesh` a model of `sharding.BLOCK_FAMILIES` (dense, vlm,
+moe) runs each rank's own program on its blocks: the batch split over
+(pod, data), each layer's weights gathered over data inside it (FSDP),
+q/k/v and the FFN column-parallel and the out-projections row-parallel
+over `model`, the embedding and the loss vocab-parallel; an MoE's router
+and experts on the rank's tokens (expert parallelism over `model`, the
+aux loss global), MLA's heads over `model`, the MTP head on the rank's
+rows. The reference gets the same partition from GSPMD. One case a
+branch, each a reduced config `dataclasses.replace`d the same way in
+both packages, on a (2, 2, 2) (pod, data, model) mesh:
 
   gemma       reduced gemma-2b (H 4, KVH 1): head-TP, KV repeated
   codeqwen    reduced codeqwen1.5-7b (KVH 2): grouped head-TP
   cp          gemma-2b at H 3 / KVH 1: context parallelism
   vocab257    gemma-2b at vocab 257: the vocab replicated over model
   internvl    reduced internvl2-2b: the frontend splice
+  granite     reduced granite-moe (4 experts, top 2), its capacity
+              factor 0.5: `_moe_a2a`, drops; also at microbatches=2
+  deepseek    reduced deepseek-v3: MLA, a dense_big layer, MoE with a
+              shared expert at its factor 1.25 (drops), the MTP head
+  deepseek_sp deepseek-v3 with Megatron-SP: `mla_forward_sp`, the SP
+              FFNs, the MoE on the rank's S/M positions
 
 on the conditioned copy of the reference's parameters
 (`tests/_train_parity.py`). The ranks run once for the module
 (`_torch_ranks.run`, job `blocks`); the reference's numbers come from
-two subprocesses beside them.
+two subprocesses beside them (the dense cases, the MoE cases).
 
-Held: the first batch's loss at `LOSS_REL`; each rank's gradient block
+Held: the first batch's loss at `LOSS_REL` (an MoE's aux loss and MTP
+loss too, and its MTP logits and every dispatch's kept assignments, rank
+by rank); each rank's gradient block
 against the same block of the reference's gradient within `GRAD_REL`
 of the leaf's scale, bit-equal on the ranks that hold the same block;
 two `jit_train_step`s' losses (1e-5), clip norms (1e-4) and updates
@@ -60,15 +70,30 @@ CASES = {"gemma": ("gemma-2b", {}),
          "vocab257": ("gemma-2b", {"vocab_size": 257}),
          "internvl": ("internvl2-2b", {}),
          "sp": ("stablelm-12b", {}),
-         "sp_cp": ("gemma-2b", {"n_heads": 3})}
+         "sp_cp": ("gemma-2b", {"n_heads": 3}),
+         "granite": ("granite-moe-1b-a400m", {"moe": {"capacity_factor": 0.5}}),
+         "deepseek": ("deepseek-v3-671b", {}),
+         "deepseek_sp": ("deepseek-v3-671b", {})}
 BRANCH = {"gemma": "head_tp", "codeqwen": "head_tp", "cp": "cp",
           "vocab257": "head_tp", "internvl": "head_tp", "sp": "head_tp",
-          "sp_cp": "cp"}
+          "sp_cp": "cp", "granite": "head_tp", "deepseek": "mla",
+          "deepseek_sp": "mla"}
+# the MoE cases (family "moe"): reduced granite-moe (4 experts, top 2, GQA
+# head-TP, its config's capacity factor set to 0.5 so that assignments
+# drop) and reduced deepseek-v3 (MLA, one dense_big layer, then MoE with
+# a shared expert, the MTP head; its config's factor 1.25, which drops),
+# and deepseek-v3 with Megatron-SP
+MOE = ("granite", "deepseek", "deepseek_sp")
+# the cases that also run microbatches=2 against the reference's split
+MB2 = ("granite",)
 # the cases run with Megatron-SP on (both packages' `seq_parallel`), and
 # the SP bodies each takes: stablelm's attention through `attn_apply_sp`,
 # gemma's at H 3 (which `attn_apply_sp` does not take) on the gathered
-# stream; both FFNs by the reference's choice of body
-SP = {"sp": ("attn_apply_sp", "_ffn_apply_sp"), "sp_cp": ("_ffn_apply_sp",)}
+# stream; both FFNs by the reference's choice of body; deepseek's MLA
+# through `mla_forward_sp` in training, its first dense FFN and shared
+# expert by the reference's choice, the MoE on the rank's S/M positions
+SP = {"sp": ("attn_apply_sp", "_ffn_apply_sp"), "sp_cp": ("_ffn_apply_sp",),
+      "deepseek_sp": ("mla_forward_sp", "_ffn_apply_sp")}
 
 REFERENCE = """
 import os, sys
@@ -85,8 +110,41 @@ from repro.serve.kvcache import pad_caches
 from repro.train import optimizer as optim
 from repro.train.train_loop import jit_train_step, make_loss_fn
 from repro import perf
+from repro.models import moe
+from jax import lax
 
 inp = dict(np.load(sys.argv[1]))
+# each dispatch's expert ids and kept slots, by rank, while RECORD is on
+RECORD, assigned = [False], {r: [] for r in range(8)}
+_dispatch = moe._dispatch_indices
+
+
+def _recorded(idx, w, E, C):
+    slot, keep = _dispatch(idx, w, E, C)
+    if RECORD[0]:
+        jax.debug.callback(
+            lambda i, k, p, d, m: assigned[4 * int(p) + 2 * int(d)
+                                           + int(m)].append(
+                [np.asarray(i).tolist(), np.asarray(k).tolist()]),
+            idx, keep, lax.axis_index("pod"), lax.axis_index("data"),
+            lax.axis_index("model"))
+    return slot, keep
+
+
+moe._dispatch_indices = _recorded
+
+
+def recorded(fn):
+    # a fresh trace with the callback in; every rank's list, then cleared
+    RECORD[0] = True
+    try:
+        res = jax.block_until_ready(fn())
+    finally:
+        RECORD[0] = False
+    got = {r: json.dumps(sorted(a)) for r, a in assigned.items()}
+    for a in assigned.values():
+        a.clear()
+    return res, got
 cases = json.loads(sys.argv[3])
 OPT = optim.OptConfig(lr=float(inp["opt/lr"]),
                       warmup_steps=int(inp["opt/warmup_steps"]),
@@ -106,9 +164,13 @@ def put(prefix, t):
         out[prefix + key(k)] = np.asarray(a)
 
 
-for case, arch, kw, sp in cases:
+for case, arch, kw, sp, mb in cases:
     perf.set_flags(seq_parallel=sp == "1")
-    cfg = dataclasses.replace(reduced(get_config(arch)), **json.loads(kw))
+    cfg = reduced(get_config(arch))
+    kw = json.loads(kw)
+    if "moe" in kw:
+        kw["moe"] = dataclasses.replace(cfg.moe, **kw["moe"])
+    cfg = dataclasses.replace(cfg, **kw)
     model = build_model(cfg)
     flat, treedef = jax.tree_util.tree_flatten_with_path(
         model.param_specs(), is_leaf=is_spec)
@@ -121,9 +183,43 @@ for case, arch, kw, sp in cases:
     with sharding.use_mesh(mesh):
         vg = jax.jit(jax.value_and_grad(make_loss_fn(model, cfg),
                                         has_aux=True))
-        (loss, _), g = vg(params(), batches[0])
+        (loss, mets), g = vg(params(), batches[0])
         out[f"{case}/loss0"] = np.asarray(loss)
+        for k in ("moe_aux", "mtp_ce"):
+            if k in mets:
+                out[f"{case}/{k}0"] = np.asarray(mets[k])
         put(f"{case}/grad/", g)
+        if cfg.moe is not None:
+            (_, extras), got = recorded(lambda: jax.jit(model.forward)(
+                params(), batches[0]["tokens"]))
+            out.update({f"{case}/assignments/{r}": np.asarray(a)
+                        for r, a in got.items()})
+            if "mtp_logits" in extras:
+                out[f"{case}/mtp"] = np.asarray(extras["mtp_logits"])
+        if mb == "1":
+            # make_train_step's scan over microbatches=2: each one's
+            # gradient over two, summed in float32
+            gf = jax.value_and_grad(make_loss_fn(model, cfg), has_aux=True)
+
+            def mb2(p, b):
+                n = b["tokens"].shape[0] // 2
+                mbs = {k: v.reshape(2, n, *v.shape[1:]) for k, v in b.items()}
+
+                def body(acc, x):
+                    (l, m), g_ = gf(p, x)
+                    return jax.tree.map(lambda a, c: a + c.astype(
+                        jnp.float32) / 2, acc, g_), (l, m)
+                zeros = jax.tree.map(lambda a: jnp.zeros(a.shape,
+                                                         jnp.float32), p)
+                acc, (ls, ms) = lax.scan(body, zeros, mbs)
+                return ls.mean(), jax.tree.map(jnp.mean, ms), acc
+            (l, m, g), got = recorded(lambda: jax.jit(mb2)(params(),
+                                                           batches[0]))
+            out[f"{case}/mb2/loss"] = np.asarray(l)
+            out[f"{case}/mb2/moe_aux"] = np.asarray(m["moe_aux"])
+            put(f"{case}/mb2grad/", g)
+            out.update({f"{case}/mb2/assignments/{r}": np.asarray(a)
+                        for r, a in got.items()})
         step = jit_train_step(model, cfg, OPT)
         p = params()
         o = optim.init_opt_state(p, OPT)
@@ -151,11 +247,18 @@ np.savez(sys.argv[2], **out)
 """
 
 
+def _replaced(cfg, kw: dict):
+    """`cfg` with the fields of `kw` replaced (a "moe" entry a dict of the
+    MoE config's fields), as both packages' configs take them."""
+    import dataclasses
+    if "moe" in kw:
+        kw = dict(kw, moe=dataclasses.replace(cfg.moe, **kw["moe"]))
+    return dataclasses.replace(cfg, **kw)
+
+
 def _pair(arch: str, kw: dict):
     """The conditioned copy of the reference's parameters of the case's
     config, as the port's tree, and the port's config."""
-    import dataclasses
-
     import jax
 
     from repro.configs.base import get_config as jget_config
@@ -164,9 +267,9 @@ def _pair(arch: str, kw: dict):
     from repro_torch.configs.base import get_config, reduced
     from repro_torch.convert import params_from_numpy
     from repro_torch.models.registry import build_model
-    jm = jbuild(dataclasses.replace(jreduced(jget_config(arch)), **kw))
+    jm = jbuild(_replaced(jreduced(jget_config(arch)), kw))
     jp = jax.jit(jm.init)(jax.random.PRNGKey(0))
-    tm = build_model(dataclasses.replace(reduced(get_config(arch)), **kw))
+    tm = build_model(_replaced(reduced(get_config(arch)), kw))
     tp = params_from_numpy(jax.tree.map(np.asarray, jp), "cpu", model=tm)
     return tp_.conditioned(tp, tm.cfg), tm.cfg
 
@@ -195,14 +298,14 @@ def ranks(tmp_path_factory):
     d = tmp_path_factory.mktemp("blocks")
     inp = _inputs()
     np.savez(d / "in.npz", **inp)
-    cases = [[c, a, json.dumps(kw), str(int(c in SP))]
+    cases = [[c, a, json.dumps(kw), str(int(c in SP)), str(int(c in MB2))]
              for c, (a, kw) in CASES.items()]
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
     refs = [subprocess.Popen(
         [sys.executable, "-c", REFERENCE, str(d / "in.npz"),
          str(d / f"ref{i}.npz"), json.dumps(part)],
         stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True,
-        env=env) for i, part in enumerate((cases[:3], cases[3:]))]
+        env=env) for i, part in enumerate((cases[:7], cases[7:]))]
     try:
         payload = {f"bl/{k}": v for k, v in inp.items()}
         payload["bl/cases"] = np.asarray(cases)
@@ -336,20 +439,24 @@ def test_block_program_keeps_every_activation_a_block(ranks, case):
     logits each have this rank's `block_shape` under their activation
     spec ((batch, seq, embed), (batch, seq, mlp), (batch, seq, vocab));
     where the vocab does not split (257 over 2) the logits keep it
-    whole. Under Megatron-SP the residual stream is the rank's S/M
-    positions and the SP bodies ran (`SP`)."""
+    whole. An MoE's hidden are its dense FFN's and its shared expert's
+    (the MTP head's block at S - 1 tokens too); granite has none. Under
+    Megatron-SP the residual stream is the rank's S/M positions and the
+    SP bodies ran (`SP`)."""
     from repro_torch.launch.mesh import abstract_mesh
     from repro_torch.parallel import sharding
     _, got = ranks
     pre = f"bl/{case}/"
     _, cfg = _specs(case)
-    D, F, V = cfg.d_model, cfg.d_ff, cfg.vocab_size
+    D, V = cfg.d_model, cfg.vocab_size
     with sharding.use_mesh(abstract_mesh(SHAPE, AXES)):
-        want = {name: sharding.block_shape(shape, sharding.resolve_spec(
-            axes, shape, "act")) for name, shape, axes in (
-            ("residual", (B, S, D), ("batch", "seq", "embed")),
-            ("hidden", (B, S, F), ("batch", "seq", "mlp")),
-            ("logits", (B, S, V), ("batch", "seq", "vocab")))}
+        def blk(shape, axes):
+            return sharding.block_shape(shape, sharding.resolve_spec(
+                axes, shape, "act"))
+        want = {"residual": blk((B, S, D), ("batch", "seq", "embed")),
+                "logits": blk((B, S, V), ("batch", "seq", "vocab")),
+                "hidden": sorted(blk((B, s_, f), ("batch", "seq", "mlp"))
+                                 for s_, f in _hidden_widths(cfg))}
     if case in SP:
         want["residual"] = (1, S // 2, D)
         assert list(g[pre + "sp_calls"] for g in got[:1])[0].tolist() == \
@@ -357,35 +464,151 @@ def test_block_program_keeps_every_activation_a_block(ranks, case):
         for g in got:
             assert sorted(g[pre + "sp_calls"]) == sorted(SP[case])
         want.pop("hidden")      # the SP FFN's columns are its own
+    elif case in MOE:
+        assert want["hidden"] == sorted((1, s_, f // 2)
+                                        for s_, f in _hidden_widths(cfg))
     else:
-        assert want["hidden"] == (1, S, F // 2)
+        assert want["hidden"] == [(1, S, cfg.d_ff // 2)]
     assert want["residual"][:2] == (1, S // 2 if case in SP else S)
     assert want["logits"] == (1, S, V // 2 if V % 2 == 0 else V)
     for g in got:
         assert [tuple(s) for s in g[pre + "shapes/residual"]] == \
             [want["residual"]]
         if "hidden" in want:
-            assert [tuple(s) for s in g[pre + "shapes/hidden"]] == \
-                [want["hidden"]]
+            assert sorted(tuple(s) for s in g[pre + "shapes/hidden"]
+                          if len(s)) == want["hidden"]
         assert tuple(g[pre + "shapes/logits"]) == want["logits"]
     assert sharding.BLOCK_FAMILIES >= {cfg.family}
     assert BRANCH[case] == _branch(cfg)
 
 
+def _hidden_widths(cfg) -> set:
+    """(tokens a row, width) of every FFN hidden a train step of `cfg`
+    computes: its dense FFN, an MoE's first dense FFNs and shared
+    experts, and the MTP head's block (S - 1 tokens, the last layer's
+    kind)."""
+    from repro_torch.models.transformer import layer_plan
+    out = set()
+    plan = layer_plan(cfg)
+    blocks = [(S, k) for k in plan]
+    if cfg.mtp_depth:
+        blocks.append((S - 1, plan[-1]))
+    for s_, k in blocks:
+        if k.ffn == "dense":
+            out.add((s_, cfg.d_ff))
+        elif k.ffn == "dense_big":
+            out.add((s_, cfg.moe.d_ff_dense))
+        elif k.ffn == "moe" and cfg.moe.n_shared:
+            out.add((s_, cfg.moe.n_shared * cfg.moe.d_ff_shared))
+    return out
+
+
 def _branch(cfg) -> str:
     from repro_torch.launch.mesh import abstract_mesh
     from repro_torch.parallel import collectives, sharding
+    if cfg.use_mla:
+        return "mla"
     with sharding.use_mesh(abstract_mesh(SHAPE, AXES)):
         return collectives.attend_branch(S, cfg.n_kv_heads,
                                          cfg.n_heads // cfg.n_kv_heads)
 
 
+@pytest.mark.parametrize("case", MOE)
+def test_moe_aux_loss_is_the_reference_s_global_one(ranks, case):
+    """The switch aux loss E * sum_e f_e p_e of the first batch, f_e and
+    p_e means over every token of the batch (each rank's counts and
+    probability sums psummed over the axes that split the tokens): at
+    1e-5 against the reference's, the same on every rank; and
+    deepseek's MTP loss at 1e-5."""
+    ref, got = ranks
+    pre = f"bl/{case}/"
+    names = (("moe_aux", "mtp_ce") if case.startswith("deepseek")
+             else ("moe_aux",))
+    for name in names:
+        for g in got:
+            np.testing.assert_allclose(g[pre + name + "0"],
+                                       ref[f"{case}/{name}0"],
+                                       rtol=tp_.LOSS_REL)
+            np.testing.assert_array_equal(g[pre + name + "0"],
+                                          got[0][pre + name + "0"])
+    assert float(ref[f"{case}/moe_aux0"]) > 0
+
+
+@pytest.mark.parametrize("case", ["deepseek", "deepseek_sp"])
+def test_mtp_logits_match_the_reference(ranks, case):
+    """deepseek-v3's MTP head in the block program (the rank's rows, the
+    shifted tokens' embedding and the logits vocab-parallel, its block
+    an MoE block on blocks), with and without Megatron-SP in the trunk:
+    the logits for token t + 2, gathered whole, within MODEL_REL of the
+    reference's scale, the same on every rank."""
+    ref, got = ranks
+    want = ref[f"{case}/mtp"]
+    assert want.shape == (B, S - 1, _specs(case)[1].vocab_size)
+    for r, g in enumerate(got):
+        assert _rel(g[f"bl/{case}/mtp"], want) <= MODEL_REL, r
+        np.testing.assert_array_equal(g[f"bl/{case}/mtp"],
+                                      got[0][f"bl/{case}/mtp"])
+
+
+def _dropped(assignments: str) -> int:
+    return sum(k.count(False) for _, k in json.loads(assignments))
+
+
+@pytest.mark.parametrize("case", MOE)
+def test_capacity_drops_match_the_reference_assignment_for_assignment(
+        ranks, case):
+    """One forward at the case's capacity factor, where assignments drop:
+    on every rank each dispatch's expert ids and which assignments kept
+    a slot equal the reference's sharded forward's on the same rank (its
+    `_dispatch_indices` read by a debug callback a device): the same
+    capacity from the same tokens a rank, in the same order."""
+    ref, got = ranks
+    total = 0
+    for r, g in enumerate(got):
+        have = str(g[f"bl/{case}/assignments"])
+        assert have == str(ref[f"{case}/assignments/{r}"]), r
+        total += _dropped(have)
+    assert total > 0, "the case must drop"
+
+
+def test_microbatches_of_an_moe_match_the_reference_split(ranks):
+    """granite-moe at microbatches=2 on (2, 2, 2): each of the
+    reference's microbatches (rows [0, 2), [2, 4)) split over pod alone,
+    whole over data (`sharding.rows(batch, 2)`), its capacity and aux
+    reckoned from its own tokens. The loss and the aux at 1e-5, the
+    whole gradient within GRAD_REL of its scale against the reference's
+    scan over the microbatches, every rank's dispatches equal to the
+    reference's; two chunks run. The aux differs from the one-batch
+    step's: the split matters."""
+    ref, got = ranks
+    pre = "bl/granite/mb2"
+    want = _leaves(ref, "granite/mb2grad/")
+    for r, g in enumerate(got):
+        for name in ("loss", "moe_aux"):
+            np.testing.assert_allclose(g[f"{pre}/{name}"],
+                                       ref[f"granite/mb2/{name}"],
+                                       rtol=tp_.LOSS_REL)
+        assert int(g[f"{pre}/chunks"]) == 2
+        have = _leaves(g, pre + "grad/")
+        assert sorted(have) == sorted(want)
+        worst = {k: _rel(have[k], w) for k, w in want.items()}
+        assert max(worst.values()) <= tp_.GRAD_REL, (r, worst)
+        assert str(g[f"{pre}/assignments"]) == \
+            str(ref[f"granite/mb2/assignments/{r}"]), r
+    assert abs(float(ref["granite/mb2/moe_aux"])
+               - float(ref["granite/moe_aux0"])) > 1e-6
+
+
 def test_chip_smoke_phase16_at_cpu_size(ranks):
     """`chip_smoke.py`'s phase 16 at CPU size (`BLOCKS_CPU`: reduced
     gemma-2b at 3 heads, context parallelism, and codeqwen1.5-7b at 4 kv
-    heads, grouped head-TP, depth 2, on a (data 2, model 4) grid): the
-    phase runs (its float32 holds against the unsharded steps, within
-    SP_HOLD, raise on a miss), and its 8 ranks run in turns in this
+    heads, grouped head-TP, depth 2; reduced granite-moe, repeated
+    head-TP and 4 experts, and deepseek-v3, MLA, one dense_big layer,
+    then MoE, with no MTP head as the card runs it; on a (data 2,
+    model 4) grid): the phase
+    runs (its float32 holds against the unsharded steps, within SP_HOLD,
+    raise on a miss; an MoE's at a capacity factor where none of its
+    assignments drops), and its 8 ranks run in turns in this
     process give, rank by rank, every output the 8 gloo ranks gave for
     the same steps (the loss, each gradient block, the prefill's logits
     and caches, the decode step's logits) within TURNS_REL of its scale:
@@ -421,6 +644,10 @@ def test_chip_smoke_phase16_at_cpu_size(ranks):
                     assert _rel(a.detach().float().numpy(), want) \
                         <= TURNS_REL, (arch, r, k)
         assert {a: v["branch"] for a, v in res["archs"].items()} == {
-            "gemma-2b": "cp", "codeqwen1.5-7b": "head_tp"}
+            "gemma-2b": "cp", "codeqwen1.5-7b": "head_tp",
+            "granite-moe-1b-a400m": "head_tp", "deepseek-v3-671b": "mla"}
+        for arch in ("granite-moe-1b-a400m", "deepseek-v3-671b"):
+            r = res["archs"][arch]
+            assert r["hold_drops"] == 0 < r["hold_assignments"], arch
     finally:
         tdevice.set_default(prev)

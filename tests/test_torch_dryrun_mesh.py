@@ -19,8 +19,9 @@ within 1 % of the reference's; its collectives (wire bytes, and counts
 and bytes by op) and FLOPs are equal to what rank 0 of the gloo run
 dispatched, and every gloo rank dispatched the same: the fake trace
 counts what the real program does. The train, prefill (4 x 32) and
-decode (4 slots of 32) cells each cost what the reference's compiled
-cell does per device: FLOPs within 5 % (less the flash recompute in
+decode (4 slots of 32) cells of gemma-2b and of reduced deepseek-v3 (the
+MoE family: MLA, MoE, the MTP head) each cost what the reference's
+compiled cell does per device: FLOPs within 5 % (less the flash recompute in
 train), arguments within 1 %, temp bytes within 2× in train and
 prefill."""
 import json
@@ -40,6 +41,9 @@ B, S = 4, 32
 ARG_REL = 0.01
 FLOP_REL = 0.05
 TEMP_X = 2.0
+# the dense decoder and the MoE (MLA, a dense_big layer, MoE layers, the
+# MTP head) of the block program
+ARCHS = ("gemma-2b", "deepseek-v3-671b")
 
 FAKE = f"""
 import json
@@ -54,15 +58,19 @@ from repro_torch.parallel import sharding
 device.set_default("cpu")
 dist.init_process_group("fake", rank=0, world_size=8, store=FakeStore())
 mesh = make_mesh((2, 2, 2), ("pod", "data", "model"))
-cfg = reduced(get_config("gemma-2b"))
 out = {{}}
-for kind in ("train", "prefill", "decode"):
-    with sharding.use_mesh(mesh), FakeTensorMode(allow_non_fake_inputs=True):
-        _, step, args = dryrun.cell_step(cfg, ShapeConfig("t", {S}, {B}, kind),
-                                         dict(dryrun.FLAGS), "cpu")
-        res = dryrun.trace(step, args)
-    out[kind] = {{k: res[k] for k in ("flops", "flash_flops", "collective",
-                                      "memory")}}
+for arch in {ARCHS!r}:
+    cfg = reduced(get_config(arch))
+    for kind in ("train", "prefill", "decode"):
+        with sharding.use_mesh(mesh), \
+                FakeTensorMode(allow_non_fake_inputs=True):
+            _, step, args = dryrun.cell_step(
+                cfg, ShapeConfig("t", {S}, {B}, kind), dict(dryrun.FLAGS),
+                "cpu")
+            res = dryrun.trace(step, args)
+        out.setdefault(arch, {{}})[kind] = {{
+            k: res[k] for k in ("flops", "flash_flops", "collective",
+                                "memory")}}
 dist.destroy_process_group()
 print(json.dumps(out))
 """
@@ -80,10 +88,12 @@ from repro.parallel import sharding
 from repro.train import optimizer as optim
 from repro.train.train_loop import make_train_step
 from repro.utils import hlo_cost
-cfg = reduced(get_config("gemma-2b"))
 mesh = make_mesh((2, 2, 2), ("pod", "data", "model"))
 out = {{}}
-with sharding.use_mesh(mesh):
+for arch in {ARCHS!r}:
+  cfg = reduced(get_config(arch))
+  out[arch] = {{}}
+  with sharding.use_mesh(mesh):
     model = build_model(cfg)
     specs = model.param_specs()
     params = sharding.abstract_with_shardings(specs, cfg.dtype)
@@ -103,9 +113,10 @@ with sharding.use_mesh(mesh):
             compiled = jax.jit(model.decode_step, donate_argnums=(2,)).lower(
                 params, ins["tokens"], ins["cache"], ins["pos"]).compile()
         mem = compiled.memory_analysis()
-        out[kind] = {{"argument_bytes": mem.argument_size_in_bytes,
-                      "temp_bytes": mem.temp_size_in_bytes,
-                      "flops": hlo_cost.analyze(compiled.as_text())["flops"]}}
+        out[arch][kind] = {{
+            "argument_bytes": mem.argument_size_in_bytes,
+            "temp_bytes": mem.temp_size_in_bytes,
+            "flops": hlo_cost.analyze(compiled.as_text())["flops"]}}
 print(json.dumps(out))
 """
 
@@ -142,7 +153,7 @@ def runs(tmp_path_factory):
 
 def test_argument_bytes_are_the_reference_s_per_device_arguments(runs):
     fake, ref, _ = runs
-    fake, ref = fake["train"], ref["train"]
+    fake, ref = fake["gemma-2b"]["train"], ref["gemma-2b"]["train"]
     got, want = fake["memory"]["argument_bytes"], ref["argument_bytes"]
     print("argument bytes: port", got, "reference", want)
     assert abs(got - want) <= ARG_REL * want
@@ -150,17 +161,20 @@ def test_argument_bytes_are_the_reference_s_per_device_arguments(runs):
         - 1 and fake["memory"]["temp_bytes"] > 0
 
 
+@pytest.mark.parametrize("arch", ARCHS)
 @pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
-def test_block_program_cell_costs_the_reference_s_per_device(runs, kind):
+def test_block_program_cell_costs_the_reference_s_per_device(runs, kind,
+                                                             arch):
     """The block program traced (this rank's blocks, its rows; decode
     on its param-rule block of the caches) against the reference's
-    compiled cell: `flops_dev`, less the recompute in the train cell
+    compiled cell, reduced gemma-2b and reduced deepseek-v3 (MLA, its
+    MoE and MTP head): `flops_dev`, less the recompute in the train cell
     (one flash forward a layer: the port's flash backward recomputes it),
     within FLOP_REL; the arguments within ARG_REL; the temp bytes within
     TEMP_X of the reference's in train and prefill (a decode's writes its
     caches in place and is only printed)."""
     fake, ref, _ = runs
-    fake, ref = fake[kind], ref[kind]
+    fake, ref = fake[arch][kind], ref[arch][kind]
     flops = fake["flops"] - (fake["flash_flops"] if kind == "train" else 0)
     mem = fake["memory"]
     print(kind, "flops", flops, ref["flops"], "args", mem["argument_bytes"],
@@ -175,7 +189,7 @@ def test_block_program_cell_costs_the_reference_s_per_device(runs, kind):
 
 def test_fake_trace_counts_what_the_gloo_ranks_moved(runs):
     fake, _, ranks = runs
-    fake = fake["train"]
+    fake = fake["gemma-2b"]["train"]
     coll = fake["collective"]
     ops = sorted(coll["counts"])
     assert ops and coll["wire_bytes"] > 0

@@ -131,6 +131,17 @@ for arch in archs:
             put(f"{arch}/v{i + 1}/", o["v"])
         out[f"{arch}/losses"] = np.asarray(losses)
         out[f"{arch}/gnorms"] = np.asarray(norms)
+    if arch == "granite-moe-1b-a400m":
+        # a model axis of 1: the experts' loop on every device's rows
+        with sharding.use_mesh(make_mesh((2, 4, 1),
+                                         ("pod", "data", "model"))):
+            (loss, mets), g = jax.jit(jax.value_and_grad(
+                make_loss_fn(model, cfg), has_aux=True))(
+                    params(model, arch), batches[0])
+        out[f"{arch}/m1/loss"] = np.asarray(loss)
+        out[f"{arch}/m1/moe_aux"] = np.asarray(mets["moe_aux"])
+        put(f"{arch}/m1grad/", g)
+    with sharding.use_mesh(mesh):
         if arch == "gemma-2b":
             # the scan of make_train_step's microbatches=2: each half's
             # gradient over two, summed in float32
@@ -307,25 +318,28 @@ def test_each_rank_holds_the_reference_blocks(ranks, arch):
 
 
 def test_microbatches_on_a_mesh_match_the_reference(ranks):
-    """gemma-2b at microbatches=2 on (1, 2, 4), where a rank's two rows
-    split in two (its block program splits no row): the whole gradient of
-    `make_grads_fn(microbatches=2)` against the reference's scan of
-    `jax.value_and_grad` over the two halves (each leaf within GRAD_REL
-    of its scale, bit-equal on every rank); the sharded step's loss at
-    1e-5 against the reference's `jit_train_step(microbatches=2)` and its
-    update by `_hold_update`. On (2, 2, 2) a rank holds one row, and
-    microbatches=2 raises."""
+    """gemma-2b at microbatches=2 on (2, 2, 2), one row a rank, where
+    each of the reference's microbatches (rows [0, 2) and [2, 4)) splits
+    over pod alone and stays whole over data (`sharding.rows(batch, 2)`,
+    as GSPMD lays it out), and on (1, 2, 4), where each splits over
+    data: the whole gradient of `make_grads_fn(microbatches=2)` against
+    the reference's scan of `jax.value_and_grad` over the two halves
+    (each leaf within GRAD_REL of its scale, bit-equal on every rank),
+    two chunks run; on (1, 2, 4) the sharded step's loss at 1e-5
+    against the reference's `jit_train_step(microbatches=2)` and its
+    update by `_hold_update`."""
     ref, got, _, _ = ranks
-    assert all(bool(r["mt/gemma-2b/mb2_refused"]) for r in got)
     want = _leaves(ref, "gemma-2b/mb2grad/")
-    have = _leaves(got[0], "mt/gemma-2b/mb2grad/")
-    assert sorted(have) == sorted(want)
-    worst = {k: float(np.abs(have[k] - w).max() / max(np.abs(w).max(),
-                                                       1e-30))
-             for k, w in want.items()}
-    assert max(worst.values()) <= tp_.GRAD_REL, worst
-    for k in have:
-        _rank_equal(got, "mt/gemma-2b/mb2grad/" + k)
+    for name in ("mb2grad222/", "mb2grad/"):
+        have = _leaves(got[0], "mt/gemma-2b/" + name)
+        assert sorted(have) == sorted(want)
+        worst = {k: float(np.abs(have[k] - w).max()
+                          / max(np.abs(w).max(), 1e-30))
+                 for k, w in want.items()}
+        assert max(worst.values()) <= tp_.GRAD_REL, (name, worst)
+        for k in have:
+            _rank_equal(got, "mt/gemma-2b/" + name + k)
+    assert all(int(g["mt/gemma-2b/mb2chunks"]) == 2 for g in got)
     np.testing.assert_allclose(got[0]["mt/gemma-2b/mb2/loss"],
                                ref["gemma-2b/mb2/loss"], rtol=tp_.LOSS_REL)
     want = _leaves(ref, "gemma-2b/mb2/")
@@ -335,6 +349,32 @@ def test_microbatches_on_a_mesh_match_the_reference(ranks):
     start = _leaves(ref, "gemma-2b/param/")
     _hold_update("gemma-2b mb2", start, have, start, want,
                  _leaves(ref, "gemma-2b/mb2v/"), 1)
+
+
+def test_moe_on_a_mesh_whose_model_axis_is_1_matches_the_reference(ranks):
+    """granite-moe on (2, 4, 1), where the model axis has one rank: the
+    block program's `_moe_local` on each rank's rows (its four rows split
+    over pod alone, whole over data) with the experts gathered whole
+    from their FSDP blocks, no capacity, the aux loss global. The loss
+    and the aux loss at 1e-5 and the whole gradient within GRAD_REL of
+    its scale against the reference's sharded step on the same mesh,
+    bit-equal on every rank."""
+    ref, got, _, _ = ranks
+    pre = "mt/granite-moe-1b-a400m/m1"
+    for name in ("loss", "moe_aux"):
+        for g in got:
+            np.testing.assert_allclose(
+                g[f"{pre}/{name}"], ref[f"granite-moe-1b-a400m/m1/{name}"],
+                rtol=tp_.LOSS_REL)
+    want = _leaves(ref, "granite-moe-1b-a400m/m1grad/")
+    have = _leaves(got[0], pre + "grad/")
+    assert sorted(have) == sorted(want)
+    worst = {k: float(np.abs(have[k] - w).max() / max(np.abs(w).max(), 1e-30))
+             for k, w in want.items()}
+    assert max(worst.values()) <= tp_.GRAD_REL, worst
+    for k in have:
+        _rank_equal(got, pre + "grad/" + k)
+    assert float(ref["granite-moe-1b-a400m/m1/moe_aux"]) > 0
 
 
 def test_checkpoint_resumes_on_another_mesh_one_process_and_the_reference(

@@ -9,10 +9,11 @@ The ranks run once for the module (`_torch_ranks.run`, job
   * reduced granite-moe-1b-a400m's and deepseek-v3's `forward` of a
     (4, 16) batch with `seq_parallel` on a (2, 4) (data, model) mesh,
     `fsdp=False`, capacity factor 8 (`tests/test_sharded.py::
-    test_seq_parallel_forward_matches_local`): attention through
-    `attn_apply_sp`, deepseek's MLA through `mla_forward_sp`, its
-    shared expert and first dense FFN through the SP FFN, the MoE
-    through `_moe_a2a`, and deepseek's MTP head;
+    test_seq_parallel_forward_matches_local`), in the block program
+    (each rank its blocks and rows, the stream its S/M positions):
+    attention through `attn_apply_sp`, deepseek's MLA through
+    `mla_forward_sp`, its shared expert and first dense FFN through the
+    SP FFN, the MoE through `_moe_a2a`, and deepseek's MTP head;
   * reduced stablelm-12b's attention block (H 4 on 2 kv heads) through
     `attn_apply_sp` on (2, 4) (the kv heads sliced by rank) and (4, 2)
     (the kv heads sharded), FSDP weights gathered over data;

@@ -1,11 +1,31 @@
 #!/usr/bin/env python3
-"""Run `chip_smoke.py`'s phase 16 alone on the card (the dense decoders'
-block program rank by rank on a (data 2, model 16) grid: gemma-2b and
-codeqwen1.5-7b at full width, depth 2; float32 holds against the
-unsharded steps, each rank's bf16 device ms). Card only:
+"""Run `chip_smoke.py`'s phase 16 alone on the card (the block program
+rank by rank on a (data 2, model 16) grid: gemma-2b, codeqwen1.5-7b,
+granite-moe-1b-a400m and deepseek-v3-671b at full width; float32 holds
+against the unsharded steps, each rank's bf16 device ms). Card only:
 
-    python3 tools/blocks/probe.py
+    python3 tools/blocks/probe.py [--arch granite-moe-1b-a400m,...]
     python3 tools/blocks/probe.py --rounding
+    python3 tools/blocks/probe.py --routing
+    python3 tools/blocks/probe.py --memory --arch deepseek-v3-671b
+
+`--arch` runs only the named archs of `chip_smoke.BLOCKS`.
+
+`--memory` runs phase 16 (for the archs of `--arch`) with the card's
+allocated GiB printed before and after each collective of more than a
+GiB in all (the largest of each kind and shape) and, at the first
+all-to-all, the live allocations counted by size.
+
+`--routing` runs only the MoE archs' float32 prefill unsharded, on three
+copies of their parameters: the conditioned copy, the same with the
+input embedding table at its drawn scale (`chip_smoke.routed`'s table
+alone), and `chip_smoke.routed`. For each MoE layer it prints the
+router logits' spread across tokens (each expert's standard deviation
+over the tokens, their mean) beside the spread across experts of the
+mean logit, the mean cosine between two router inputs of one rank's
+block of tokens (a row's S/M positions), the most assignments one such
+block sends one expert and the float32 hold's capacity factor
+(`chip_smoke.blocks_hold_cf`).
 
 `--rounding` runs only gemma-2b's float32 train step, at 2 x 1024 and
 2 x 4096 tokens, and prints each gradient leaf's difference over its
@@ -84,6 +104,113 @@ def rounding(torch, c, dev) -> dict:
     return out
 
 
+def routing(torch, c, dev) -> dict:
+    """The MoE archs' routing on three copies of their parameters."""
+    import math
+
+    from repro_torch import tree
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import moe
+    from repro_torch.models.registry import build_model
+    Z = c.BLOCKS
+    n = Z.seq // Z.model                    # a rank's block of a row
+    seen, route = [], moe.route
+
+    def watched(p, x, cfg, **kw):
+        out = route(p, x, cfg, **kw)
+        seen.append((x[0, -n:].float(), x.float() @ p["router"]["w"],
+                     out[1]))
+        return out
+    out = {}
+    for arch, kw in Z.archs:
+        cfg = c.blocks_cfg(arch, kw, Z, "float32")
+        if cfg.moe is None:
+            continue
+        model = build_model(cfg)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        cond = c.conditioned(model.init(gen, device=dev), cfg)
+        batch = launch_train.make_batch_fn(cfg, Z.batch, Z.seq,
+                                           device=dev)(0)
+        D = cfg.d_model
+        res = {}
+        for name in ("conditioned", "embedding_at_1", "routed"):
+            params = cond if name == "conditioned" else \
+                c.routed(cond, cfg) if name == "routed" else \
+                tree.unflatten(cond, [
+                    a * math.sqrt(D) if k == "embed/table" else
+                    a / math.sqrt(D) if (k == "final_norm/scale"
+                                         and cfg.tie_embeddings) else a
+                    for k, a in tree.flatten_with_keys(cond)])
+            moe.route = watched
+            try:
+                with torch.no_grad():
+                    model.prefill(params, batch["tokens"])
+            finally:
+                moe.route = route
+            del params
+            layers = []
+            for blk, lg, idx in seen:
+                lg = lg.reshape(-1, cfg.moe.n_experts)
+                u = blk / blk.norm(dim=-1, keepdim=True)
+                layers.append(dict(
+                    logit_spread_tokens=float(lg.std(0).mean()),
+                    logit_spread_experts_of_mean=float(lg.mean(0).std()),
+                    block_cosine=float(u.mean(0).norm() ** 2),
+                    most_to_one_expert=int(max(
+                        torch.bincount(idx[b, j:j + n].reshape(-1).long(),
+                                       minlength=cfg.moe.n_experts).max()
+                        for b in range(idx.shape[0])
+                        for j in range(0, Z.seq, n))),
+                    hold_cf=c.blocks_hold_cf(torch, cfg, [idx], Z)))
+                c.log(f"routing: {arch} {name} moe layer {len(layers) - 1}"
+                      f" ({n} tokens a block, {cfg.moe.top_k} of "
+                      f"{cfg.moe.n_experts} experts): " + ", ".join(
+                          f"{k} {v:.4g}" for k, v in layers[-1].items()))
+            seen.clear()
+            res[name] = layers
+        out[arch] = res
+        del model, cond, batch
+        c.free_device_memory(torch)
+    return out
+
+
+def memory(torch, np, c, dev, Z) -> dict:
+    """Phase 16 with the card's allocations read at its big
+    collectives."""
+    import collections
+
+    from repro_torch.parallel import turns
+    stacked, seen, snap = turns._stacked, {}, []
+
+    def watched(op, xs, args):
+        big = sum(x.numel() * x.element_size() for x in xs) > 2**30
+        before = torch.cuda.memory_allocated() / 2**30
+        if big and op == "all_to_all" and not snap:
+            sizes = collections.Counter(
+                b["size"] for seg in torch.cuda.memory_snapshot()
+                for b in seg["blocks"] if b["state"] == "active_allocated")
+            snap.append(sorted(((n * sz, sz, n) for sz, n in sizes.items()),
+                               reverse=True)[:16])
+            c.log("memory: live at the first all-to-all: " + ", ".join(
+                f"{n} x {sz / 2**20:.2f} MiB" for _, sz, n in snap[0]))
+        out = stacked(op, xs, args)
+        if big:
+            k = f"{op} {tuple(xs[0].shape)}"
+            a, b, n = seen.get(k, (0.0, 0.0, 0))
+            seen[k] = (max(a, before), max(b, torch.cuda.memory_allocated()
+                                           / 2**30), n + 1)
+        return out
+    turns._stacked = watched
+    try:
+        out = c.phase_blocks(torch, np, dev, Z, c.Timer(torch))
+    finally:
+        turns._stacked = stacked
+        for k, (a, b, n) in seen.items():
+            c.log(f"memory: {k}: {a:.2f} GiB before, {b:.2f} after "
+                  f"(largest of {n})")
+    return dict(out, collectives_gib=seen)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -101,9 +228,19 @@ def main() -> int:
     t0 = time.perf_counter()
     if "--rounding" in sys.argv[1:]:
         out = rounding(torch, c, dev)
+    elif "--routing" in sys.argv[1:]:
+        out = routing(torch, c, dev)
     else:
         _build.build(("flash_attention",))
-        out = c.phase_blocks(torch, np, dev, c.BLOCKS, c.Timer(torch))
+        Z = c.BLOCKS
+        if "--arch" in sys.argv[1:]:
+            want = sys.argv[sys.argv.index("--arch") + 1].split(",")
+            Z = dataclasses.replace(Z, archs=tuple(
+                a for a in Z.archs if a[0] in want))
+        if "--memory" in sys.argv[1:]:
+            out = memory(torch, np, c, dev, Z)
+        else:
+            out = c.phase_blocks(torch, np, dev, Z, c.Timer(torch))
     c.log(f"took {time.perf_counter() - t0:.1f} s")
     c.log(json.dumps(out, default=str))
     c.log(c.smi_line())
