@@ -6244,22 +6244,32 @@ class BlockSizes:
 # experts over model 16), depth 2, and deepseek-v3-671b (MLA, 8 heads a
 # rank; three dense_big layers, then one MoE layer of 256 experts),
 # depth 4 with no MTP head, lean (prefill and decode only, fsdp off,
-# Megatron-SP); both MoE configs on the routed copy (`routed`)
+# Megatron-SP); both MoE configs on the routed copy (`routed`); the SSM
+# mamba2-780m (3 of 48 heads, 192 of 3072 inner channels a rank; its
+# vocab of 50280 whole over model 16), depth 2, and the hybrid
+# recurrentgemma-2b (160 of 2560 lru channels a rank; H 10 / KVH 1:
+# context-parallel window attention), depth 3: (rec, rec, attn)
 BLOCKS = BlockSizes(archs=(("gemma-2b", ()), ("codeqwen1.5-7b", ()),
                            ("granite-moe-1b-a400m", ()),
                            ("deepseek-v3-671b", (("n_layers", 4),
-                                                 ("mtp_depth", 0)))),
+                                                 ("mtp_depth", 0))),
+                           ("mamba2-780m", ()),
+                           ("recurrentgemma-2b", (("n_layers", 3),))),
                     reduce=False, layers=2, data=2, model=16, batch=2,
                     seq=4096, reps=1, lean=("deepseek-v3-671b",))
 # at CPU size, on the 8 gloo ranks' grid: gemma-2b at 3 heads (context
 # parallelism over model 4) and codeqwen1.5-7b at 4 kv heads (grouped);
 # reduced granite-moe (4 experts) and deepseek-v3 (MLA, one dense_big
-# layer, then MoE, no MTP head as on the card), at 4 heads over model 4
+# layer, then MoE, no MTP head as on the card), at 4 heads over model 4;
+# reduced mamba2-780m (4 of 16 heads a rank) and recurrentgemma-2b
+# (16 of 64 lru channels a rank, window 8 < 16 tokens: head-TP), depth 3
 BLOCKS_CPU = BlockSizes(archs=(("gemma-2b", (("n_heads", 3),)),
                                ("codeqwen1.5-7b", (("n_kv_heads", 4),)),
                                ("granite-moe-1b-a400m", ()),
                                ("deepseek-v3-671b", (("n_layers", 3),
-                                                     ("mtp_depth", 0)))),
+                                                     ("mtp_depth", 0))),
+                               ("mamba2-780m", ()),
+                               ("recurrentgemma-2b", (("n_layers", 3),))),
                         reduce=True, layers=2, data=2, model=4, batch=2,
                         seq=16, reps=1)
 BLOCK_AXES = ("data", "model")
@@ -6448,7 +6458,7 @@ def blocks_specs(model, cfg, Z) -> dict:
     """Each output of `blocks_step` as {name: (its rank-block spec tree,
     its whole shape tree)} on the (data, model) grid: the gradients by
     their param specs, the logits by (batch, seq, vocab), the prefill's
-    caches by (layers, batch, kv_seq) as the block program lays them."""
+    caches as the block program lays them (`prefill_cache_pspecs`)."""
     from repro_torch.launch.mesh import abstract_mesh
     from repro_torch.models import module as mod
     from repro_torch.parallel import sharding
@@ -6460,9 +6470,7 @@ def blocks_specs(model, cfg, Z) -> dict:
         logit = sharding.resolve_spec(("batch", "seq", "vocab"), (B, 1, V),
                                       "act")
         caches = model.cache_specs(B, S)
-        cspec = mod.tree_map_specs(lambda s: sharding.P(None) + tuple(
-            sharding.resolve_spec(("batch", "kv_seq"), s.shape[1:3], "act")),
-            caches)
+        cspec = model.prefill_cache_pspecs(B, S)
     return {"grads": grads, "prefill": (logit, (B, 1, V)),
             "decode": (logit, (B, 1, V)),
             "caches": (cspec, mod.tree_map_specs(lambda s: s.shape,
@@ -6585,6 +6593,7 @@ def _phase_blocks(torch, np, dev, Z, T) -> dict:
     """`phase_blocks` on the allocator it sets."""
 
     from repro_torch.kernels import _build
+    from repro_torch.models.transformer import layer_plan
     from repro_torch.parallel import collectives
     from repro_torch.parallel.turns import Turns
     from repro_torch.launch.mesh import abstract_mesh
@@ -6640,7 +6649,9 @@ def _phase_blocks(torch, np, dev, Z, T) -> dict:
             free_device_memory(torch)
             torch.cuda.reset_peak_memory_stats()
         H, M = cfg.n_heads, Z.model
-        if cfg.use_mla:
+        if cfg.is_attention_free:
+            branch, lay = "none", None
+        elif cfg.use_mla:
             branch = "mla"
             lay = (H // M, H // M, flash_layout(cfg)[2], 0)
         else:
@@ -6649,9 +6660,13 @@ def _phase_blocks(torch, np, dev, Z, T) -> dict:
                     Z.seq, cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads)
             kv_split = cfg.n_kv_heads % M == 0
             KVH, hd = cfg.n_kv_heads, cfg.resolved_head_dim
-            lay = ((H, KVH, hd, 0) if branch != "head_tp" else
-                   (H // M, (KVH if kv_split else H) // M, hd, 0))
+            W = flash_layout(cfg)[3]
+            lay = ((H, KVH, hd, W) if branch != "head_tp" else
+                   (H // M, (KVH if kv_split else H) // M, hd, W))
         res["branch"] = branch
+        # the layers that attend (the hybrid's one in three)
+        n_attn = sum(k.mix in ("attn", "attn_win", "mla")
+                     for k in layer_plan(cfg))
         # (b) bf16: the counted main path, each rank timed in turn
         cfg = blocks_cfg(arch, kw, Z, "bfloat16")
         model, whole, batch, tokens = blocks_inputs(torch, cfg, Z, dev)
@@ -6683,8 +6698,8 @@ def _phase_blocks(torch, np, dev, Z, T) -> dict:
             for sk, c in fl.items():
                 key = flash_key(lay, sk)
                 flash_by_shape[key] = flash_by_shape.get(key, 0) + c
-            want_fl = {"train": N * flash_calls(cfg, cfg.remat),
-                       "prefill": N * cfg.n_layers, "decode": 0}[step]
+            want_fl = {"train": N * n_attn * (1 + cfg.remat),
+                       "prefill": N * n_attn, "decode": 0}[step]
             check(not cuda or sum(fl.values()) == want_fl,
                   f"phase 16: {arch} {step}: flash launched "
                   f"{sum(fl.values())} times, not {want_fl}")

@@ -23,18 +23,20 @@ devices. Here:
     rounds it, what the card's `max_memory_allocated` reads).
 
 What a cell traces is what the port runs, and its record says which
-program (`"view"`). A model of `sharding.BLOCK_FAMILIES` (the dense and
-MoE decoders) runs the block program (`"blocks"`): a train cell is the
-sharded step (`train_loop.jit_train_step` under the mesh) on this rank's
-blocks of the parameters and moments and its rows of the batch (its
-share of each microbatch; `"chunks"` records the microbatches the step
-ran), each
-layer's weights gathered over data inside it; prefill and decode cells
+program (`"view"`). A model of `sharding.BLOCK_FAMILIES` (the dense,
+MoE, SSM and hybrid decoders) runs the block program (`"blocks"`): a
+train cell is the sharded step (`train_loop.jit_train_step` under the
+mesh) on this rank's blocks of the parameters and moments and its rows
+of the batch (its share of each microbatch; `"chunks"` records the
+microbatches the step ran), each layer's weights gathered over data
+inside it; prefill and decode cells
 call `model.prefill` / `model.decode_step` on the parameter blocks, the
 rank's rows and (decode) its block of the caches under the param rules,
-as the reference resolves them. So `argument_bytes`, `flops_dev` and
-`temp_bytes` compare with the reference's per device. Every other
-family keeps the global view (`"global"`): its train step gathers the
+as the reference resolves them (a decode of one row, long_500k's,
+keeps each weight in place: `sharding.rows_in_place`). So
+`argument_bytes`, `flops_dev` and `temp_bytes` compare with the
+reference's per device. Every other family (the encoder-decoder) keeps
+the global view (`"global"`): its train step gathers the
 parameters whole, every activation is whole on every rank, and its
 prefill and decode take the parameters, the batch and the caches whole;
 `flops_dev` and `peak_bytes` then measure what the global view costs.

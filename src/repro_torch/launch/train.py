@@ -29,10 +29,10 @@ and moments (`train_loop.shard_train_state`), takes the sharded step,
 and checkpoints and restarts through the spec tree (`TrainController(
 spec_tree=)`: rank 0 writes the whole tree; a restore cuts the blocks of
 the mesh in use). A model that runs the block program (`sharding.
-runs_blocks`: the dense and MoE decoders) reads its (pod, data) rows
-of each microbatch of each step's seeded batch, the same whole batch the
-reference's step sees. On
-a mesh `main` returns this rank's blocks, and only rank 0 prints.
+runs_blocks`: the dense, MoE, SSM and hybrid decoders) reads its (pod,
+data) rows of each microbatch of each step's seeded batch, the same
+whole batch the reference's step sees. On a mesh `main` returns this
+rank's blocks, and only rank 0 prints.
 
 A frontend config gets seeded embeddings of (batch, n_tokens, d_input)
 in every batch, a pure function of the step as the tokens are: whisper-

@@ -57,17 +57,37 @@ def _ffn_blocks(params, x, act: str, spec):
     parallel over `model` (the hidden (B, S, F/M), the reference's
     `constrain(h, "batch", "seq", "mlp")`), down row-parallel and its
     partial sums psummed over `model`; with `mlp` unsplit, the whole
-    FFN on each rank."""
+    FFN on each rank. Where the rows are whole over data
+    (`sharding.rows_in_place`) the weights stay where they lie
+    (`sharding.matmul_block`)."""
+    in_place = sharding.current().in_place
+    # every block gathered over data but, with the rows whole over data,
+    # the weights: `lin` contracts each where it lies
     w = {n: {k: sharding.gather_param(a, spec[n][k].axes,
                                       shape=spec[n][k].shape)
-             for k, a in params[n].items()} for n in params}
-    h = hidden(x, w.get("gate"), w["up"], act)
-    y = h @ w["down"]["w"]
+             for k, a in params[n].items() if not (in_place and k == "w")}
+         for n in params}
+    if in_place:
+        def lin(n, x_):
+            s_ = spec[n]["w"]
+            return sharding.matmul_block(x_, params[n]["w"], s_.axes,
+                                         s_.shape)
+        f = act_fn(act)
+        up = _biased(lin("up", x), w["up"])
+        h = (f(_biased(lin("gate", x), w["gate"])) * up if "gate" in params
+             else f(up))
+        y = lin("down", h)
+    else:
+        h = hidden(x, w.get("gate"), w["up"], act)
+        y = h @ w["down"]["w"]
     if h.shape[-1] != spec["up"]["w"].shape[-1]:
         y = sharding.psum(y, "model")
-    if "b" in w["down"]:
-        y = y + w["down"]["b"].to(y.dtype)
-    return y
+    return _biased(y, w["down"])
+
+
+def _biased(y, p):
+    """y plus the bias of the projection `p` ({"b"?}), if it has one."""
+    return y + p["b"].to(y.dtype) if "b" in p else y
 
 
 def hidden(x, gate, up, act: str):

@@ -100,33 +100,65 @@ def embed(params, tokens, *, shape: tuple | None = None):
     In a block program (`shape`, the table's global (V, D), given) the table
     is this rank's block: gathered over data (FSDP), and where its vocab
     is split over `model` the rows outside the rank's range read zero and
-    the rows are psummed over `model` (vocab-parallel)."""
+    the rows are psummed over `model` (vocab-parallel). A table whole
+    over `model` whose rows are cheaper to move than it (`_in_place`)
+    stays in place: the data line's tokens read the rank's embed
+    columns, and an all-to-all over data gives each rank its rows'
+    every column. Where the rows are whole over data (`_rows_whole`)
+    any table's block is read in place, its columns all-gathered over
+    data."""
     if shape is None or not sharding.in_blocks():
         return F.embedding(tokens.long(), params["table"])
-    table, v0 = _table_block(params["table"], shape)
+    if _rows_whole(shape):         # the rank's columns, gathered over data
+        table, v0 = params["table"], _vocab_start(params["table"], shape)
+    elif _in_place(shape, tokens.numel() * shape[1]):
+        e = F.embedding(sharding.all_gather(tokens.long(), "data", 0),
+                        params["table"])
+        return sharding.all_to_all(e, "data", 0, e.ndim - 1)
+    else:
+        table, v0 = _table_block(params["table"], shape)
     if v0 is None:
-        return F.embedding(tokens.long(), table)
-    loc = tokens.long() - v0
-    mine = (loc >= 0) & (loc < table.shape[0])
-    e = F.embedding(loc.clamp(0, table.shape[0] - 1), table)
-    return sharding.psum(torch.where(mine[..., None], e, 0), "model")
+        e = F.embedding(tokens.long(), table)
+    else:
+        loc = tokens.long() - v0
+        mine = (loc >= 0) & (loc < table.shape[0])
+        e = torch.where(mine[..., None], F.embedding(
+            loc.clamp(0, table.shape[0] - 1), table), 0)
+    if table.shape[1] != shape[1]:
+        e = sharding.all_gather(e, "data", e.ndim - 1)
+    return e if v0 is None else sharding.psum(e, "model")
 
 
 def unembed(params, x, *, shape: tuple | None = None, split_in=False,
-            tied=False):
+            split_dx=False):
     """Logits via the (possibly tied) embedding table; in a block program
     (`shape` given) the rank's vocab columns (B, S, V/M) where the vocab
     is split over `model`, from the table gathered over data. Where the
     vocab is whole on every rank of `model` (it does not split) the ranks
     share the work the reference's partitioner shares: the table's
-    gradient by columns (`_WholeVocab`), with `tied` (the table is the
-    embedding's too) the input's gradient by vocab rows, and with
-    `split_in` (a decode's few rows) the product's contraction, psummed
-    over `model`."""
+    gradient by columns (`_WholeVocab`), with `split_dx` the input's
+    gradient by vocab rows (a tied table under a trunk whose tokens split
+    over `model`: GSPMD splits it by those tokens, the same work), and
+    with `split_in` (a decode's few rows) the product's contraction,
+    psummed over `model`. Such a table whose rows and logits are cheaper
+    to move than it (`_in_place`: a decode's, a prefill's last rows) is
+    contracted in place, as the reference's partition does: the data
+    line's rows over the rank's embed columns (and with `split_in` its
+    part of them over `model`), the partial logits psum-scattered back
+    to the rank's rows over data (and psummed over `model`). Where the
+    rows are whole over data (`_rows_whole`) any table is contracted
+    over the rank's embed columns and psummed over data."""
     if shape is None or not sharding.in_blocks():
         return x @ params["table"].T
-    table, v0 = _table_block(params["table"], shape)
     M = sharding.mesh_axis_size("model")
+    if _rows_whole(shape):      # the rank's columns, psummed over data
+        n = params["table"].shape[1]
+        c0 = sharding.axis_index("data") * n
+        return sharding.psum(x[..., c0:c0 + n] @ params["table"].T, "data")
+    if _in_place(shape, sharding.mesh_axis_size("data")
+                 * x.shape[:-1].numel() * (shape[0] + shape[1])):
+        return _unembed_in_place(params["table"], x, shape, M, split_in)
+    table, v0 = _table_block(params["table"], shape)
     if v0 is not None or M == 1 or x.shape[-1] % M:
         return x @ table.T
     n = x.shape[-1] // M
@@ -135,7 +167,7 @@ def unembed(params, x, *, shape: tuple | None = None, split_in=False,
     if split_in:
         return sharding.psum(x[..., cols] @ table[:, cols].T, "model")
     V = table.shape[0]
-    rows = slice(r * V // M, (r + 1) * V // M) if tied else None
+    rows = slice(r * V // M, (r + 1) * V // M) if split_dx else None
     return _WholeVocab.apply(x, table, cols, rows, M)
 
 
@@ -170,13 +202,54 @@ class _WholeVocab(torch.autograd.Function):
         return gx, gt, None, None, None
 
 
+def _in_place(shape: tuple, moved: int) -> bool:
+    """A block program's table of global `shape` (V, D), whole over
+    `model` and split over data by its embed columns, stays in place
+    where doing so moves fewer elements over data (`moved`, to the same
+    factor (dp - 1) / dp: the embedding's rows, B S D; the logits' rows
+    and partial logits, dp B S (D + V)) than gathering it would (V D)."""
+    spec = sharding.resolve_spec(EMBED_AXES, shape, "param")
+    return spec[0] is None and spec[1] == "data" and moved < math.prod(shape)
+
+
+def _unembed_in_place(table, x, shape: tuple, M: int, split_in: bool):
+    """The logits of the rank's rows x (b, S, D) through its block
+    (V, D/dp) of a table whole over `model`: the data line's rows
+    contracted over the block's columns (with `split_in` and D/dp a
+    multiple of M, over the rank's D/(dp M) of them, psummed over
+    `model`), psum-scattered over data back to the rank's rows."""
+    n = table.shape[1]
+    c0 = sharding.axis_index("data") * n
+    xs = sharding.all_gather(x, "data", 0)[..., c0:c0 + n]
+    if split_in and M > 1 and n % M == 0:
+        k = n // M
+        m0 = sharding.axis_index("model") * k
+        part = xs[..., m0:m0 + k] @ table[:, m0:m0 + k].T
+        return sharding.psum(sharding.psum_scatter(part, "data", 0), "model")
+    return sharding.psum_scatter(xs @ table.T, "data", 0)
+
+
+def _rows_whole(shape: tuple) -> bool:
+    """A table of global `shape` split over data by its embed columns, in
+    a block program whose rows are whole over data
+    (`sharding.rows_in_place`): it is read where it lies."""
+    return (sharding.current().in_place and sharding.resolve_spec(
+        EMBED_AXES, shape, "param")[1] == "data")
+
+
+def _vocab_start(table, shape: tuple):
+    """The first vocab row of a table block, None where the vocab is
+    whole over `model`."""
+    if table.shape[0] == shape[0]:
+        return None
+    return sharding.axis_index("model") * table.shape[0]
+
+
 def _table_block(table, shape: tuple):
     """(the rank's block of a (V, D) table gathered over data, its first
     vocab row, or None where the vocab is not split over `model`)."""
     table = sharding.gather_param(table, EMBED_AXES, shape=shape)
-    if table.shape[0] == shape[0]:
-        return table, None
-    return table, sharding.axis_index("model") * table.shape[0]
+    return table, _vocab_start(table, shape)
 
 
 # --------------------------------------------------------------------------

@@ -213,8 +213,9 @@ def moe_apply(params, x, cfg, *, sp: bool = False, S: int | None = None):
     `_moe_a2a` and its router on its S/M positions (cut from a stream
     whole over `model`, the output all-gathered back), `_moe_replicated`
     and its router on its rows' whole sequence (gathered from a
-    Megatron-SP stream, the output cut back), `_moe_local` (M == 1) on
-    its rows with the experts gathered whole; the aux loss global
+    Megatron-SP stream, the output cut back), `_moe_local` (M == 1, or
+    experts off a multiple of M) on its tokens with the experts gathered
+    whole; the aux loss global
     (`route`); the shared experts through the block program's FFN."""
     m = cfg.moe
     S = x.shape[1] if S is None else S
@@ -265,15 +266,13 @@ def moe_branch(cfg, S: int) -> str:
 def _moe_local(params, x, w, idx, cfg):
     """Dense loop over the experts: every token through every expert,
     weighted by the gate it gave that expert (0 if unchosen), summed in
-    float32. In a block program (a model axis of 1: GSPMD's partition of
-    this loop) x is the rank's rows and the experts are gathered whole
-    from their blocks; experts off a multiple of M > 1 raise."""
+    float32. In a block program (GSPMD's partition of this loop: a model
+    axis of 1, or experts off a multiple of M, which `resolve_spec`
+    leaves replicated over `model`) x is the rank's rows and the experts
+    are gathered whole from their blocks; each rank of `model` runs the
+    same loop on the same rows, its gradient its share of theirs."""
     ex = params["experts"]
     if sharding.in_blocks():
-        if sharding.mesh_axis_size("model") > 1:
-            raise NotImplementedError(
-                "_moe_local in a block program: the experts do not split "
-                "over the model axis")
         ex = {n: sharding.gather_param(ex[n], EXPERT_AXES[n], shape=shape)
               for n, shape in zip(("gate", "up", "down"),
                                   _expert_shapes(cfg))}

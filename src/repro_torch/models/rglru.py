@@ -23,14 +23,27 @@ Differences from the reference, on purpose:
     conv state of conv_width - 1 rows, the missing ones zero (what
     `_dconv` reads before the sequence's start). The reference keeps the
     S rows it has, and its decode then fails on the short history.
+
+In a block program (`sharding.in_blocks`) the block runs on the rank's
+rows and its R/M channels of the lru width, the partition GSPMD gives
+the reference: each weight gathered over data inside the layer (FSDP),
+`w_x` and `w_gate` column-parallel, the conv, `lam` and the gates'
+blocks (`_nb` blocks on the lru width split over `model` with it) the
+rank's own, the scan with no collective, `out` row-parallel and psummed
+over `model`. A prefill's cache is the rank's rows and channels; a
+decode writes every row's new state and conv history into its
+param-rule block of the caches (every row), in place.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch import tree
+from repro_torch.models import module as mod
 from repro_torch.models.layers import linear, linear_spec
 from repro_torch.models.module import Spec
+from repro_torch.parallel import sharding
 
 C_EXP = 8.0
 
@@ -64,6 +77,39 @@ def rglru_block_spec(cfg) -> dict:
         "lam": Spec((R,), ("rnn",), init="rglru_a", dtype="float32"),
         "out": linear_spec(R, D, ("rnn", "embed")),
     }
+
+
+# the projections: `_linear` gathers or reads them where they lie
+_PROJS = ("w_x", "w_gate", "out")
+
+
+def layer_params(params, cfg):
+    """One layer's weights as the block reads them: in a block program
+    each block but the projections' gathered over data (FSDP; `_linear`
+    reads those), else `params` as they are."""
+    if not sharding.in_blocks():
+        return params
+    spec = rglru_block_spec(cfg)
+    return {k: v if k in _PROJS else tree.map(
+        lambda s_, a: sharding.gather_param(a, s_.axes, shape=s_.shape),
+        spec[k], v, is_leaf=mod.is_spec) for k, v in params.items()}
+
+
+def _linear(params, x, name, cfg):
+    """`linear` through the projection `name` (`sharding.matmul_block`:
+    in a block program its block gathered over data, or contracted where
+    it lies)."""
+    s_ = rglru_block_spec(cfg)[name]["w"]
+    y = sharding.matmul_block(x, params[name]["w"], s_.axes, s_.shape)
+    return y + params[name]["b"].to(y.dtype) if "b" in params[name] else y
+
+
+def _out(params, y, cfg):
+    """The out-projection; row-parallel where the lru width splits."""
+    out = _linear(params, y, "out", cfg)
+    if y.shape[-1] != (cfg.hybrid.lru_width or cfg.d_model):
+        out = sharding.psum(out, "model")
+    return out
 
 
 def _block_diag(w, b, x, nb: int):
@@ -128,9 +174,10 @@ def rglru_scan(a, b, h0=None):
 def rglru_forward(params, x, cfg, *, return_cache: bool = False,
                   h0=None, conv0=None):
     """x: (B,S,D) -> (B,S,D) [, cache]."""
-    nb = _nb(cfg)
-    gate = F.gelu(linear(params["w_gate"], x), approximate="tanh")
-    xr = linear(params["w_x"], x)
+    params = layer_params(params, cfg)
+    nb = params["gate_a"].shape[0]          # the rank's blocks
+    gate = F.gelu(_linear(params, x, "w_gate", cfg), approximate="tanh")
+    xr = _linear(params, x, "w_x", cfg)
     xr_raw = xr
     if conv0 is not None:
         ext = torch.cat([conv0.to(xr.dtype), xr], dim=1)
@@ -140,7 +187,7 @@ def rglru_forward(params, x, cfg, *, return_cache: bool = False,
     a, gated = _gates(params, xr, nb)
     h = rglru_scan(a, gated, h0)
     y = h.to(x.dtype) * gate
-    out = linear(params["out"], y)
+    out = _out(params, y, cfg)
     if not return_cache:
         return out
     return out, {"h": h[:, -1],
@@ -148,10 +195,18 @@ def rglru_forward(params, x, cfg, *, return_cache: bool = False,
 
 
 def rglru_decode(params, x, cache, cfg):
-    """x: (B,1,D) single-token step."""
-    nb = _nb(cfg)
-    gate = F.gelu(linear(params["w_gate"], x), approximate="tanh")
-    xr_new = linear(params["w_x"], x)                       # (B,1,R)
+    """x: (B,1,D) single-token step. In a block program x is the rank's
+    rows and `cache` its param-rule block (every row, its channels): the
+    rank's rows step, and every row's new state and history are written
+    into `cache` in place."""
+    blocks = sharding.in_blocks()
+    if blocks:
+        every = cache
+        cache = {k: sharding.own_rows(c, x.shape[0]) for k, c in cache.items()}
+    params = layer_params(params, cfg)
+    nb = params["gate_a"].shape[0]
+    gate = F.gelu(_linear(params, x, "w_gate", cfg), approximate="tanh")
+    xr_new = _linear(params, x, "w_x", cfg)                 # (B,1,R)
     hist = torch.cat([cache["conv"].to(xr_new.dtype), xr_new],
                      dim=1)                                 # (B,K,R)
     xr = torch.einsum("bkr,kr->br", hist, params["conv"]) \
@@ -159,8 +214,13 @@ def rglru_decode(params, x, cache, cfg):
     a, gated = _gates(params, xr[:, None], nb)
     h = a[:, 0] * cache["h"] + gated[:, 0]                  # (B,R)
     y = h.to(x.dtype)[:, None] * gate
-    out = linear(params["out"], y)
-    return out, {"h": h, "conv": hist[:, 1:].float()}
+    out = _out(params, y, cfg)
+    new_cache = {"h": h, "conv": hist[:, 1:].float()}
+    if blocks:
+        for k, c in every.items():
+            c.copy_(sharding.every_row(new_cache[k], c.shape[0]))
+        new_cache = every
+    return out, new_cache
 
 
 def rglru_cache_spec(cfg, batch: int) -> dict:

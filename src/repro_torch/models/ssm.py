@@ -29,15 +29,34 @@ Differences from the reference, on purpose:
   * A prompt shorter than the conv history (S < d_conv - 1) leaves a
     conv cache of d_conv - 1 rows, the missing ones zero (what `_dconv`
     reads before the sequence's start). The reference asserts there.
+
+In a block program (`sharding.in_blocks`) the mixer runs on the rank's
+rows and its blocks, the partition GSPMD gives the reference: each
+weight gathered over data inside the layer (FSDP), or contracted where
+it lies in a decode of rows whole over data (`sharding.matmul_block`);
+`in_z`, `in_x`, `in_dt`, the x conv and `A_log` / `dt_bias` / `D` on
+the rank's d_inner/M channels and H/M heads (column-parallel), `in_B` /
+`in_C` whole on every rank of `model` (their weight's gradient from its
+S/M tokens) or, with fewer tokens than d_model, contracted over the
+rank's d_model/M columns and psummed (`_proj_bc`), their convs whole;
+the scan on its heads with no collective; the gated norm's sum of
+squares over d_inner psummed over `model` before the rsqrt
+(`_gated_norm`), its scale the rank's slice; `out` row-parallel,
+psummed over `model`. A prefill's cache is the rank's rows, heads and
+channels; a decode writes every row's new state and conv history into
+its param-rule block of the caches (every row), in place.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch import tree
+from repro_torch.models import module as mod
 from repro_torch.models.layers import rmsnorm, rmsnorm_spec
 from repro_torch.models.module import Spec
 from repro_torch.models.rglru import _conv_tail, _dconv
+from repro_torch.parallel import sharding
 
 
 def dims(cfg):
@@ -72,13 +91,133 @@ def mamba2_spec(cfg) -> dict:
     }
 
 
+# the projections: `_proj` gathers or reads them where they lie
+_PROJS = ("in_z", "in_x", "in_B", "in_C", "in_dt", "out")
+
+
+def layer_params(params, cfg):
+    """One layer's weights as the mixer reads them: in a block program
+    each block but the projections' gathered over data (FSDP; `_proj`
+    reads those), else `params` as they are."""
+    if not sharding.in_blocks():
+        return params
+    spec = mamba2_spec(cfg)
+    return {k: v if k in _PROJS else tree.map(
+        lambda s_, a: sharding.gather_param(a, s_.axes, shape=s_.shape),
+        spec[k], v, is_leaf=mod.is_spec) for k, v in params.items()}
+
+
+def _proj(params, x, name, cfg):
+    """x times the projection `name` (`sharding.matmul_block`: in a block
+    program its block gathered over data, or contracted where it lies)."""
+    s_ = mamba2_spec(cfg)[name]
+    return sharding.matmul_block(x, params[name], s_.axes, s_.shape)
+
+
+def _groups(H_l: int, cfg) -> slice:
+    """The B/C groups the rank's H_l heads read (every group where the
+    heads are whole)."""
+    _, H, G, _, _ = dims(cfg)
+    if H_l == H:
+        return slice(0, G)
+    rep = H // G
+    if H_l % rep and rep % H_l:
+        raise NotImplementedError(f"{H_l} heads a rank over groups of {rep}")
+    r = sharding.axis_index("model")
+    return slice(r * H_l // rep, ((r + 1) * H_l - 1) // rep + 1)
+
+
+def _inner_psum(t):
+    """The rank's part of a sum over d_inner, summed over `model`."""
+    return sharding.psum(t, "model")
+
+
+def _gated_norm(norm, y, z, cfg, dtype):
+    """rmsnorm(y * silu(z)) over d_inner. With the channels split over
+    `model` (a block program) the rank's sum of squares is psummed over
+    `model` before the rsqrt and the scale is its slice."""
+    g = (y * F.silu(z)).to(dtype)
+    d_inner = dims(cfg)[0]
+    n = g.shape[-1]
+    if n == d_inner:
+        return rmsnorm(norm, g, cfg.norm_eps)
+    r = sharding.axis_index("model")
+    gf = g.float()
+    var = _inner_psum(gf.square().sum(-1, keepdim=True)) / d_inner
+    scale = norm["scale"][r * n:(r + 1) * n]
+    return (gf * torch.rsqrt(var + cfg.norm_eps) * scale).to(dtype)
+
+
+def _out(w, y, cfg):
+    """The out-projection; row-parallel where the channels split."""
+    out = _proj(w, y, "out", cfg)
+    if y.shape[-1] != dims(cfg)[0]:
+        out = sharding.psum(out, "model")
+    return out
+
+
 def _proj_inputs(params, x, cfg):
-    z = x @ params["in_z"]
-    xc = x @ params["in_x"]
-    Bm = x @ params["in_B"]
-    Cm = x @ params["in_C"]
-    dt = (x @ params["in_dt"]).float()
+    z = _proj(params, x, "in_z", cfg)
+    xc = _proj(params, x, "in_x", cfg)
+    Bm, Cm = _proj_bc(params, x, cfg)
+    dt = _proj(params, x, "in_dt", cfg).float()
     return z, xc, Bm, Cm, dt
+
+
+def _proj_bc(params, x, cfg):
+    """x's `in_B` and `in_C` projections. In a block program (both whole
+    over `model`) GSPMD's partition: where the rank's tokens are fewer
+    than d_model (a decode's, a reduced prefill's), each rank of `model`
+    contracts its d_model/M columns of x with the weights' rows, the
+    partials psummed over `model` in one all-reduce; else every rank of
+    `model` contracts the whole (the all-reduce of the (tokens, 2 G N)
+    outputs would move more than the weights)."""
+    M, D = sharding.mesh_axis_size("model"), x.shape[-1]
+    if not sharding.in_blocks() or M == 1 or D % M or \
+            sharding.current().in_place:
+        return _proj(params, x, "in_B", cfg), _proj(params, x, "in_C", cfg)
+    spec = mamba2_spec(cfg)
+    params = {k: sharding.gather_param(params[k], spec[k].axes,
+                                       shape=spec[k].shape)
+              for k in ("in_B", "in_C")}
+    GN = params["in_B"].shape[1]
+    if x.shape[:-1].numel() >= D:
+        w = torch.cat([params["in_B"], params["in_C"]], 1)
+        if x.shape[1] % M == 0 and torch.is_grad_enabled() and (
+                x.requires_grad or w.requires_grad):
+            return _TokenSplitGrad.apply(x, w).split(GN, -1)
+        return (x @ w).split(GN, -1)
+    n = D // M
+    r = sharding.axis_index("model") * n
+    w = torch.cat([params["in_B"][r:r + n], params["in_C"][r:r + n]], 1)
+    bc = sharding.psum(x[..., r:r + n] @ w, "model")
+    return bc.split(GN, -1)
+
+
+class _TokenSplitGrad(torch.autograd.Function):
+    """x @ w on every rank of `model` (x (b, S, D) and w whole over it),
+    as GSPMD partitions `in_B` / `in_C` where the tokens outnumber
+    d_model: x's gradient whole on every rank (its share, from its
+    heads' cotangent), the weight's from this rank's S/M tokens of the
+    cotangent summed over `model` (psum-scattered), 1/M of the work;
+    the ranks' shares sum to the weight's gradient
+    (`sharding.reduce_replicas`)."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        ctx.mesh = sharding.current()
+        return x @ w
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        with sharding.use_context(ctx.mesh):
+            gs = sharding.psum_scatter(g, "model", 1)
+            n = gs.shape[1]
+            xs = x[:, sharding.axis_index("model") * n:][:, :n]
+        gw = xs.reshape(-1, x.shape[-1]).T @ gs.reshape(-1, gs.shape[-1])
+        return g @ w.T, gw.to(w.dtype)
 
 
 def ssd_chunked(xh, dt, A, Bm, Cm, Dp, chunk: int, h0=None):
@@ -148,10 +287,12 @@ def mamba2_forward(params, x, cfg, *, return_cache: bool = False,
                    initial_cache=None):
     """Full-sequence mamba2 mixer. x: (B,S,D) -> (B,S,D) [, cache]."""
     s = cfg.ssm
-    d_inner, H, G, N, P = dims(cfg)
+    _, _, G, N, P = dims(cfg)
     B, S, D = x.shape
     if initial_cache is not None:
         raise NotImplementedError("chunk-continuation prefill not needed")
+    params = layer_params(params, cfg)
+    H = params["A_log"].shape[0]            # the rank's heads
     z, xc, Bm, Cm, dt = _proj_inputs(params, x, cfg)
     xc_raw, Bm_raw, Cm_raw = xc, Bm, Cm
 
@@ -161,12 +302,13 @@ def mamba2_forward(params, x, cfg, *, return_cache: bool = False,
 
     dtp = F.softplus(dt + params["dt_bias"])
     A = -torch.exp(params["A_log"])
+    g = _groups(H, cfg)
     y, final = ssd_chunked(xc.reshape(B, S, H, P), dtp, A,
-                           Bm.reshape(B, S, G, N), Cm.reshape(B, S, G, N),
+                           Bm.reshape(B, S, G, N)[:, :, g],
+                           Cm.reshape(B, S, G, N)[:, :, g],
                            params["D"], s.chunk_size)
-    y = y.reshape(B, S, d_inner)
-    y = rmsnorm(params["norm"], (y * F.silu(z)).to(x.dtype), cfg.norm_eps)
-    out = y @ params["out"]
+    y = _gated_norm(params["norm"], y.reshape(B, S, H * P), z, cfg, x.dtype)
+    out = _out(params, y, cfg)
     if not return_cache:
         return out
     # conv caches hold the last K-1 *pre-conv* channel values
@@ -183,9 +325,18 @@ def mamba2_forward(params, x, cfg, *, return_cache: bool = False,
 def mamba2_decode(params, x, cache, cfg):
     """Single-token step. x: (B,1,D); cache from mamba2_cache_spec. The
     conv history, its products and the state are float32 (the
-    reference's promotion of the float32 cache with the new row)."""
-    d_inner, H, G, N, P = dims(cfg)
+    reference's promotion of the float32 cache with the new row). In a
+    block program x is the rank's rows and `cache` its param-rule block
+    (every row, its heads and channels): the rank's rows step, and every
+    row's new state and history are written into `cache` in place."""
+    _, _, G, N, P = dims(cfg)
     B = x.shape[0]
+    blocks = sharding.in_blocks()
+    if blocks:
+        every = cache
+        cache = {k: sharding.own_rows(c, B) for k, c in cache.items()}
+    params = layer_params(params, cfg)
+    H = params["A_log"].shape[0]
     z, xc, Bm, Cm, dt = _proj_inputs(params, x, cfg)
 
     def step_conv(cache_k, new, w, b):
@@ -204,18 +355,25 @@ def mamba2_decode(params, x, cache, cfg):
     A = -torch.exp(params["A_log"])
     a = torch.exp(dtp * A)                                   # (B,H)
     xh = xc1[:, 0].reshape(B, H, P)
-    rep = H // G
-    Bh = Bm1[:, 0].reshape(B, G, N).repeat_interleave(rep, dim=1)  # (B,H,N)
-    Ch = Cm1[:, 0].reshape(B, G, N).repeat_interleave(rep, dim=1)
+    g = _groups(H, cfg)
+    Bg = Bm1[:, 0].reshape(B, G, N)[:, g]
+    Cg = Cm1[:, 0].reshape(B, G, N)[:, g]
+    rep = H // Bg.shape[1]
+    Bh = Bg.repeat_interleave(rep, dim=1)                   # (B,H,N)
+    Ch = Cg.repeat_interleave(rep, dim=1)
     state = a[..., None, None] * cache["state"] \
         + (dtp[..., None] * Bh)[..., :, None] * xh[..., None, :]
     y = torch.einsum("bhn,bhnp->bhp", Ch, state) \
         + params["D"][None, :, None] * xh
-    y = y.reshape(B, 1, d_inner).to(x.dtype)
-    y = rmsnorm(params["norm"], (y * F.silu(z)).to(x.dtype), cfg.norm_eps)
-    out = y @ params["out"]
+    y = _gated_norm(params["norm"], y.reshape(B, 1, H * P).to(x.dtype), z,
+                    cfg, x.dtype)
+    out = _out(params, y, cfg)
     new_cache = {"state": state, "conv_x": conv_x, "conv_B": conv_B,
                  "conv_C": conv_C}
+    if blocks:
+        for k, c in every.items():
+            c.copy_(sharding.every_row(new_cache[k], c.shape[0]))
+        new_cache = every
     return out, new_cache
 
 

@@ -25,16 +25,18 @@ and `decode_step` run under `torch.no_grad()`. A frontend config
 (internvl2-2b's patches) splices its embeddings over the first token
 rows, as the reference does.
 
-Under a `DeviceMesh` the dense and MoE decoders (`sharding.
-BLOCK_FAMILIES`) run the block program (`sharding.program`): `forward`,
-`prefill` and `decode_step` take and give this rank's blocks, the
-residual stream its rows (B/dp, S, D), or its S/M positions under
-Megatron-SP; GQA attention through `_attn_blocks`, MLA through `mla`'s
-block functions (`mla_apply`), the FFN through `ffn._ffn_blocks`, the
-MoE through `moe.moe_apply` on the rank's tokens (the aux loss global),
-the MTP head on the rank's rows, the embedding and logits vocab-
-parallel (`layers.embed` / `unembed`); `decode_caches` turns a
-prefill's cache blocks (GQA or latent) into the decode's.
+Under a `DeviceMesh` the dense, MoE, SSM and hybrid decoders
+(`sharding.BLOCK_FAMILIES`) run the block program (`sharding.program`):
+`forward`, `prefill` and `decode_step` take and give this rank's blocks,
+the residual stream its rows (B/dp, S, D), or its S/M positions under
+Megatron-SP; GQA attention, windowed or not, through `_attn_blocks`,
+MLA through `mla`'s block functions (`mla_apply`), the FFN through
+`ffn._ffn_blocks`, the MoE through `moe.moe_apply` on the rank's tokens
+(the aux loss global), mamba2's mixer and the RG-LRU block on the
+rank's heads or channels (`ssm`, `rglru`), the MTP head on the rank's
+rows, the embedding and logits vocab-parallel (`layers.embed` /
+`unembed`); `decode_caches` turns a prefill's cache blocks (GQA,
+latent, window, state) into the decode's.
 
 Differences from the reference, on purpose:
 
@@ -58,6 +60,7 @@ Differences from the reference, on purpose:
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from dataclasses import dataclass
 from functools import partial
@@ -272,21 +275,18 @@ def attn_apply(params, x, positions, cfg, *, window=0, mode="train",
     G = H // KVH
     hd = cfg.resolved_head_dim
     if sharding.in_blocks():
-        if window:
-            raise NotImplementedError("windowed attention on the block "
-                                      "program (no block family has it)")
         S = positions.shape[1]
         if x.shape[1] == S:
             return _attn_blocks(params, x, positions, cfg, mode=mode,
-                                cache=cache, pos=pos)
+                                cache=cache, pos=pos, window=window)
         # Megatron-SP: x is the rank's S/M positions of the stream
         n, r = x.shape[1], sharding.axis_index("model")
         mine = positions[:, r * n:(r + 1) * n]
-        if takes_attn_sp(cfg, S, mode=mode):
+        if takes_attn_sp(cfg, S, mode=mode, window=window):
             return attn_apply_sp(params, x, mine, cfg)
         y, new_cache = _attn_blocks(params, sharding.all_gather(x, "model", 1),
                                     positions, cfg, mode=mode, cache=cache,
-                                    pos=pos)
+                                    pos=pos, window=window)
         return sharding.relayout(y, P(), P(None, "model")), new_cache
     if takes_attn_sp(cfg, S, mode=mode, window=window):
         return attn_apply_sp(params, x, positions, cfg)
@@ -319,7 +319,7 @@ def attn_apply(params, x, positions, cfg, *, window=0, mode="train",
     return y, {"k": kc, "v": vc}
 
 
-def _attn_blocks(params, x, positions, cfg, *, mode, cache, pos):
+def _attn_blocks(params, x, positions, cfg, *, mode, cache, pos, window=0):
     """`attn_apply` in a block program, on the rank's rows x (B/dp, S, D)
     (whole over `model`) and its parameter blocks, each gathered over
     data inside the layer (FSDP). q/k/v are column-parallel over the
@@ -335,37 +335,65 @@ def _attn_blocks(params, x, positions, cfg, *, mode, cache, pos):
         row (`collectives.blocks_decode`): its kv heads where they
         split (no collective), else its S/M positions merged over
         `model`; a partial out-projection psummed where the heads split.
+        With a `window`, the rank's rows against their rows of the
+        window, whole over `model` (`collectives.blocks_window_decode`).
+        Where the rows are whole over data (`sharding.rows_in_place`)
+        the projections contract each weight block where it lies
+        (`sharding.matmul_block`).
 
-    A prefill's caches are laid out as the reference constrains them:
-    (B/dp, S/M, KVH, hd) where the sequence splits over `model`."""
+    A `window` masks every branch's flash call (context parallelism's at
+    the rank's q_offset). A prefill's caches are laid out as the
+    reference constrains them: (B/dp, S/M, KVH, hd) where the sequence
+    splits over `model`; a window's, the rolling layout of the last
+    min(W, S) keys (token p in slot p mod W) cut from the whole K/V,
+    whole over `model` (its kv heads split where they divide it)."""
     b, S, _ = x.shape
     H, KVH = cfg.n_heads, cfg.n_kv_heads
     G, hd = H // KVH, cfg.resolved_head_dim
     M = sharding.mesh_axis_size("model")
     r = sharding.axis_index("model") if M > 1 else 0
     spec = attn_spec(cfg)
-    w = {n: {k: sharding.gather_param(a, spec[n][k].axes,
-                                      shape=spec[n][k].shape)
-             for k, a in params[n].items()} for n in params}
-    heads_split = w["wq"]["w"].shape[1] != H
-    kv_split = w["wk"]["w"].shape[1] != KVH
+    heads_split = params["wq"]["w"].shape[1] != H
+    kv_split = params["wk"]["w"].shape[1] != KVH
+    # a decode whose rows are whole over data keeps its weights in place
+    in_place = mode == "decode" and sharding.current().in_place
+    if not in_place:
+        w = {n: {k: sharding.gather_param(a, spec[n][k].axes,
+                                          shape=spec[n][k].shape)
+                 for k, a in params[n].items()} for n in params}
     if mode == "decode":
-        q, k, v = _qkv(w, x, positions, cfg, split_in=(
-            (M, r) if M > 1 and x.shape[-1] % M == 0 else None),
-            split=(heads_split, kv_split, kv_split))
+        if in_place:
+            def proj(n):
+                y = sharding.matmul_block(x, params[n]["w"], ATTN_AXES[n],
+                                          spec[n]["w"].shape)
+                return (y + params[n]["b"].to(y.dtype) if "b" in params[n]
+                        else y)
+            q, k, v = proj("wq"), proj("wk"), proj("wv")
+            q, k = _roped(q, positions, cfg), _roped(k, positions, cfg)
+        else:
+            q, k, v = _qkv(w, x, positions, cfg, split_in=(
+                (M, r) if M > 1 and x.shape[-1] % M == 0 else None),
+                split=(heads_split, kv_split, kv_split))
         if heads_split and not kv_split:
             q = sharding.all_gather(q, "model", 2)
-        # its S/M cache positions where the kv heads do not split
-        seq_split = (M > 1 and not kv_split
-                     and cache["k"].shape[1] % M == 0)
-        out, kc, vc = collectives.blocks_decode(
-            q[:, 0].reshape(b, -1, G, hd), cache["k"], cache["v"], k[:, 0],
-            v[:, 0], pos, M if seq_split else 1)
+        q1 = q[:, 0].reshape(b, -1, G, hd)
+        if window:
+            out, kc, vc = collectives.blocks_window_decode(
+                q1, cache["k"], cache["v"], k[:, 0], v[:, 0], pos, window)
+        else:
+            # its S/M cache positions where the kv heads do not split
+            seq_split = (M > 1 and not kv_split
+                         and cache["k"].shape[1] % M == 0)
+            out, kc, vc = collectives.blocks_decode(
+                q1, cache["k"], cache["v"], k[:, 0], v[:, 0], pos,
+                M if seq_split else 1)
         out = out.reshape(b, 1, -1, hd)
         if heads_split and not kv_split:
             n = H // M
             out = out[:, :, r * n:(r + 1) * n]
-        y = _out_proj(w, out)
+        y = (sharding.matmul_block(out, params["wo"]["w"], ATTN_AXES["wo"],
+                                   spec["wo"]["w"].shape, contract=2)
+             if in_place else _out_proj(w, out))
         return (sharding.psum(y, "model") if heads_split else y,
                 {"k": kc, "v": vc})
     branch = collectives.attend_branch(S, KVH, G)
@@ -395,13 +423,13 @@ def _attn_blocks(params, x, positions, cfg, *, mode, cache, pos):
     Sq = q.shape[1]
     if branch == "head_tp":
         out = collectives.head_tp_block_attention(q, k, v, G, r, lo,
-                                                  causal=True)
+                                                  causal=True, window=window)
     elif branch == "cp":
-        out = collectives.cp_block_attention(q.reshape(b, Sq, KVH, G, hd), k,
-                                             v, causal=True)
+        out, kw_, vw_ = collectives.cp_block_attention(
+            q.reshape(b, Sq, KVH, G, hd), k, v, causal=True, window=window)
     else:
         out = chunked_attention(q.reshape(b, Sq, KVH, G, hd), k, v,
-                                causal=True)
+                                causal=True, window=window)
     y = _out_proj(w, out.reshape(b, Sq, -1, hd))
     if heads_split:
         y = sharding.psum(y, "model")
@@ -409,6 +437,13 @@ def _attn_blocks(params, x, positions, cfg, *, mode, cache, pos):
         y = sharding.all_gather(y, "model", 1)
     if mode != "prefill":
         return y, None
+    if window:
+        # the rolling window of the whole keys: whole over model
+        if branch != "cp":
+            kw_, vw_ = k, v
+        W = min(window, S)
+        idxs = S - W + ((torch.arange(W, device=x.device) - S) % W)
+        return y, {"k": kw_[:, idxs], "v": vw_[:, idxs]}
     src = (P(None, "model") if branch == "cp" or (repeated and s_split)
            else P(None, None, "model") if kv_split else P())
     dst = P(None, "model") if s_split else P()
@@ -456,9 +491,9 @@ def decode_heads_layout(cfg) -> bool:
 def use_sp(cfg, S: int) -> bool:
     """Megatron-SP residual applies: the mesh's `seq_parallel` on, a
     sequence that splits over `model`, and an arch family whose blocks
-    tolerate a sequence-sharded stream (the dense and MoE decoders, the
-    block families, whose block program then holds the rank's S/M
-    positions of the stream)."""
+    tolerate a sequence-sharded stream (the dense and MoE decoders, whose
+    block program then holds the rank's S/M positions of the stream; the
+    SSM and the hybrid keep it whole, as the reference's do)."""
     ctx = sharding.current()
     M = sharding.mesh_axis_size("model")
     return (ctx is not None and ctx.seq_parallel and M > 1 and S % M == 0
@@ -561,9 +596,11 @@ def block_spec(cfg, kind: LayerKind) -> dict:
 
 def block_apply(params, x, positions, cfg, kind: LayerKind, *, mode="train",
                 cache=None, pos=None):
-    """Returns (x, aux, new_cache). In a block program (the dense and MoE
-    decoders, `sharding.BLOCK_FAMILIES`) x is the rank's rows, its S/M
-    positions under Megatron-SP, and every branch reads its blocks."""
+    """Returns (x, aux, new_cache). In a block program (the dense, MoE,
+    SSM and hybrid decoders, `sharding.BLOCK_FAMILIES`) x is the rank's
+    rows, its S/M positions under Megatron-SP, and every branch reads
+    its blocks: attention (windowed or not), MLA, the RG-LRU and mamba2
+    mixers, the FFN and the MoE."""
     _check_kind(kind)
     zc = cfg.zero_centered_norm
     eps = cfg.norm_eps
@@ -701,26 +738,40 @@ class DecoderLM:
                            self.cfg.dtype, device=device)
 
     # -- the block program --------------------------------------------------
+    def prefill_cache_pspecs(self, batch: int, seq_len: int):
+        """The layout of a block program's prefill caches (`batch` rows
+        of `seq_len` tokens): each leaf's own axes under the activation
+        rules (the rank's rows; its ssm heads, d_inner or lru channels;
+        a window's kv heads where they split), a full-attention or
+        latent cache by (batch, kv_seq) alone, as `_attn_blocks` lays
+        it out."""
+        from repro_torch.models import module as mod
+
+        def spec(s_):
+            axes = s_.axes
+            if "kv_seq" in axes or "seq" in axes:
+                axes = tuple("kv_seq" if a == "seq" else
+                             a if a in ("batch", "kv_seq") else None
+                             for a in axes)
+            return sharding.resolve_spec(axes, s_.shape, "act")
+        return mod.tree_map_specs(spec, self.cache_specs(batch, seq_len))
+
     def decode_caches(self, caches, batch: int, seq_len: int, max_seq: int):
         """A prefill's caches (`batch` rows of `seq_len` tokens) padded to
         the decode caches of `max_seq`. In a block program the prefill's
-        are the rank's (B/dp, S/M) blocks (all-gathered whole here) and
-        the decode's its block under the param rules, every row, as the
-        reference resolves its decode's caches."""
+        are the rank's blocks (`prefill_cache_pspecs`, each leaf
+        all-gathered whole here by its own spec) and the decode's its
+        block under the param rules, every row, as the reference
+        resolves its decode's caches."""
         from repro_torch.serve.kvcache import pad_caches
         specs = self.cache_specs(batch, max_seq)
         if not sharding.runs_blocks(self.cfg):
             return pad_caches(caches, seq_len, max_seq, specs)
-        ax = sharding.batch_axes_prefix(batch)
-        M = sharding.mesh_axis_size("model")
-
-        def whole(a):
-            if M > 1 and seq_len % M == 0:
-                a = sharding.all_gather(a, "model", 2)
-            return sharding.all_gather(a, ax, 1) if ax else a
         with torch.no_grad():
-            return sharding.shard_tree(pad_caches(
-                tree.map(whole, caches), seq_len, max_seq, specs), specs)
+            whole = tree.map(sharding.unblock, caches,
+                             self.prefill_cache_pspecs(batch, seq_len))
+            return sharding.shard_tree(pad_caches(whole, seq_len, max_seq,
+                                                  specs), specs)
 
     # -- shared trunk ------------------------------------------------------
     def _residual_constrain(self, x):
@@ -815,8 +866,18 @@ class DecoderLM:
                     zero_centered=cfg.zero_centered_norm)
         table = params["embed"] if cfg.tie_embeddings else params["out_embed"]
         return softcap(unembed(table, h, shape=self._table_shape,
-                               split_in=decode, tied=cfg.tie_embeddings),
+                               split_in=decode,
+                               split_dx=self._split_dx(h.shape[1])),
                        cfg.logit_softcap)
+
+    def _split_dx(self, S: int) -> bool:
+        """`unembed`'s `split_dx`: a tied table's input gradient splits
+        over `model` where the trunk runs its MoE on the rank's S/M
+        positions (`moe.moe_branch` "a2a"), a token split GSPMD carries
+        into the logits' backward; else it stays whole on every rank."""
+        cfg = self.cfg
+        return (cfg.tie_embeddings and cfg.moe is not None
+                and moe.moe_branch(cfg, S) == "a2a")
 
     @property
     def _table_shape(self) -> tuple:
@@ -870,7 +931,8 @@ class DecoderLM:
         z = rmsnorm(params["final_norm"], z, cfg.norm_eps)
         table = params["embed"] if cfg.tie_embeddings else params["out_embed"]
         return softcap(unembed(table, z, shape=self._table_shape,
-                               tied=cfg.tie_embeddings), cfg.logit_softcap)
+                               split_dx=self._split_dx(positions.shape[1])),
+                       cfg.logit_softcap)
 
     @torch.no_grad()
     def prefill(self, params, tokens, *, embeddings=None, last_pos=None):
@@ -905,7 +967,7 @@ class DecoderLM:
         are left as they were, but in a block program (`sharding.program`:
         pos the rank's rows', the caches written in place and handed
         back)."""
-        with sharding.program(self.cfg):
+        with sharding.program(self.cfg), self._rows_in_place(caches):
             B = tokens.shape[0]
             pos = torch.as_tensor(pos, dtype=torch.int32,
                                   device=tokens.device)
@@ -915,6 +977,15 @@ class DecoderLM:
                                             mode="decode", caches=caches,
                                             pos=pos)
             return self._logits(params, x, decode=True), caches
+
+    @staticmethod
+    def _rows_in_place(caches):
+        """A block program's decode keeps its weights in place where its
+        rows (the caches hold every row) do not split over data
+        (`sharding.rows_in_place`)."""
+        if not sharding.in_blocks():
+            return contextlib.nullcontext()
+        return sharding.rows_in_place(tree.leaves(caches)[0].shape[1])
 
 
 def _in_context(ctx, fn, *args, **kwargs):

@@ -18,7 +18,8 @@ partials (acc, m, l) over its S/M cache positions, and `merge_partials`
 combines them exactly (a MAX, then two SUM reductions). MLA's absorbed
 mode (`v_dims`: the values are the latent's first columns) is kept. The
 hybrids decode against a rolling window cache
-(`window_decode_attention`), locally.
+(`window_decode_attention`; in a block program `blocks_window_decode`,
+the rank's rows against its every-row block), locally.
 
 The functions keep the reference's global view: the same argument and
 result shapes, so the model code calls them unchanged. Each sharded
@@ -167,11 +168,12 @@ def _cp_block(q_l, k, v, s0: int, **kw):
 
 def cp_block_attention(q_l, k_l, v_l, **kw):
     """A block program's context parallelism: the rank's S/M rows of q,
-    k and v; K/V all-gathered over `model`, its rows' output."""
+    k and v; K/V all-gathered over `model`. Returns its rows' output and
+    the gathered K and V (a window cache's source)."""
     k = sharding.all_gather(k_l, "model", 1)
     v = sharding.all_gather(v_l, "model", 1)
-    return _cp_block(q_l, k, v, sharding.axis_index("model") * q_l.shape[1],
-                     **kw)
+    return (_cp_block(q_l, k, v, sharding.axis_index("model") * q_l.shape[1],
+                      **kw), k, v)
 
 
 def _context_parallel_attention(q, k, v, **kw):
@@ -377,6 +379,37 @@ def window_decode_attention(q, k_win, v_win, k_new, v_new, pos, window: int,
     rows = torch.arange(B, device=q.device)
     k_win = k_win.index_put((rows, slot), k_new.to(k_win.dtype))
     v_win = v_win.index_put((rows, slot), v_new.to(v_win.dtype))
+    return (_window_attend(q, k_win, v_win, pos, window, cap=cap,
+                           sm_scale=sm_scale), k_win, v_win)
+
+
+def blocks_window_decode(q, k_win, v_win, k_new, v_new, pos, window: int,
+                         *, cap=0.0, sm_scale=None):
+    """A block program's window decode: q (b,KVH_l,G,Dk), the new
+    entries (b,KVH_l,D*) and pos are the rank's b rows; the window
+    caches (B,W,KVH_l,D*) its param-rule block, every row (the window
+    is whole over `model`), every row's new entry (all-gathered over
+    the batch axes) written into them in place. The rank's rows attend
+    their rows of the window; no other collective. Returns (out
+    (b,KVH_l,G,Dv), k_win, v_win)."""
+    b, (B, W) = q.shape[0], k_win.shape[:2]
+    pos = torch.as_tensor(pos, device=q.device).long().broadcast_to((b,))
+    p = sharding.every_row(pos, B)
+    rows = torch.arange(B, device=q.device)
+    k_win.index_put_((rows, p % W), sharding.every_row(k_new, B).to(
+        k_win.dtype))
+    v_win.index_put_((rows, p % W), sharding.every_row(v_new, B).to(
+        v_win.dtype))
+    out = _window_attend(q, sharding.own_rows(k_win, b),
+                         sharding.own_rows(v_win, b), pos, window, cap=cap,
+                         sm_scale=sm_scale)
+    return out, k_win, v_win
+
+
+def _window_attend(q, k_win, v_win, pos, window: int, *, cap, sm_scale):
+    """The attention of q's rows at `pos` (B,) over their window caches,
+    the new entry written: (B,KVH,G,Dv) in q's dtype."""
+    W = k_win.shape[1]
     slots = torch.arange(W, device=q.device)
     token_of_slot = pos[:, None] - ((pos[:, None] - slots[None]) % W)
     valid = token_of_slot >= 0
@@ -385,4 +418,4 @@ def window_decode_attention(q, k_win, v_win, k_new, v_new, pos, window: int,
     acc, m, l = decode_partials(q, k_win, v_win, token_of_slot, pos,
                                 cap=cap, extra_mask=valid,
                                 sm_scale=sm_scale)
-    return finalize_partials(acc, l).to(q.dtype), k_win, v_win
+    return finalize_partials(acc, l).to(q.dtype)

@@ -62,10 +62,10 @@ the global view is memory and work: every rank holds the whole
 activations and computes on them, which the reference shards.
 `constrain` resolves its spec and returns its tensor as it is.
 
-The block program. A model of `BLOCK_FAMILIES` (the dense decoders and
-the MoE decoders; later slices widen the set) runs each rank's own
-program under a
-`DeviceMesh` instead (`runs_blocks`, `program`): its inputs are this
+The block program. A model of `BLOCK_FAMILIES` (the dense, MoE, SSM and
+RG-LRU hybrid decoders; the encoder-decoder keeps the global view)
+runs each rank's own program under a `DeviceMesh` instead
+(`runs_blocks`, `program`): its inputs are this
 rank's blocks (the parameters under their param specs, the batch's
 rows, `rows`), its outputs stay blocks, and a tensor changes layout only
 where the reference has a `constrain`, by an explicit, differentiable
@@ -184,6 +184,7 @@ class MeshContext:
     seq_parallel: bool = False      # Megatron-SP residual stream
     decode_layout: str = "seq"      # 'seq' | 'heads' (KV cache sharding)
     blocks: bool = False            # inside a block program
+    in_place: bool = False          # rows whole over data: `rows_in_place`
 
 
 _CTX: contextvars.ContextVar[Optional[MeshContext]] = contextvars.ContextVar(
@@ -489,8 +490,9 @@ def _block(x, spec):
     return x
 
 
-def _unblock(x, spec):
-    """The global value of blocks laid out by `spec` (all-gathers)."""
+def unblock(x, spec):
+    """The global value of blocks laid out by `spec` (all-gathers; the
+    inverse of `_block`)."""
     for d, ent in enumerate(spec):
         if ent is not None:
             x = all_gather(x, ent, d)
@@ -521,7 +523,7 @@ class _Enter(torch.autograd.Function):
         with use_context(ctx.mesh):
             if ctx.unnamed:
                 g = _all_reduce(g, ctx.unnamed, "SUM")
-            return _unblock(g, ctx.spec), None
+            return unblock(g, ctx.spec), None
 
 
 class _Exit(torch.autograd.Function):
@@ -533,7 +535,7 @@ class _Exit(torch.autograd.Function):
     def forward(ctx, y, spec):
         ctx.mesh, ctx.spec = current(), spec
         ctx.n = axis_size(unnamed_axes(spec))
-        out = _unblock(y, spec)
+        out = unblock(y, spec)
         return y.clone() if out is y else out
 
     @staticmethod
@@ -552,7 +554,7 @@ def _enter(x, spec):
 def _exit(y, spec):
     if torch.is_grad_enabled() and y.requires_grad:
         return _Exit.apply(y, spec)
-    return _unblock(y, spec)
+    return unblock(y, spec)
 
 
 def gather_param(w, axes, *, keep_model: bool = True, skip=(), shape=None):
@@ -602,10 +604,12 @@ def shard_map(body, in_specs, out_specs):
 # The block program
 # --------------------------------------------------------------------------
 # The model families whose DecoderLM runs each rank's own program on its
-# blocks under a DeviceMesh: the dense decoders ("dense", "vlm") and the
-# MoE decoders ("moe": the router, the experts, MLA and the MTP head);
-# every other family keeps the global view.
-BLOCK_FAMILIES = frozenset({"dense", "vlm", "moe"})
+# blocks under a DeviceMesh: the dense decoders ("dense", "vlm"), the MoE
+# decoders ("moe": the router, the experts, MLA and the MTP head), the
+# SSM ("ssm": mamba2's heads over model) and the RG-LRU hybrid ("hybrid":
+# the lru width over model, windowed attention); the encoder-decoder
+# ("encdec") keeps the global view.
+BLOCK_FAMILIES = frozenset({"dense", "vlm", "moe", "ssm", "hybrid"})
 
 
 def runs_blocks(cfg) -> bool:
@@ -637,6 +641,50 @@ def block_program():
 def in_blocks() -> bool:
     ctx = current()
     return ctx is not None and ctx.blocks
+
+
+@contextlib.contextmanager
+def rows_in_place(batch: int):
+    """Within, a block program whose `batch` rows do not split over data
+    (each rank of data holds the same rows) keeps its weights in place:
+    `matmul_block` contracts each weight's data block where it lies,
+    as GSPMD partitions such a step (a decode of one row), instead of
+    gathering it (FSDP)."""
+    ctx = current()
+    on = (mesh_axis_size("data") > 1
+          and "data" not in batch_axes_prefix(batch))
+    with use_context(dataclasses.replace(ctx, in_place=on)):
+        yield
+
+
+def matmul_block(x, w, axes, shape, *, contract: int = 1):
+    """x's last dims (the first `contract` dims of w, flattened) times a
+    layer's weight block `w` (global `shape`, logical `axes`), the output
+    unflattened to w's other dims. In a block program the block is
+    gathered over data first (FSDP), its `model` dims kept; where the
+    rows are whole over data (`rows_in_place`) a dim split over data
+    stays in place instead: a contracted one against x's matching
+    columns, the partial products psummed over data; an output one
+    giving the rank's columns, all-gathered over data. Outside a block
+    program, the product."""
+    def mm(x_, w_):
+        k = math.prod(w_.shape[:contract])
+        y = x_.flatten(-contract) if contract > 1 else x_
+        return (y @ w_.reshape(k, -1)).unflatten(-1, w_.shape[contract:])
+    if not in_blocks():
+        return mm(x, w)
+    spec = resolve_spec(axes, shape, "param")
+    data = [d for d, e in enumerate(spec) if e == "data"]
+    if not current().in_place or not data:
+        return mm(x, gather_param(w, axes, shape=shape))
+    d = data[0]
+    if d >= contract:
+        return all_gather(mm(x, w), "data", x.ndim - 2 * contract + d)
+    if contract != 1:
+        raise NotImplementedError(f"in place over a contracted dim of {axes}")
+    n = w.shape[0]
+    c0 = axis_index("data") * n
+    return psum(mm(x[..., c0:c0 + n], w), "data")
 
 
 def batch_axes() -> tuple:
@@ -673,6 +721,22 @@ def rows(x, microbatches: int = 1):
     if microbatches == 1:
         return _block(x, P(ax))
     return torch.cat([_block(c, P(ax)) for c in x.split(n)])
+
+
+def every_row(x, batch: int):
+    """A block program's rows of `x` (dim 0: its share of a global
+    batch of `batch` rows) all-gathered over the batch axes that split
+    it: every row, what a decode writes into its caches (the param
+    rules' block: every row)."""
+    ax = batch_axes_prefix(batch)
+    return all_gather(x, ax, 0) if ax else x
+
+
+def own_rows(x, rows: int):
+    """This rank's `rows` rows of `x`, a tensor of every row of the
+    batch (dim 0; a decode's caches under the param rules)."""
+    ax = batch_axes_prefix(x.shape[0])
+    return x.narrow(0, axis_index(ax) * rows, rows) if ax else x
 
 
 def relayout(x, src, dst):
@@ -753,7 +817,7 @@ def unshard_tree(blocks, specs):
     inverse of `shard_tree`. A leaf no spec entry cuts comes back as
     itself."""
     with torch.no_grad():
-        return tree.map(lambda s, a: _unblock(a, resolve_spec(
+        return tree.map(lambda s, a: unblock(a, resolve_spec(
             s.axes, s.shape, "param")), specs, blocks, is_leaf=mod.is_spec)
 
 

@@ -16,7 +16,8 @@ donate_argnums=(0, 1))` reuses their buffers). Under a `DeviceMesh`
 reference's `jit(in_shardings=, out_shardings=)` from `param_shardings`:
 between steps each rank holds its block of every parameter and moment
 under its param spec (`shard_train_state`; FSDP's embed -> data
-included). A model of `sharding.BLOCK_FAMILIES` runs the block program:
+included). A model of `sharding.BLOCK_FAMILIES` (the dense, MoE, SSM and
+hybrid decoders) runs the block program:
 the step takes the rank's rows of the batch (`sharding.rows(batch,
 microbatches)`: its share of each of the reference's microbatches) and
 
@@ -29,8 +30,8 @@ microbatches)`: its share of each of the reference's microbatches) and
   3. runs AdamW on the blocks, donated, its clip on the global norm of
      the blocks (`optimizer.global_norm(pspecs)`).
 
-Every other family keeps the global view: the step takes the whole
-batch and
+Every other family (the encoder-decoder) keeps the global view: the
+step takes the whole batch and
 
   1. gathers the whole parameters, with no graph;
   2. takes the loss and gradients in the global view (every sharded

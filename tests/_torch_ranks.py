@@ -737,11 +737,12 @@ def mesh_cli(rank, payload):
 
 # -- the dry-run ---------------------------------------------------------------
 def dryrun_cell(rank, payload):
-    """The dry-run's sharded cell run for real: reduced gemma-2b's
-    sharded train step on a (2, 2, 2) (pod, data, model) mesh, on a
-    seeded batch of payload["dr/batch"] x payload["dr/seq"] tokens, under
-    `hlo_cost.Trace`: the collectives this rank issued (their wire bytes
-    and counts by op) and the step's FLOPs."""
+    """The dry-run's sharded cells run for real: the sharded train step
+    of each reduced arch of payload["dr/archs"] on a (2, 2, 2) (pod,
+    data, model) mesh, on a seeded batch of payload["dr/batch"] x
+    payload["dr/seq"] tokens, under `hlo_cost.Trace`: the collectives
+    this rank issued (their wire bytes and counts by op) and the step's
+    FLOPs, under "dr/<arch>/"."""
     from repro_torch.configs.base import get_config, reduced
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models.registry import build_model
@@ -750,29 +751,37 @@ def dryrun_cell(rank, payload):
     from repro_torch.train import train_loop
     from repro_torch.utils import hlo_cost
 
-    cfg = reduced(get_config("gemma-2b"))
-    model = build_model(cfg)
-    opt_cfg = optim.OptConfig()
-    params = model.init(torch.Generator().manual_seed(0))
-    B, S = int(payload["dr/batch"]), int(payload["dr/seq"])
-    toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (B, S + 1))
-    batch = {"tokens": _t(toks[:, :-1].astype(np.int32)),
-             "labels": _t(toks[:, 1:].astype(np.int32))}
-    with sharding.use_mesh(make_mesh((2, 2, 2), ("pod", "data", "model"))):
-        state = train_loop.shard_train_state(
-            model, opt_cfg, params, optim.init_opt_state(params, opt_cfg))
-        step = train_loop.jit_train_step(model, cfg, opt_cfg)
-        with hlo_cost.Trace() as t:
-            step(*state, sharding.rows(batch))       # the block program
-    res = t.result()
-    coll = res["collective"]
-    ops = sorted(coll["counts"])
-    return {"dr/ops": np.asarray(ops),
-            "dr/counts": np.asarray([coll["counts"][o] for o in ops]),
-            "dr/per_op_bytes": np.asarray([coll["per_op_bytes"][o]
-                                           for o in ops]),
-            "dr/wire_bytes": np.asarray(coll["wire_bytes"]),
-            "dr/flops": np.asarray(res["flops"])}
+    out = {}
+    for arch in payload["dr/archs"].tolist():
+        cfg = reduced(get_config(arch))
+        model = build_model(cfg)
+        opt_cfg = optim.OptConfig()
+        params = model.init(torch.Generator().manual_seed(0))
+        B, S = int(payload["dr/batch"]), int(payload["dr/seq"])
+        toks = np.random.default_rng(0).integers(0, cfg.vocab_size,
+                                                 (B, S + 1))
+        batch = {"tokens": _t(toks[:, :-1].astype(np.int32)),
+                 "labels": _t(toks[:, 1:].astype(np.int32))}
+        with sharding.use_mesh(make_mesh((2, 2, 2), ("pod", "data",
+                                                      "model"))):
+            state = train_loop.shard_train_state(
+                model, opt_cfg, params, optim.init_opt_state(params,
+                                                             opt_cfg))
+            step = train_loop.jit_train_step(model, cfg, opt_cfg)
+            with hlo_cost.Trace() as t:
+                step(*state, sharding.rows(batch))   # the block program
+        res = t.result()
+        coll = res["collective"]
+        ops = sorted(coll["counts"])
+        pre = f"dr/{arch}/"
+        out.update({pre + "ops": np.asarray(ops),
+                    pre + "counts": np.asarray([coll["counts"][o]
+                                                for o in ops]),
+                    pre + "per_op_bytes": np.asarray(
+                        [coll["per_op_bytes"][o] for o in ops]),
+                    pre + "wire_bytes": np.asarray(coll["wire_bytes"]),
+                    pre + "flops": np.asarray(res["flops"])})
+    return out
 
 
 # -- slice 15: the block program ---------------------------------------------
@@ -821,12 +830,20 @@ def blocks(rank, payload):
     whole) and its assignments (each dispatch's expert ids and kept
     slots, as JSON); with a fifth field "1", the loss, aux loss,
     gradient (gathered whole) and assignments of `make_grads_fn(
-    microbatches=2)` on the rank's share of each microbatch."""
+    microbatches=2)` on the rank's share of each microbatch. The shapes
+    also list the mixers' inner activations (mamba2's scan input, the
+    RG-LRU scan's), "in_place" counts the logits contracted in place
+    (`layers._unembed_in_place`), "rows_in_place" the projections that
+    kept their weights in place (`sharding.matmul_block` under
+    `rows_in_place`), and a sixth field "1" plants a fault:
+    mamba2's gated norm without the psum of its sum of squares over
+    `model`."""
     import json
 
     from repro_torch import tree
     from repro_torch.launch.mesh import make_mesh
-    from repro_torch.models import ffn, mla, moe, transformer
+    from repro_torch.models import ffn, mla, moe, rglru, ssm, transformer
+    from repro_torch.models import module as mod
     from repro_torch.models.registry import build_model
     from repro_torch.parallel import sharding
     from repro_torch.train import optimizer as optim
@@ -835,8 +852,31 @@ def blocks(rank, payload):
     mesh = make_mesh((2, 2, 2), ("pod", "data", "model"))
     opt_cfg = optim.OptConfig(**{k: payload[f"bl/opt/{k}"].item() for k in (
         "lr", "warmup_steps", "weight_decay")})
-    seen = {"residual": set(), "hidden": set()}
+    from repro_torch.models import layers
+    seen = {"residual": set(), "hidden": set(), "inner": set()}
+    in_place_fn, in_place = layers._unembed_in_place, [0, 0]
+    matmul_fn = sharding.matmul_block
+
+    def unembed_in_place(*a, **kw):
+        in_place[0] += 1
+        return in_place_fn(*a, **kw)
+
+    def matmul_block(*a, **kw):
+        in_place[1] += getattr(sharding.current(), "in_place", False)
+        return matmul_fn(*a, **kw)
+    layers._unembed_in_place = unembed_in_place
+    sharding.matmul_block = matmul_block
     block_fn, hidden_fn = transformer.superblock_apply, ffn.hidden
+    scan_fns = {ssm: ssm.ssd_chunked, rglru: rglru.rglru_scan}
+    inner_psum = ssm._inner_psum
+
+    def inner(mod, name):
+        def call(x, *a, **kw):
+            seen["inner"].add(tuple(x.shape))
+            return scan_fns[mod](x, *a, **kw)
+        setattr(mod, name, call)
+    inner(ssm, "ssd_chunked")
+    inner(rglru, "rglru_scan")
     sp_names = ("attn_apply_sp", "_ffn_apply_sp", "_ffn_apply_wg",
                 "mla_forward_sp")
     sp_mods = {"attn_apply_sp": transformer, "mla_forward_sp": mla}
@@ -867,9 +907,11 @@ def blocks(rank, payload):
     def put(prefix, t):
         out.update({prefix + k: _n(a) for k, a in tree.flatten_with_keys(t)})
     try:
-        for case, arch, kw, sp, mb in payload["bl/cases"].tolist():
+        for case, arch, kw, sp, mb, *fault in payload["bl/cases"].tolist():
             cfg = block_cfg(arch, kw)
             sp_calls.clear()
+            ssm._inner_psum = (lambda t: t) if fault == ["1"] else inner_psum
+            in_place[:] = [0, 0]
             model = build_model(cfg)
             specs = model.param_specs()
             pre = f"bl/{case}/"
@@ -883,8 +925,8 @@ def blocks(rank, payload):
                 assert sharding.runs_blocks(cfg)
                 params = sharding.shard_tree(whole, specs)
                 rows = [sharding.rows(b) for b in batches]
-                seen["residual"].clear()
-                seen["hidden"].clear()
+                for v in seen.values():
+                    v.clear()
                 (loss, mets), grads = train_loop.make_grads_fn(model, cfg)(
                     params, rows[0])
                 out[pre + "loss0"] = _n(loss)
@@ -897,6 +939,8 @@ def blocks(rank, payload):
                     sorted(seen["residual"]))
                 out[pre + "shapes/hidden"] = np.asarray(
                     sorted(seen["hidden"]))
+                out[pre + "shapes/inner"] = np.asarray(
+                    sorted(seen["inner"]) or [[0]])
                 assignments[0] = [] if cfg.moe is not None else None
                 logits, extras = model.forward(params, rows[0]["tokens"],
                                                embeddings=rows[0].get(
@@ -941,18 +985,26 @@ def blocks(rank, payload):
                 out[pre + "prefill"] = _n(_whole_logits(logits, V, B))
                 max_seq = int(payload["bl/max_seq"])
                 dec = model.decode_caches(caches, B, S, max_seq)
-                put(pre + "cache/", tree.map(lambda a: a[:, :, :S],
-                                             sharding.unshard_tree(
-                                                 dec, model.cache_specs(
-                                                     B, max_seq))))
+                # each leaf cut back to its prefill-length spec's shape
+                put(pre + "cache/", tree.map(
+                    lambda s_, a: a[tuple(slice(0, n) for n in s_.shape)],
+                    model.cache_specs(B, S), sharding.unshard_tree(
+                        dec, model.cache_specs(B, max_seq)),
+                    is_leaf=mod.is_spec))
                 tok = sharding.rows(_t(payload[pre + "step_tokens"]))
                 pos = torch.full((tok.shape[0],), S, dtype=torch.int32)
                 logits, _ = model.decode_step(params, tok, dec, pos)
                 out[pre + "decode"] = _n(_whole_logits(logits, V, B))
             out[pre + "sp_calls"] = np.asarray(sp_calls or [""])
+            out[pre + "in_place"] = np.asarray(in_place[0])
+            out[pre + "rows_in_place"] = np.asarray(in_place[1])
     finally:
         moe._dispatch_indices = dispatch_fn
         transformer.superblock_apply, ffn.hidden = block_fn, hidden_fn
+        ssm.ssd_chunked, rglru.rglru_scan = scan_fns[ssm], scan_fns[rglru]
+        ssm._inner_psum = inner_psum
+        layers._unembed_in_place = in_place_fn
+        sharding.matmul_block = matmul_fn
         for n in sp_names:
             setattr(sp_mods.get(n, ffn), n, sp_fns[n])
     return out

@@ -63,6 +63,12 @@ MODEL_REL = 1e-3
 # phase 16's ranks in turns against the gloo ranks: the same per-rank
 # arithmetic, the collectives' sums in another order
 TURNS_REL = 1e-6
+# the same for the SSM and the hybrid, whose recurrences amplify that
+# reordering (float32 ulps of a psum over model) in float32: measured at
+# most 2.34e-6 of scale (mamba2's A_log gradient) and 8.56e-6
+# (recurrentgemma's gate_a gradient; its first layer's outputs bit-equal,
+# the next psum's rounding grown through sqrt(1 - a^2) near a = 1)
+TURNS_REL_RECURRENT = {"mamba2-780m": 1e-5, "recurrentgemma-2b": 3e-5}
 # case -> (arch, the fields replaced in both packages' reduced config)
 CASES = {"gemma": ("gemma-2b", {}),
          "codeqwen": ("codeqwen1.5-7b", {}),
@@ -604,16 +610,17 @@ def test_chip_smoke_phase16_at_cpu_size(ranks):
     gemma-2b at 3 heads, context parallelism, and codeqwen1.5-7b at 4 kv
     heads, grouped head-TP, depth 2; reduced granite-moe, repeated
     head-TP and 4 experts, and deepseek-v3, MLA, one dense_big layer,
-    then MoE, with no MTP head as the card runs it; on a (data 2,
-    model 4) grid): the phase
+    then MoE, with no MTP head as the card runs it; reduced mamba2-780m
+    and recurrentgemma-2b, window attention head-TP at depth 3; on a
+    (data 2, model 4) grid): the phase
     runs (its float32 holds against the unsharded steps, within SP_HOLD,
     raise on a miss; an MoE's at a capacity factor where none of its
     assignments drops), and its 8 ranks run in turns in this
     process give, rank by rank, every output the 8 gloo ranks gave for
     the same steps (the loss, each gradient block, the prefill's logits
-    and caches, the decode step's logits) within TURNS_REL of its scale:
-    the same per-rank arithmetic, the collectives summed in another
-    order."""
+    and caches, the decode step's logits) within TURNS_REL of its scale
+    (TURNS_REL_RECURRENT for the SSM and the hybrid): the same per-rank
+    arithmetic, the collectives summed in another order."""
     import torch
 
     from repro_torch import device as tdevice
@@ -638,14 +645,16 @@ def test_chip_smoke_phase16_at_cpu_size(ranks):
                                          Z, decode=True))
             outs = Turns((Z.data, Z.model), cs.BLOCK_AXES).run(
                 lambda r: cs.blocks_steps(torch, model, cfg, preps[r], Z))
+            bound = TURNS_REL_RECURRENT.get(arch, TURNS_REL)
             for r, out in enumerate(outs):
                 for k, a in tree.flatten_with_keys(out):
                     want = got[r][f"p16/{arch}/{k}"]
                     assert _rel(a.detach().float().numpy(), want) \
-                        <= TURNS_REL, (arch, r, k)
+                        <= bound, (arch, r, k)
         assert {a: v["branch"] for a, v in res["archs"].items()} == {
             "gemma-2b": "cp", "codeqwen1.5-7b": "head_tp",
-            "granite-moe-1b-a400m": "head_tp", "deepseek-v3-671b": "mla"}
+            "granite-moe-1b-a400m": "head_tp", "deepseek-v3-671b": "mla",
+            "mamba2-780m": "none", "recurrentgemma-2b": "head_tp"}
         for arch in ("granite-moe-1b-a400m", "deepseek-v3-671b"):
             r = res["archs"][arch]
             assert r["hold_drops"] == 0 < r["hold_assignments"], arch

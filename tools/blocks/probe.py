@@ -1,15 +1,17 @@
 #!/usr/bin/env python3
 """Run `chip_smoke.py`'s phase 16 alone on the card (the block program
 rank by rank on a (data 2, model 16) grid: gemma-2b, codeqwen1.5-7b,
-granite-moe-1b-a400m and deepseek-v3-671b at full width; float32 holds
-against the unsharded steps, each rank's bf16 device ms). Card only:
+granite-moe-1b-a400m, deepseek-v3-671b, mamba2-780m and
+recurrentgemma-2b at full width; float32 holds against the unsharded
+steps, each rank's bf16 device ms). Card only:
 
     python3 tools/blocks/probe.py [--arch granite-moe-1b-a400m,...]
-    python3 tools/blocks/probe.py --rounding
+    python3 tools/blocks/probe.py --rounding [--arch mamba2-780m]
     python3 tools/blocks/probe.py --routing
     python3 tools/blocks/probe.py --memory --arch deepseek-v3-671b
 
-`--arch` runs only the named archs of `chip_smoke.BLOCKS`.
+`--arch` runs only the named archs of `chip_smoke.BLOCKS` (with
+`--rounding`, each of them; gemma-2b by default).
 
 `--memory` runs phase 16 (for the archs of `--arch`) with the card's
 allocated GiB printed before and after each collective of more than a
@@ -27,7 +29,7 @@ block of tokens (a row's S/M positions), the most assignments one such
 block sends one expert and the float32 hold's capacity factor
 (`chip_smoke.blocks_hold_cf`).
 
-`--rounding` runs only gemma-2b's float32 train step, at 2 x 1024 and
+`--rounding` runs only an arch's float32 train step, at 2 x 1024 and
 2 x 4096 tokens, and prints each gradient leaf's difference over its
 scale from the unsharded step's three times: the block program's; the
 unsharded step's with the batch's rows swapped; and its two
@@ -60,17 +62,19 @@ def scaling(got, want) -> float:
     return float((g - w).dot(w) / w.dot(w).clamp(min=1e-300))
 
 
-def rounding(torch, c, dev) -> dict:
-    """gemma-2b's float32 gradient, leaf by leaf: the block program, the
-    unsharded step with its rows swapped and in two microbatches, each
-    against the unsharded step, at two token counts."""
+def rounding(torch, c, dev, arch: str = "gemma-2b") -> dict:
+    """`arch`'s float32 gradient (phase 16's config of it), leaf by leaf:
+    the block program, the unsharded step with its rows swapped and in
+    two microbatches, each against the unsharded step, at two token
+    counts."""
     from repro_torch import tree
     from repro_torch.parallel.turns import Turns
     from repro_torch.train import train_loop
+    kw = dict(c.BLOCKS.archs)[arch]
     out = {}
     for seq in (1024, 4096):
-        Z = dataclasses.replace(c.BLOCKS, archs=(("gemma-2b", ()),), seq=seq)
-        cfg = c.blocks_cfg("gemma-2b", (), Z, "float32")
+        Z = dataclasses.replace(c.BLOCKS, archs=((arch, kw),), seq=seq)
+        cfg = c.blocks_cfg(arch, kw, Z, "float32")
         model, whole, batch, tokens = c.blocks_inputs(torch, cfg, Z, dev)
         one = dict(params=whole, rows=batch, tokens=tokens)
         want = c.blocks_step(torch, model, cfg, one, Z, "train")["grads"]
@@ -226,15 +230,16 @@ def main() -> int:
     c.log(c.smi_line())
     dev = torch.device("cuda")
     t0 = time.perf_counter()
+    want = (sys.argv[sys.argv.index("--arch") + 1].split(",")
+            if "--arch" in sys.argv[1:] else None)
     if "--rounding" in sys.argv[1:]:
-        out = rounding(torch, c, dev)
+        out = {a: rounding(torch, c, dev, a) for a in want or ["gemma-2b"]}
     elif "--routing" in sys.argv[1:]:
         out = routing(torch, c, dev)
     else:
         _build.build(("flash_attention",))
         Z = c.BLOCKS
-        if "--arch" in sys.argv[1:]:
-            want = sys.argv[sys.argv.index("--arch") + 1].split(",")
+        if want:
             Z = dataclasses.replace(Z, archs=tuple(
                 a for a in Z.archs if a[0] in want))
         if "--memory" in sys.argv[1:]:

@@ -11,8 +11,10 @@ its backward recomputes one forward, half the operator's count under
 remat, all of it without), argument, temp and wire bytes, and the
 bounds' verdict (FLOPs within 5 %, arguments within 1 %, temp within
 2x in train and prefill). With a third folder (an earlier port's), its
-ratios too, as "before". Prints a markdown table; exits 1 if a cell
-misses a bound.
+ratios too, as "before". Prints a markdown table; exits 1 if a
+block-program cell (`"view": "blocks"`) misses a bound. A global-view
+cell (a family not yet on the block program) is printed and listed,
+not held: the bounds are the block program's.
 """
 import glob
 import json
@@ -52,7 +54,7 @@ def main(argv) -> int:
         head += " before: " + " / ".join(cols) + " |"
     print(head)
     print("|" + "---|" * (head.count("|") - 1))
-    missed = []
+    missed, held, unheld = [], 0, []
     for f in sorted(glob.glob(os.path.join(ref_dir, "*.json"))):
         name = os.path.basename(f)[:-5]
         path = os.path.join(port_dir, name + ".json")
@@ -72,10 +74,17 @@ def main(argv) -> int:
                 b = ratios(json.load(open(bp)), ref, remat)
                 row += " " + " / ".join(f"{b[c]:.4g}" for c in cols) + " |"
         print(row)
-        if not ok(r, port["shape"]):
-            missed.append(name)
-    print(f"\n{len(missed)} cells miss a bound: {missed}" if missed
-          else "\nevery cell within its bounds")
+        if port.get("view") != "blocks":
+            unheld.append(name)
+        else:
+            held += 1
+            if not ok(r, port["shape"]):
+                missed.append(name)
+    print(f"\n{len(missed)} of {held} block-program cells miss a bound: "
+          f"{missed}" if missed else
+          f"\nevery cell within its bounds ({held} block-program cells)")
+    if unheld:
+        print(f"global view, not held: {unheld}")
     return 1 if missed else 0
 
 
