@@ -348,8 +348,9 @@ SERVE = ServeSizes(arch="gemma-2b", reduce=False, max_batch=4, max_seq=4096,
 # (its steps) and 2 x 128 (the microbatch check), internvl2-2b's 4 x 512
 # and whisper-base's decoder at 4 x 128 (its steps) and 4 x 112 (the
 # decode check's prefill); an entry of 8 also names the key count and the
-# causal flag: whisper's encoder, 4 x 1500 non-causal, and its cross-
-# attention, 128 or 112 queries against 1500 frames, non-causal. Phase
+# causal flag: whisper's encoder, 4 x 1500 non-causal (1 x 1500 a rank of
+# phase 16's block program, local on every rank of model 16), and its
+# cross-attention, 128 or 112 queries against 1500 frames, non-causal. Phase
 # 10's dense decoders (codeqwen1.5-7b's MHA of 32 heads of 128,
 # phi4-mini-3.8b's 24 on 8 of 128, stablelm-12b's 32 on 8 of 160, a head
 # dim no other shape has) at their engine's buckets and PDServer's batch.
@@ -381,7 +382,8 @@ FLASH_SHAPES = tuple(
     + [WHISPER_LAYOUT + bs for bs in ((4, 128), (4, 112), (4, 1500, 1500,
                                                             False),
                                       (4, 128, 1500, False),
-                                      (4, 112, 1500, False))]
+                                      (4, 112, 1500, False),
+                                      (1, 1500, 1500, False))]
     + [layout + bs for layout in (CODEQWEN_LAYOUT, PHI4_LAYOUT,
                                   STABLELM_LAYOUT) for bs in DENSE_BUCKETS])
 # the kernel row's main shape: gemma-2b's longest bucket
@@ -2737,14 +2739,15 @@ FAMILIES = FamilySizes(archs=("granite-moe-1b-a400m", "recurrentgemma-2b",
                               "phi4-mini-3.8b", "stablelm-12b",
                               "deepseek-v3-671b"),
                        reduce=False, max_batch=4, max_seq=4096, page=16,
-                       prompts=SERVE.prompts, new=24, pd_batch=2,
+                       prompts=SERVE.prompts, new=16, pd_batch=2,
                        pd_prompt=1024, pd_steps=16, pd_seq=2048, reps=1,
                        seed=0, layers=(("deepseek-v3-671b", 4),),
                        mtp_len=512)
-# (24 new tokens and 1 timing repetition, down from 32 and 3, since a
+# (16 new tokens and 1 timing repetition, down from 32 and 3, since a
 # full run passed 900 s of its 1200 s limit on a slow host, phase 10
 # taking 537 s of it; the second repetition went when phase 16 took on
-# the MoE configs)
+# the MoE configs, 24 new tokens went to 16 when it took on the
+# encoder-decoder and a full run read 920.9 s)
 # phase 10's main paths, by arch: the names of their rows in the kernels
 # line's launches_by_path
 FAMILY_PATH = {"granite-moe-1b-a400m": "moe", "recurrentgemma-2b": "hybrid",
@@ -3419,15 +3422,22 @@ class CpSizes:
     decode_seq: int     # that cache row's length (decode_32k's)
     decode_pos: int     # where the new entry lands; attended [0, pos]
     dtype: str          # of q, k, v and the caches
+    cross: tuple = ()   # archs of `archs` whose cross-attention (against
+                        # their frames) is context-parallel too
 
 
 # the production mesh's model axis of 16: the reference's collectives
-# docstring names phi4 (H 24), gemma (H 8) and recurrentgemma (H 10) as
-# landing in context parallelism there (neither KVH nor H divides 16)
-CP = CpSizes(archs=("gemma-2b", "phi4-mini-3.8b", "recurrentgemma-2b"),
+# docstring names phi4 (H 24), gemma (H 8), whisper (H 8) and
+# recurrentgemma (H 10) as landing in context parallelism there (neither
+# KVH nor H divides 16); whisper-base's decoder self-attention and its
+# cross-attention (256 queries a rank against the 1500 frames) are the
+# block program's per-rank shapes (phase 16)
+CP = CpSizes(archs=("gemma-2b", "phi4-mini-3.8b", "recurrentgemma-2b",
+                    "whisper-base"),
              reduce=False, batch=1, seq=4096, model=16,
              decode_arch="gemma-2b", decode_seq=KV.seq,
-             decode_pos=KV.prefill, dtype="bfloat16")
+             decode_pos=KV.prefill, dtype="bfloat16",
+             cross=("whisper-base",))
 
 
 def _cp_cfg(arch, C):
@@ -3444,21 +3454,22 @@ def phase_cp(torch, np, dev, C, rng, T) -> dict:
     queries, keys and values in the model's layout, and for every rank
     coordinate r the flash call on its C.seq / C.model query rows against
     the whole K/V at q_offset = r C.seq / C.model (the kernel's offset
-    path; the counted main path). Each shard is held against the plain
-    version at its offset (`flash_hold`: phase 2's bound), and the
-    concatenated shards against the unsharded call (reported: the split
-    plans differ by shape, so the two need not be bit-equal). Then the
+    path; the counted main path); for an arch of C.cross (the
+    encoder-decoder) also its cross-attention's: the same query shards
+    against every frame's K/V, no mask (`_cp_shards`). Each shard is held
+    against the plain version at its offset (`flash_hold`: phase 2's
+    bound), and the concatenated shards against the unsharded call
+    (reported: the split plans differ by shape, so the two need not be
+    bit-equal). Then the
     sharded decode over C.model shards of C.decode_arch's decode_32k
     cache row (`_cp_decode`). On the card each shard is timed
     (cold) beside its plain version, SDPA at the same shard shape (a
     boolean mask at the offset) and its bound."""
     import torch.nn.functional as F
-    from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention import ref as fa_ref
     from repro_torch.launch.mesh import production_shape
-    from repro_torch.models.attention import (chunked_attention,
-                                              decode_partials,
+    from repro_torch.models.attention import (decode_partials,
                                               finalize_partials)
     from repro_torch.models.module import torch_dtype
     from repro_torch.parallel import collectives
@@ -3470,7 +3481,6 @@ def phase_cp(torch, np, dev, C, rng, T) -> dict:
     gen = torch.Generator(device=dev).manual_seed(int(rng.integers(1 << 31)))
     dt = torch_dtype(C.dtype)
     B, S, M = C.batch, C.seq, C.model
-    n = S // M
     check(S % M == 0, f"phase 12: {S} tokens do not split over {M}")
 
     def rand(*shape_):
@@ -3484,71 +3494,22 @@ def phase_cp(torch, np, dev, C, rng, T) -> dict:
         check(KVH % M != 0 and H % M != 0,
               f"phase 12: {arch} (H {H}, KVH {KVH}) does not land in "
               f"context parallelism on model = {M}")
-        kw = dict(causal=True, window=W)
-        q, k, v = rand(B, S, KVH, G, D), rand(B, S, KVH, D), \
-            rand(B, S, KVH, D)
-        whole = chunked_attention(q, k, v, **kw)       # not counted
-        shards, shapes = [], {}
-        count_launches(_build, launches, lambda: [shards.append(
-            collectives._cp_block(q[:, r * n:(r + 1) * n], k, v, r * n, **kw))
-            for r in range(M)],
-            shapes)
-        layout = (H, KVH, D, W)
-        flash_by_shape.update({flash_key(layout, sk): c for sk, c in
-                               shapes.get("flash_attention", {}).items()})
-        if cuda:
-            check(sorted(shapes.get("flash_attention", {}).items()) == sorted(
-                (fa_ops.shape_key(B, n, S, True, r * n), 1)
-                for r in range(M)),
-                f"phase 12: {arch}'s offset launches by shape {shapes}")
-        # the kernel's (B, H, S, D) views of the same tensors
-        kh, vh = k.transpose(1, 2), v.transpose(1, 2)
-        errs, ulps, rows = [], [], []
-        for r, o in enumerate(shards):
-            qs = q[:, r * n:(r + 1) * n].reshape(B, n, H, D).transpose(1, 2)
-            got = o.reshape(B, n, H, D).transpose(1, 2)
-            what = f"{arch} shard {r} of {M} (q_offset {r * n})"
-            if dt == torch.bfloat16:
-                e, u = flash_hold(torch, T, got, qs, kh, vh, what,
-                                  q_offset=r * n, **kw)
-            else:
-                want = fa_ref.reference(qs, kh, vh, q_offset=r * n, **kw)
-                e, u = float((got - want).abs().max()), 0.0
-                check(torch.allclose(got, want, atol=2e-5, rtol=2e-5),
-                      f"flash_attention != plain, {what}: {e}")
-            errs.append(e)
-            ulps.append(u)
-            if cuda:
-                rows.append(_cp_shard_times(torch, F, fa_ops, fa_ref, T, qs,
-                                            kh, vh, r * n, W, dev))
-        cat = torch.cat(shards, dim=1)
-        d_whole = float((cat.float() - whole.float()).abs().max())
-        for r, row in enumerate(rows):
-            key = flash_key(layout, fa_ops.shape_key(B, n, S, True, r * n))
-            by_shape[key] = dict(row, entry="flash_attention",
-                                 max_abs_err=errs[r],
-                                 max_half_ulps=ulps[r])
-        archs[arch] = dict(
-            layout=flash_key(layout, f"{B}x{S}"), shards=M, rows=n,
-            max_abs_err=max(errs), max_half_ulps=max(ulps),
-            concat_vs_unsharded=d_whole,
-            ms_by_shard=[r_["ms"] for r_ in rows],
-            sdpa_ms_by_shard=[r_["library_ms"] for r_ in rows],
-            plain_ms_by_shard=[r_["plain_ms"] for r_ in rows],
-            bound_ms_by_shard=[r_["bound_ms"] for r_ in rows],
-            sdpa_backend=rows[0]["library_backend"] if rows else None)
-        log(f"phase 12: {arch} {archs[arch]['layout']} over model = {M}: "
-            f"{M} shards of {n} rows held against the plain version at "
-            f"their offsets (max |err| {max(errs):.4g}, worst "
-            f"{max(ulps):.3f} of the half-ulp bound); concatenated vs the "
-            f"unsharded call: max |diff| {d_whole:.4g}; kernel ms by shard "
-            f"{[round(x, 4) for x in archs[arch]['ms_by_shard']]}; SDPA "
-            f"({archs[arch]['sdpa_backend']}) "
-            f"{[round(x, 4) for x in archs[arch]['sdpa_ms_by_shard']]}; "
-            f"bound {[round(x, 4) for x in archs[arch]['bound_ms_by_shard']]}")
-        del q, k, v, whole, shards, cat, kh, vh
+        # its self-attention (causal, within its window) and, for an
+        # encoder-decoder, its cross-attention: the rank's query rows
+        # against every frame's K/V, held whole (no mask)
+        kinds = [(arch, S, dict(causal=True, window=W))]
+        if arch in C.cross:
+            kinds.append((f"{arch}/cross", cfg.frontend.n_tokens,
+                          dict(causal=False, window=0)))
+        for name, Sk, kw in kinds:
+            q, k, v = rand(B, S, KVH, G, D), rand(B, Sk, KVH, D), \
+                rand(B, Sk, KVH, D)
+            archs[name] = _cp_shards(torch, F, fa_ops, fa_ref, T, dev, name,
+                                     q, k, v, kw, C, launches, flash_by_shape,
+                                     by_shape)
     if cuda:
-        check(launches.get("flash_attention", 0) == M * len(C.archs)
+        check(launches.get("flash_attention", 0)
+              == M * (len(C.archs) + len(C.cross))
               and not launches.get("flash_attention_generic"),
               f"phase 12: launches {launches}")
     decode = _cp_decode(torch, dev, C, gen, dt, collectives, decode_partials,
@@ -3557,22 +3518,102 @@ def phase_cp(torch, np, dev, C, rng, T) -> dict:
                 by_shape=by_shape, archs=archs, decode=decode)
 
 
-def _cp_shard_times(torch, F, fa_ops, fa_ref, T, qs, kh, vh, off, W, dev):
+def _cp_shards(torch, F, fa_ops, fa_ref, T, dev, name, q, k, v, kw, C,
+               launches, flash_by_shape, by_shape) -> dict:
+    """Phase 12's shards of one attention: q (B, S, KVH, G, D) cut into
+    C.model blocks of query rows, each attended against the whole k, v
+    (B, Sk, KVH, D) at q_offset = its first row (`collectives._cp_block`,
+    the counted path), held against the plain version at its offset, the
+    concatenation against the unsharded call, each shard timed on the
+    card (`_cp_shard_times`); `launches`, `flash_by_shape` and `by_shape`
+    take its launches and rows. Returns the attention's summary."""
+    from repro_torch.kernels import _build
+    from repro_torch.models.attention import chunked_attention
+    from repro_torch.parallel import collectives
+    cuda = dev.type == "cuda"
+    B, S, KVH, G, D = q.shape
+    H, Sk, M = KVH * G, k.shape[1], C.model
+    n = S // M
+    whole = chunked_attention(q, k, v, **kw)       # not counted
+    shards, shapes = [], {}
+    count_launches(_build, launches, lambda: [shards.append(
+        collectives._cp_block(q[:, r * n:(r + 1) * n], k, v, r * n, **kw))
+        for r in range(M)], shapes)
+    layout = (H, KVH, D, kw["window"])
+    flash_by_shape.update({flash_key(layout, sk): c for sk, c in
+                           shapes.get("flash_attention", {}).items()})
+    if cuda:
+        check(sorted(shapes.get("flash_attention", {}).items()) == sorted(
+            (fa_ops.shape_key(B, n, Sk, kw["causal"], r * n), 1)
+            for r in range(M)),
+            f"phase 12: {name}'s offset launches by shape {shapes}")
+    # the kernel's (B, H, S, D) views of the same tensors
+    kh, vh = k.transpose(1, 2), v.transpose(1, 2)
+    errs, ulps, rows = [], [], []
+    for r, o in enumerate(shards):
+        qs = q[:, r * n:(r + 1) * n].reshape(B, n, H, D).transpose(1, 2)
+        got = o.reshape(B, n, H, D).transpose(1, 2)
+        what = f"{name} shard {r} of {M} (q_offset {r * n})"
+        if q.dtype == torch.bfloat16:
+            e, u = flash_hold(torch, T, got, qs, kh, vh, what,
+                              q_offset=r * n, **kw)
+        else:
+            want = fa_ref.reference(qs, kh, vh, q_offset=r * n, **kw)
+            e, u = float((got - want).abs().max()), 0.0
+            check(torch.allclose(got, want, atol=2e-5, rtol=2e-5),
+                  f"flash_attention != plain, {what}: {e}")
+        errs.append(e)
+        ulps.append(u)
+        if cuda:
+            rows.append(_cp_shard_times(torch, F, fa_ops, fa_ref, T, qs, kh,
+                                        vh, r * n, kw["window"], dev,
+                                        causal=kw["causal"]))
+    cat = torch.cat(shards, dim=1)
+    d_whole = float((cat.float() - whole.float()).abs().max())
+    for r, row in enumerate(rows):
+        key = flash_key(layout, fa_ops.shape_key(B, n, Sk, kw["causal"],
+                                                 r * n))
+        by_shape[key] = dict(row, entry="flash_attention",
+                             max_abs_err=errs[r], max_half_ulps=ulps[r])
+    res = dict(
+        layout=flash_key(layout, fa_ops.shape_key(B, S, Sk, kw["causal"])),
+        shards=M, rows=n, max_abs_err=max(errs), max_half_ulps=max(ulps),
+        concat_vs_unsharded=d_whole,
+        ms_by_shard=[r_["ms"] for r_ in rows],
+        sdpa_ms_by_shard=[r_["library_ms"] for r_ in rows],
+        plain_ms_by_shard=[r_["plain_ms"] for r_ in rows],
+        bound_ms_by_shard=[r_["bound_ms"] for r_ in rows],
+        sdpa_backend=rows[0]["library_backend"] if rows else None)
+    log(f"phase 12: {name} {res['layout']} over model = {M}: "
+        f"{M} shards of {n} rows held against the plain version at "
+        f"their offsets (max |err| {max(errs):.4g}, worst "
+        f"{max(ulps):.3f} of the half-ulp bound); concatenated vs the "
+        f"unsharded call: max |diff| {d_whole:.4g}; kernel ms by shard "
+        f"{[round(x, 4) for x in res['ms_by_shard']]}; SDPA "
+        f"({res['sdpa_backend']}) "
+        f"{[round(x, 4) for x in res['sdpa_ms_by_shard']]}; "
+        f"bound {[round(x, 4) for x in res['bound_ms_by_shard']]}")
+    return res
+
+
+def _cp_shard_times(torch, F, fa_ops, fa_ref, T, qs, kh, vh, off, W, dev,
+                    causal=True):
     """One shard's cold kernel, plain and SDPA times and its bound: the
     (q, k) pairs its rows score (causal from q_offset, inside the
-    window) over the bf16 tensor-core rate; the bytes of its rows' q and
-    output and of the keys and values those rows reach."""
+    window; every pair with no mask) over the bf16 tensor-core rate; the
+    bytes of its rows' q and output and of the keys and values those
+    rows reach."""
     B, H, n, D = qs.shape
     KVH, S = kh.shape[1], kh.shape[2]
-    call = fa_ops.prepare(qs, kh, vh, causal=True, window=W, q_offset=off)
+    call = fa_ops.prepare(qs, kh, vh, causal=causal, window=W, q_offset=off)
     qpos = off + torch.arange(n, device=dev)[:, None]
     kpos = torch.arange(S, device=dev)[None, :]
-    mask = kpos <= qpos
+    mask = kpos <= qpos if causal else (kpos >= 0).expand(n, S)
     if W:
         mask &= kpos > qpos - W
     pairs = int(mask.sum())
     k_lo = max(0, off - W + 1) if W else 0
-    keys = off + n - k_lo
+    keys = off + n - k_lo if causal else S
     flops = 4 * B * H * D * pairs
     nbytes = (2 * H * n + 2 * KVH * keys) * D * 2 * B
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / HBM_BYTES_PER_S
@@ -3582,7 +3623,7 @@ def _cp_shard_times(torch, F, fa_ops, fa_ref, T, qs, kh, vh, off, W, dev):
     ms = cold(call.run)
     return dict(ms=ms, rank_ms=ms,
                 plain_ms=cold(lambda: fa_ref.reference(
-                    qs, kh, vh, causal=True, window=W, q_offset=off)),
+                    qs, kh, vh, causal=causal, window=W, q_offset=off)),
                 library_ms=cold(lambda: F.scaled_dot_product_attention(
                     qs, kh, vh, attn_mask=mask, enable_gqa=True)),
                 library_backend=sdpa_backend(torch, qs, kh, vh,
@@ -3590,7 +3631,7 @@ def _cp_shard_times(torch, F, fa_ops, fa_ref, T, qs, kh, vh, off, W, dev):
                                              enable_gqa=True),
                 bound_ms=max(t_ops, t_bytes) * 1e3,
                 bound_by="operations" if t_ops > t_bytes else "bytes",
-                split=fa_ops.plan(B, H, n, S, causal=True, window=W,
+                split=fa_ops.plan(B, H, n, S, causal=causal, window=W,
                                   sms=fa_ops.sm_count(dev), q_offset=off)[1],
                 gflop=flops / 1e9)
 
@@ -6248,13 +6289,18 @@ class BlockSizes:
 # mamba2-780m (3 of 48 heads, 192 of 3072 inner channels a rank; its
 # vocab of 50280 whole over model 16), depth 2, and the hybrid
 # recurrentgemma-2b (160 of 2560 lru channels a rank; H 10 / KVH 1:
-# context-parallel window attention), depth 3: (rec, rec, attn)
+# context-parallel window attention), depth 3: (rec, rec, attn); the
+# encoder-decoder whisper-base (H 8 / KVH 8: its encoder local over the
+# 1500 seeded frames on every rank, its decoder's self- and
+# cross-attention context-parallel; the vocab of 51865 whole over model
+# 16), depth 2 + 2
 BLOCKS = BlockSizes(archs=(("gemma-2b", ()), ("codeqwen1.5-7b", ()),
                            ("granite-moe-1b-a400m", ()),
                            ("deepseek-v3-671b", (("n_layers", 4),
                                                  ("mtp_depth", 0))),
                            ("mamba2-780m", ()),
-                           ("recurrentgemma-2b", (("n_layers", 3),))),
+                           ("recurrentgemma-2b", (("n_layers", 3),)),
+                           ("whisper-base", (("enc_layers", 2),))),
                     reduce=False, layers=2, data=2, model=16, batch=2,
                     seq=4096, reps=1, lean=("deepseek-v3-671b",))
 # at CPU size, on the 8 gloo ranks' grid: gemma-2b at 3 heads (context
@@ -6262,14 +6308,21 @@ BLOCKS = BlockSizes(archs=(("gemma-2b", ()), ("codeqwen1.5-7b", ()),
 # reduced granite-moe (4 experts) and deepseek-v3 (MLA, one dense_big
 # layer, then MoE, no MTP head as on the card), at 4 heads over model 4;
 # reduced mamba2-780m (4 of 16 heads a rank) and recurrentgemma-2b
-# (16 of 64 lru channels a rank, window 8 < 16 tokens: head-TP), depth 3
+# (16 of 64 lru channels a rank, window 8 < 16 tokens: head-TP), depth 3;
+# whisper-base at H 3 / KVH 3 over 7 frames and vocab 257, the card's
+# partition (its encoder local, its decoder context-parallel, the vocab
+# whole over model 4)
 BLOCKS_CPU = BlockSizes(archs=(("gemma-2b", (("n_heads", 3),)),
                                ("codeqwen1.5-7b", (("n_kv_heads", 4),)),
                                ("granite-moe-1b-a400m", ()),
                                ("deepseek-v3-671b", (("n_layers", 3),
                                                      ("mtp_depth", 0))),
                                ("mamba2-780m", ()),
-                               ("recurrentgemma-2b", (("n_layers", 3),))),
+                               ("recurrentgemma-2b", (("n_layers", 3),)),
+                               ("whisper-base", (
+                                   ("n_heads", 3), ("n_kv_heads", 3),
+                                   ("head_dim", 16), ("vocab_size", 257),
+                                   ("frontend", (("n_tokens", 7),))))),
                         reduce=True, layers=2, data=2, model=4, batch=2,
                         seq=16, reps=1)
 BLOCK_AXES = ("data", "model")
@@ -6283,11 +6336,14 @@ HOLD_SLOTS = 1
 
 def blocks_cfg(arch: str, kw: tuple, Z, dtype: str):
     """Phase 16's config of `arch`: its depth cut to Z.layers (or its
-    own), the fields of `kw` replaced, in `dtype`."""
+    own), the fields of `kw` replaced (a value that is itself such a
+    tuple, the fields of that nested config), in `dtype`."""
     from repro_torch.configs.base import get_config, reduced
     cfg = reduced(get_config(arch)) if Z.reduce else get_config(arch)
+    kw = {k: dataclasses.replace(getattr(cfg, k), **dict(v))
+          if isinstance(v, tuple) else v for k, v in kw}
     return dataclasses.replace(cfg, **dict(dict(n_layers=Z.layers,
-                                                dtype=dtype), **dict(kw)))
+                                                dtype=dtype), **kw))
 
 
 def blocks_steps_of(arch: str, Z) -> tuple:
@@ -6309,15 +6365,9 @@ def routed(params, cfg):
     and the random router sends the block's tokens to the same experts
     (`tools/blocks/probe.py --routing`)."""
     from repro_torch import tree
-    import re
-    v = re.compile(r"(^|/)(attn/wv/w|mla/w_uv)$")
-    o = re.compile(r"(^|/)(attn/wo/w|mla/w_o)$")
+    params = values_at_fan_in(params)
 
     def scale(k, a):
-        if v.search(k):                   # (..., in, kv heads, dim)
-            return a * math.sqrt(a.shape[-2] / a.shape[-3])
-        if o.search(k):                   # (..., heads, dim, D)
-            return a / math.sqrt(a.shape[-3])
         if k == "embed/table":
             return a * math.sqrt(cfg.d_model)
         if k == "final_norm/scale" and cfg.tie_embeddings:
@@ -6327,10 +6377,38 @@ def routed(params, cfg):
                                    tree.flatten_with_keys(params)])
 
 
+def values_at_fan_in(params):
+    """`params` with every attention's value and out projections (a
+    cross-attention's too, MLA's `w_uv` and `w_o`) at their fan-in: drawn
+    at 1/sqrt(kv heads) and 1/sqrt(head_dim), they make an attention's
+    output sqrt(D / KVH) and sqrt(H) times the stream's scale. On the
+    conditioned copy alone the output, near one mean of the values over
+    the conditioned copy's near-uniform scores, then outweighs every
+    token's own part of the stream: whisper-base's encoder output is one
+    vector over its 1500 frames (its mean 12 times their spread), and
+    the float32 rounding of the cross-attention's query and key
+    gradients, which cancel that common part, grows with the tokens
+    (1.6e-5 of scale against float64 at 256 tokens)."""
+    from repro_torch import tree
+    import re
+    v = re.compile(r"(^|/)(x?attn/wv/w|mla/w_uv)$")
+    o = re.compile(r"(^|/)(x?attn/wo/w|mla/w_o)$")
+
+    def scale(k, a):
+        if v.search(k):                   # (..., in, kv heads, dim)
+            return a * math.sqrt(a.shape[-2] / a.shape[-3])
+        if o.search(k):                   # (..., heads, dim, D)
+            return a / math.sqrt(a.shape[-3])
+        return a
+    return tree.unflatten(params, [scale(k, a) for k, a in
+                                   tree.flatten_with_keys(params)])
+
+
 def blocks_inputs(torch, cfg, Z, dev) -> tuple:
     """(model, the conditioned seeded parameters whole, routed for an
-    MoE (`routed`), the batch whole, the decode step's tokens) of phase
-    16."""
+    MoE (`routed`), the values at their fan-in for an encoder-decoder
+    (`values_at_fan_in`), the batch whole, the decode step's tokens) of
+    phase 16."""
     from repro_torch.launch import train as launch_train
     from repro_torch.models.registry import build_model
     model = build_model(cfg)
@@ -6338,6 +6416,8 @@ def blocks_inputs(torch, cfg, Z, dev) -> tuple:
     params = conditioned(model.init(gen, device=dev), cfg)
     if cfg.moe is not None:
         params = routed(params, cfg)
+    elif cfg.family == "encdec":
+        params = values_at_fan_in(params)
     batch = launch_train.make_batch_fn(cfg, Z.batch, Z.seq, device=dev)(0)
     tokens = torch.randint(0, cfg.vocab_size, (Z.batch, 1), generator=gen,
                            device=dev, dtype=torch.int32)
@@ -6356,7 +6436,8 @@ def blocks_prep(torch, model, whole, batch, tokens, Z, decode=False,
                                            copy=not views),
                 rows=sharding.rows(batch), tokens=sharding.rows(tokens))
     if decode:
-        _, caches = model.prefill(prep["params"], prep["rows"]["tokens"])
+        _, caches = model.prefill(prep["params"], prep["rows"]["tokens"],
+                                  embeddings=prep["rows"].get("embeddings"))
         prep["dec"] = model.decode_caches(caches, Z.batch, Z.seq,
                                           Z.seq + Z.model)
     return prep
@@ -6423,8 +6504,9 @@ def blocks_step(torch, model, cfg, prep, Z, step: str):
             prep["params"], prep["rows"])
         return dict(loss=loss, grads=grads)
     if step == "prefill":
-        logits, caches = model.prefill(prep["params"],
-                                       prep["rows"]["tokens"])
+        logits, caches = model.prefill(
+            prep["params"], prep["rows"]["tokens"],
+            embeddings=prep["rows"].get("embeddings"))
         return dict(prefill=logits, caches=caches)
     pos = torch.full((prep["tokens"].shape[0],), Z.seq, dtype=torch.int32,
                      device=prep["tokens"].device)
@@ -6436,7 +6518,8 @@ def blocks_whole(torch, model, whole, batch, tokens, Z) -> dict:
     """Phase 16's inputs unsharded: what `blocks_prep` gives a rank."""
     return dict(params=whole, rows=batch, tokens=tokens,
                 dec=model.decode_caches(model.prefill(
-                    whole, batch["tokens"])[1], Z.batch, Z.seq,
+                    whole, batch["tokens"],
+                    embeddings=batch.get("embeddings"))[1], Z.batch, Z.seq,
                     Z.seq + Z.model))
 
 
@@ -6570,9 +6653,10 @@ def phase_blocks(torch, np, dev, Z, T) -> dict:
     (path "blocks"): each step timed a rank at a time on CUDA events
     (its device ms between collectives; median of Z.reps runs after a
     warm-up), median and slowest rank, beside the unsharded step;
-    flash launched by every rank once a layer in the prefill and twice
-    in the train step (remat), at the per-rank shapes phases 12-13 hold
-    and time, on the TMA entry alone. On the card the allocator's
+    flash launched by every rank once an attention in the prefill and
+    twice in the train step (remat; an encoder-decoder's encoder layers,
+    not rematerialised, once), at the per-rank shapes phases 2 and 12-13
+    hold and time, on the TMA entry alone. On the card the allocator's
     segments grow in place (`expandable_segments`) for the phase:
     deepseek-v3's 32 float32 ranks fill the card, and the gaps between
     fixed segments would leave them no room."""
@@ -6664,9 +6748,15 @@ def _phase_blocks(torch, np, dev, Z, T) -> dict:
             lay = ((H, KVH, hd, W) if branch != "head_tp" else
                    (H // M, (KVH if kv_split else H) // M, hd, W))
         res["branch"] = branch
-        # the layers that attend (the hybrid's one in three)
+        # the attentions of a forward: the layers that attend (the
+        # hybrid's one in three), each under remat in training; an
+        # encoder-decoder's decoder layers attend twice (self, cross),
+        # its encoder layers once, not rematerialised
         n_attn = sum(k.mix in ("attn", "attn_win", "mla")
                      for k in layer_plan(cfg))
+        n_enc = 0
+        if cfg.family == "encdec":
+            n_attn, n_enc = 2 * cfg.n_layers, cfg.enc_layers
         # (b) bf16: the counted main path, each rank timed in turn
         cfg = blocks_cfg(arch, kw, Z, "bfloat16")
         model, whole, batch, tokens = blocks_inputs(torch, cfg, Z, dev)
@@ -6698,8 +6788,8 @@ def _phase_blocks(torch, np, dev, Z, T) -> dict:
             for sk, c in fl.items():
                 key = flash_key(lay, sk)
                 flash_by_shape[key] = flash_by_shape.get(key, 0) + c
-            want_fl = {"train": N * n_attn * (1 + cfg.remat),
-                       "prefill": N * n_attn, "decode": 0}[step]
+            want_fl = {"train": N * (n_attn * (1 + cfg.remat) + n_enc),
+                       "prefill": N * (n_attn + n_enc), "decode": 0}[step]
             check(not cuda or sum(fl.values()) == want_fl,
                   f"phase 16: {arch} {step}: flash launched "
                   f"{sum(fl.values())} times, not {want_fl}")

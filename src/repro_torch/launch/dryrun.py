@@ -23,8 +23,9 @@ devices. Here:
     rounds it, what the card's `max_memory_allocated` reads).
 
 What a cell traces is what the port runs, and its record says which
-program (`"view"`). A model of `sharding.BLOCK_FAMILIES` (the dense,
-MoE, SSM and hybrid decoders) runs the block program (`"blocks"`): a
+program (`"view"`). A model of `sharding.BLOCK_FAMILIES` (every family
+of the registry: the dense, MoE, SSM and hybrid decoders and the
+encoder-decoder) runs the block program (`"blocks"`): a
 train cell is the sharded step (`train_loop.jit_train_step` under the
 mesh) on this rank's blocks of the parameters and moments and its rows
 of the batch (its share of each microbatch; `"chunks"` records the
@@ -35,11 +36,11 @@ rank's rows and (decode) its block of the caches under the param rules,
 as the reference resolves them (a decode of one row, long_500k's,
 keeps each weight in place: `sharding.rows_in_place`). So
 `argument_bytes`, `flops_dev` and `temp_bytes` compare with the
-reference's per device. Every other family (the encoder-decoder) keeps
-the global view (`"global"`): its train step gathers the
-parameters whole, every activation is whole on every rank, and its
-prefill and decode take the parameters, the batch and the caches whole;
-`flops_dev` and `peak_bytes` then measure what the global view costs.
+reference's per device. A family outside `BLOCK_FAMILIES` would keep
+the global view (`"global"`; no registered config reaches it): its
+train step gathers the parameters whole, every activation is whole on
+every rank, and its prefill and decode take the parameters, the batch
+and the caches whole.
 
 Keys are the reference's (`repro/launch/dryrun.py`). Values with no
 torch counterpart are null: `raw_cost_analysis.bytes` (XLA's bytes
@@ -122,8 +123,13 @@ def trace(step, args) -> dict:
     distinct storages of `args`), output bytes (those of the result),
     temp bytes (the peak less the arguments) and the peak; and
     "allocator", the argument, temp and peak bytes rounded as the CUDA
-    caching allocator rounds each storage."""
-    with hlo_cost.Trace(memory=True) as t:
+    caching allocator rounds each storage. "flash_flops" are the flash
+    operator's forward FLOPs and "flash_recompute_flops" what its
+    backwards recompute (one forward each, a plain recompute the
+    reference's differentiated attention does not make): every forward
+    call but those a checkpointed layer's backward makes again, whose
+    graph alone is differentiated."""
+    with hlo_cost.Trace(memory=True) as t, hlo_cost.FlashInBackward() as fb:
         arg_bytes, arg_alloc = t.mem.track(args)
         out = step(*args)
         out_bytes, _ = hlo_cost.LiveBytes().track(out)
@@ -137,6 +143,8 @@ def trace(step, args) -> dict:
     # the flash operator's forward FLOPs: its backward recomputes one
     res["flash_flops"] = float(t.flops.get_flop_counts()["Global"].get(
         torch.ops.repro_torch.flash_attention, 0))
+    res["flash_recompute_flops"] = (
+        res["flash_flops"] - fb.flops if fb.backward else 0.0)
     res["memory"] = {"argument_bytes": arg_bytes, "output_bytes": out_bytes,
                      "temp_bytes": t.mem.peak - arg_bytes,
                      "peak_bytes": t.mem.peak}
@@ -164,13 +172,19 @@ def cell_step(cfg, shape, flags, device):
         opt, _ = sharding.abstract_with_shardings(
             optim.opt_state_specs(specs, opt_cfg), "float32", device=device)
         step = jit_train_step(model, cfg, opt_cfg,
-                              microbatches=flags["microbatches"])
+                              microbatches=flags["microbatches"],
+                              batch=shape.global_batch)
         return model, step, (params, opt, dict(ins))
     params, _ = sharding.abstract_with_shardings(
         specs, cfg.dtype, whole=not sharding.runs_blocks(cfg), device=device)
     # the reference's jit prunes the arguments a step does not read
-    # (keep_unused=False): serving reads no MTP head
+    # (keep_unused=False): serving reads no MTP head, a decode step no
+    # encoder and no cross-attention K/V projection (the frames' keys and
+    # values are cached)
     params.pop("mtp", None)
+    if shape.kind == "decode" and cfg.family == "encdec":
+        del params["enc"], params["enc_ln"]
+        del params["dec"]["xattn"]["wk"], params["dec"]["xattn"]["wv"]
     if shape.kind == "prefill":
         def prefill(params, batch):
             return model.prefill(params, batch["tokens"],
@@ -233,6 +247,7 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool,
         "chunks": res["chunks"],
         "compile_s": round(dt, 2),
         "flops_dev": flops_dev, "flash_flops": res["flash_flops"],
+        "flash_recompute_flops": res["flash_recompute_flops"],
         "bytes_dev": bytes_dev,
         "raw_cost_analysis": {"flops": flops_dev, "bytes": None},
         "collectives": coll,

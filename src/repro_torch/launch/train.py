@@ -190,7 +190,8 @@ def _run(args, dev):
         params, opt_state = train_loop.shard_train_state(model, opt_cfg,
                                                          params, opt_state)
     step_fn = train_loop.jit_train_step(model, cfg, opt_cfg,
-                                        microbatches=args.microbatches)
+                                        microbatches=args.microbatches,
+                                        batch=args.batch)
     say(f"arch={cfg.name} params={n_params/1e6:.1f}M "
         f"batch={args.batch}x{args.seq} on {dev}"
         + (f" mesh={args.mesh} ({dist.get_world_size()} ranks)"

@@ -80,9 +80,18 @@ def _ffn_blocks(params, x, act: str, spec):
     else:
         h = hidden(x, w.get("gate"), w["up"], act)
         y = h @ w["down"]["w"]
-    if h.shape[-1] != spec["up"]["w"].shape[-1]:
+    return _row_parallel_out(y, w["down"],
+                             h.shape[-1] != spec["up"]["w"].shape[-1])
+
+
+def _row_parallel_out(y, down, split: bool):
+    """The down projection's output y: its partial sums psummed over
+    `model` where the `mlp` columns split (`split`), then its bias, if it
+    has one, added once (after the psum: a bias added on every rank
+    before it would come out M times)."""
+    if split:
         y = sharding.psum(y, "model")
-    return _biased(y, w["down"])
+    return _biased(y, down)
 
 
 def _biased(y, p):

@@ -381,15 +381,16 @@ def replicated_rank(x, w, idx, wg, wu, wd, r: int, E_loc: int, C: int,
 def _moe_replicated(params, x, w, idx, cfg):
     """Staged baseline: tokens replicated over the expert axis, each
     rank's partial output psum'd; under EP over data the tokens are
-    first gathered over data, and the rank's batch rows sliced back (in
-    a block program x is the rank's rows, split over every batch axis of
-    the mesh)."""
+    first gathered over data where the batch splits there, and the
+    rank's batch rows sliced back (in a block program x is the rank's
+    rows, split over the axes `sharding.row_axes` names: a batch too
+    small to split over data, whole on its ranks, is not gathered)."""
     m = cfg.moe
     B, S = x.shape[:2]
     ep = _ep_axes(cfg)
     E_loc = m.n_experts // sharding.axis_size(ep)
     blocks = sharding.in_blocks()
-    b_axes = sharding.batch_axes() if blocks else \
+    b_axes = sharding.row_axes() if blocks else \
         sharding.batch_axes_prefix(B)
     # EP over data: tokens are gathered over data iff the batch shards there
     gather_data = "data" in ep and "data" in b_axes

@@ -174,21 +174,25 @@ def _proj(w, x):
 def _qkv(params, x, positions, cfg, *, split_in=None, split=(True,) * 3):
     """q, k, v of x, roped. `split_in` (M, r): the projections whose
     heads `split` does not mark as split over `model` contract over the
-    rank's d_model/M columns of x and rows of the weight, their partials
-    psummed over `model` (a block program's decode: its rows are too few
-    to repeat the whole contraction on every rank, as the reference's
-    partitioner chooses too)."""
-    def proj(w, split_heads):
-        if split_in is None or split_heads:
-            return _proj(w, x)
-        M, r = split_in
-        n = x.shape[-1] // M
-        y = sharding.psum(_project(x[..., r * n:(r + 1) * n],
-                                   w["w"][r * n:(r + 1) * n]), "model")
-        return y + w["b"].to(y.dtype) if "b" in w else y
-    q, k, v = (proj(params[n], sp) for n, sp in zip(("wq", "wk", "wv"),
-                                                     split))
+    rank's d_model/M columns (`_proj_split`)."""
+    q, k, v = (_proj_split(params[n], x, None if sp else split_in)
+               for n, sp in zip(("wq", "wk", "wv"), split))
     return _roped(q, positions, cfg), _roped(k, positions, cfg), v
+
+
+def _proj_split(w, x, split_in=None):
+    """`_proj`; with `split_in` (M, r) the contraction over the rank's
+    d_model/M columns of x and rows of the weight, the partials psummed
+    over `model` (a block program's decode: its rows are too few to
+    repeat the whole contraction on every rank, as the reference's
+    partitioner chooses too)."""
+    if split_in is None:
+        return _proj(w, x)
+    M, r = split_in
+    n = x.shape[-1] // M
+    y = sharding.psum(_project(x[..., r * n:(r + 1) * n],
+                               w["w"][r * n:(r + 1) * n]), "model")
+    return y + w["b"].to(y.dtype) if "b" in w else y
 
 
 def _roped(y, positions, cfg):
@@ -199,6 +203,61 @@ def _out_proj(params, y):
     """einsum("bshk,hkd->bsd", y, params["wo"]["w"])."""
     H, K, D = params["wo"]["w"].shape
     return y.flatten(-2) @ params["wo"]["w"].reshape(H * K, D)
+
+
+class _ColumnGrad(torch.autograd.Function):
+    """x @ w, w (K, N) whole over `model`, on every rank of `model`: a
+    projection whose output does not split there (an attention whose
+    heads and queries stay whole: the encoder's, a cross-attention's
+    frame K/V). As GSPMD partitions it: x's gradient whole on every rank
+    (its share, from its cotangent), the weight's in this rank's N/M
+    output columns only, from the cotangent psum-scattered over `model`
+    there (1/M of the work), zeros elsewhere; the replicas' sum
+    (`sharding.reduce_replicas`) is the weight's gradient."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        ctx.mesh = sharding.current()
+        return x @ w
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        with sharding.use_context(ctx.mesh):
+            gs = sharding.psum_scatter(g, "model", g.ndim - 1)
+            c0 = sharding.axis_index("model") * gs.shape[-1]
+        gw = torch.zeros_like(w)
+        gw[:, c0:c0 + gs.shape[-1]] = (
+            x.reshape(-1, x.shape[-1]).T @ gs.reshape(-1, gs.shape[-1]))
+        return g @ w.T, gw
+
+
+def _replicated(x, w):
+    """x @ w (w (K, N)) computed whole on every rank of `model`: in a
+    block program with a model axis whose size divides N, its weight
+    gradient by output columns (`_ColumnGrad`); else the product."""
+    M = sharding.mesh_axis_size("model")
+    if (M > 1 and w.shape[-1] % M == 0 and sharding.in_blocks()
+            and torch.is_grad_enabled() and (x.requires_grad
+                                             or w.requires_grad)):
+        return _ColumnGrad.apply(x, w)
+    return x @ w
+
+
+def _proj_replicated(w, x):
+    """`_proj` of a projection whose heads stay whole on every rank of
+    `model` (`_replicated`)."""
+    D, H, K = w["w"].shape
+    y = _replicated(x, w["w"].reshape(D, H * K)).unflatten(-1, (H, K))
+    return y + w["b"].to(y.dtype) if "b" in w else y
+
+
+def _out_proj_replicated(params, y):
+    """`_out_proj` of heads whole on every rank of `model`
+    (`_replicated`)."""
+    H, K, D = params["wo"]["w"].shape
+    return _replicated(y.flatten(-2), params["wo"]["w"].reshape(H * K, D))
 
 
 ATTN_AXES = {"wq": ("embed", "heads", "head_dim"),
@@ -319,7 +378,8 @@ def attn_apply(params, x, positions, cfg, *, window=0, mode="train",
     return y, {"k": kc, "v": vc}
 
 
-def _attn_blocks(params, x, positions, cfg, *, mode, cache, pos, window=0):
+def _attn_blocks(params, x, positions, cfg, *, mode, cache, pos, window=0,
+                 causal=True):
     """`attn_apply` in a block program, on the rank's rows x (B/dp, S, D)
     (whole over `model`) and its parameter blocks, each gathered over
     data inside the layer (FSDP). q/k/v are column-parallel over the
@@ -331,6 +391,9 @@ def _attn_blocks(params, x, positions, cfg, *, mode, cache, pos, window=0):
       * context parallelism: q/k/v and the out-projection on the rank's
         S/M rows (`collectives.cp_block_attention` all-gathers K/V), the
         output all-gathered over `model`;
+      * local (the heads and the sequence off a multiple of M): the
+        whole attention on every rank, each weight's gradient by its
+        output columns (`_ColumnGrad`), as GSPMD shares it;
       * decode: the rank's rows against its block of the caches, every
         row (`collectives.blocks_decode`): its kv heads where they
         split (no collective), else its S/M positions merged over
@@ -342,7 +405,8 @@ def _attn_blocks(params, x, positions, cfg, *, mode, cache, pos, window=0):
         (`sharding.matmul_block`).
 
     A `window` masks every branch's flash call (context parallelism's at
-    the rank's q_offset). A prefill's caches are laid out as the
+    the rank's q_offset); `causal=False` (the encoder-decoder's encoder)
+    unmasks them. A prefill's caches are laid out as the
     reference constrains them: (B/dp, S/M, KVH, hd) where the sequence
     splits over `model`; a window's, the rolling layout of the last
     min(W, S) keys (token p in slot p mod W) cut from the whole K/V,
@@ -402,7 +466,9 @@ def _attn_blocks(params, x, positions, cfg, *, mode, cache, pos, window=0):
     mine = slice(r * n, (r + 1) * n)
     if branch == "cp":
         x, positions = x[:, mine], positions[:, mine]
-    q = _roped(_proj(w["wq"], x), positions, cfg)
+    # the local branch: every head on every rank of model
+    proj = _proj_replicated if branch == "local" else _proj
+    q = _roped(proj(w["wq"], x), positions, cfg)
     repeated = branch == "head_tp" and not kv_split
     lo, kvw = 0, (w["wk"], w["wv"])
     if repeated and mode == "prefill" and s_split:
@@ -417,20 +483,22 @@ def _attn_blocks(params, x, positions, cfg, *, mode, cache, pos, window=0):
             lo, hi = r * Hl // G, ((r + 1) * Hl - 1) // G + 1
             kvw = tuple({k_: a[:, lo:hi] if k_ == "w" else a[lo:hi]
                          for k_, a in w_.items()} for w_ in kvw)
-        k = _roped(_proj(kvw[0], x), positions, cfg)
-        v = _proj(kvw[1], x)
+        k = _roped(proj(kvw[0], x), positions, cfg)
+        v = proj(kvw[1], x)
         kc, vc = k, v
     Sq = q.shape[1]
     if branch == "head_tp":
-        out = collectives.head_tp_block_attention(q, k, v, G, r, lo,
-                                                  causal=True, window=window)
+        out = collectives.head_tp_block_attention(
+            q, k, v, G, r, lo, causal=causal, window=window)
     elif branch == "cp":
         out, kw_, vw_ = collectives.cp_block_attention(
-            q.reshape(b, Sq, KVH, G, hd), k, v, causal=True, window=window)
+            q.reshape(b, Sq, KVH, G, hd), k, v, causal=causal,
+            window=window)
     else:
         out = chunked_attention(q.reshape(b, Sq, KVH, G, hd), k, v,
-                                causal=True, window=window)
-    y = _out_proj(w, out.reshape(b, Sq, -1, hd))
+                                causal=causal, window=window)
+    y = (_out_proj_replicated if branch == "local" else _out_proj)(
+        w, out.reshape(b, Sq, -1, hd))
     if heads_split:
         y = sharding.psum(y, "model")
     if branch == "cp":

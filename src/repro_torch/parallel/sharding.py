@@ -63,8 +63,8 @@ activations and computes on them, which the reference shards.
 `constrain` resolves its spec and returns its tensor as it is.
 
 The block program. A model of `BLOCK_FAMILIES` (the dense, MoE, SSM and
-RG-LRU hybrid decoders; the encoder-decoder keeps the global view)
-runs each rank's own program under a `DeviceMesh` instead
+RG-LRU hybrid decoders and the encoder-decoder: every family) runs each
+rank's own program under a `DeviceMesh` instead
 (`runs_blocks`, `program`): its inputs are this
 rank's blocks (the parameters under their param specs, the batch's
 rows, `rows`), its outputs stay blocks, and a tensor changes layout only
@@ -185,6 +185,7 @@ class MeshContext:
     decode_layout: str = "seq"      # 'seq' | 'heads' (KV cache sharding)
     blocks: bool = False            # inside a block program
     in_place: bool = False          # rows whole over data: `rows_in_place`
+    row_axes: Optional[tuple] = None    # the axes splitting the rows: `batch_rows`
 
 
 _CTX: contextvars.ContextVar[Optional[MeshContext]] = contextvars.ContextVar(
@@ -603,13 +604,15 @@ def shard_map(body, in_specs, out_specs):
 # --------------------------------------------------------------------------
 # The block program
 # --------------------------------------------------------------------------
-# The model families whose DecoderLM runs each rank's own program on its
+# The model families whose model runs each rank's own program on its
 # blocks under a DeviceMesh: the dense decoders ("dense", "vlm"), the MoE
 # decoders ("moe": the router, the experts, MLA and the MTP head), the
-# SSM ("ssm": mamba2's heads over model) and the RG-LRU hybrid ("hybrid":
-# the lru width over model, windowed attention); the encoder-decoder
-# ("encdec") keeps the global view.
-BLOCK_FAMILIES = frozenset({"dense", "vlm", "moe", "ssm", "hybrid"})
+# SSM ("ssm": mamba2's heads over model), the RG-LRU hybrid ("hybrid":
+# the lru width over model, windowed attention) and the encoder-decoder
+# ("encdec": the encoder, the decoder, the cross-attention and its frame
+# caches). Every family of the registry is one.
+BLOCK_FAMILIES = frozenset({"dense", "vlm", "moe", "ssm", "hybrid",
+                            "encdec"})
 
 
 def runs_blocks(cfg) -> bool:
@@ -655,6 +658,27 @@ def rows_in_place(batch: int):
           and "data" not in batch_axes_prefix(batch))
     with use_context(dataclasses.replace(ctx, in_place=on)):
         yield
+
+
+@contextlib.contextmanager
+def batch_rows(batch: int):
+    """Within, a block program's rows are its share of a batch of `batch`
+    global rows, split over the batch axes that `rows` splits it over
+    (`batch_axes_prefix`; whole on the ranks of the others, which then
+    hold the same rows): what `row_axes` reads."""
+    with use_context(dataclasses.replace(
+            current(), row_axes=batch_axes_prefix(batch))):
+        yield
+
+
+def row_axes() -> tuple:
+    """The mesh axes that split a block program's rows: those of
+    `batch_rows` where a caller named the global batch, else every axis
+    of the batch's rule (`batch_axes`)."""
+    ctx = current()
+    if ctx is not None and ctx.row_axes is not None:
+        return ctx.row_axes
+    return batch_axes()
 
 
 def matmul_block(x, w, axes, shape, *, contract: int = 1):

@@ -16,8 +16,9 @@ donate_argnums=(0, 1))` reuses their buffers). Under a `DeviceMesh`
 reference's `jit(in_shardings=, out_shardings=)` from `param_shardings`:
 between steps each rank holds its block of every parameter and moment
 under its param spec (`shard_train_state`; FSDP's embed -> data
-included). A model of `sharding.BLOCK_FAMILIES` (the dense, MoE, SSM and
-hybrid decoders) runs the block program:
+included). A model of `sharding.BLOCK_FAMILIES` (every family of the
+registry: the dense, MoE, SSM and hybrid decoders and the
+encoder-decoder) runs the block program:
 the step takes the rank's rows of the batch (`sharding.rows(batch,
 microbatches)`: its share of each of the reference's microbatches) and
 
@@ -30,8 +31,9 @@ microbatches)`: its share of each of the reference's microbatches) and
   3. runs AdamW on the blocks, donated, its clip on the global norm of
      the blocks (`optimizer.global_norm(pspecs)`).
 
-Every other family (the encoder-decoder) keeps the global view: the
-step takes the whole batch and
+A family outside `BLOCK_FAMILIES` would keep the global view (no
+registered config reaches it any more): the step takes the whole batch
+and
 
   1. gathers the whole parameters, with no graph;
   2. takes the loss and gradients in the global view (every sharded
@@ -44,6 +46,7 @@ step takes the whole batch and
 """
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -162,14 +165,17 @@ def value_and_grad(loss_fn, params, batch, *, seed: float = 1.0):
             tree.unflatten(params, grads))
 
 
-def make_grads_fn(model, cfg, *, microbatches: int = 1):
+def make_grads_fn(model, cfg, *, microbatches: int = 1,
+                  batch: int | None = None):
     """Returns grads_fn(params, batch) -> ((loss, metrics), grads): one
     step's loss and gradients, the batch split into `microbatches` along
     its first dimension and their gradients summed in float32, each
-    divided by the count (the reference's scan)."""
+    divided by the count (the reference's scan). `batch`, the global
+    batch's rows, tells a block program which batch axes split each
+    microbatch (`sharding.batch_rows`); None: every one."""
     loss_fn = make_loss_fn(model, cfg)
     if sharding.runs_blocks(cfg):
-        return _block_grads_fn(model, loss_fn, microbatches)
+        return _block_grads_fn(model, loss_fn, microbatches, batch)
 
     def grads_fn(params, batch):
         if microbatches == 1:
@@ -197,7 +203,7 @@ def make_grads_fn(model, cfg, *, microbatches: int = 1):
     return grads_fn
 
 
-def _block_grads_fn(model, loss_fn, microbatches: int):
+def _block_grads_fn(model, loss_fn, microbatches: int, rows: int | None):
     """The block program's `grads_fn(param blocks, batch rows)`. The rows
     are this rank's share of each of the reference's microbatches, in
     order (`sharding.rows(batch, microbatches)`: microbatch i is the
@@ -215,7 +221,10 @@ def _block_grads_fn(model, loss_fn, microbatches: int):
     count (the reference's scan); then each leaf's block is summed over
     the ranks that hold the same block (`sharding.reduce_replicas`), a
     psum-scatter over data already done where FSDP gathered it. The
-    metrics carry the chunk count run ("chunks")."""
+    metrics carry the chunk count run ("chunks"). With `rows` (the
+    global batch's) each chunk runs in `sharding.batch_rows(rows /
+    microbatches)`: a microbatch whole over some batch axis is known as
+    such (`_moe_replicated` gathers no duplicate rows)."""
     ctx = sharding.current()
     pspecs = sharding.param_pspecs(model.param_specs())
     seed = 1.0 / math.prod(sharding.axis_sizes(ctx.mesh).values())
@@ -232,8 +241,10 @@ def _block_grads_fn(model, loss_fn, microbatches: int):
             grads, losses, mets = None, [], []
             for i in range(chunks):
                 mb = {k: v[i * n:(i + 1) * n] for k, v in batch.items()}
-                (loss, metrics), g = value_and_grad(loss_fn, params, mb,
-                                                    seed=seed)
+                with (sharding.batch_rows(rows // microbatches) if rows
+                      else contextlib.nullcontext()):
+                    (loss, metrics), g = value_and_grad(loss_fn, params, mb,
+                                                        seed=seed)
                 if chunks > 1:
                     g = tree.map(lambda a: a.float() / chunks, g)
                     grads = g if grads is None else tree.map(
@@ -252,12 +263,14 @@ def _block_grads_fn(model, loss_fn, microbatches: int):
 
 
 def make_train_step(model, cfg, opt_cfg: opt.OptConfig, *,
-                    microbatches: int = 1, donate: bool = False):
+                    microbatches: int = 1, donate: bool = False,
+                    batch: int | None = None):
     """Returns train_step(params, opt_state, batch) -> (params, opt_state,
     metrics): `make_grads_fn`'s gradients, then the AdamW update. With
     `donate`, the parameters and moments handed in are updated in place
     and handed back."""
-    grads_fn = make_grads_fn(model, cfg, microbatches=microbatches)
+    grads_fn = make_grads_fn(model, cfg, microbatches=microbatches,
+                             batch=batch)
 
     def train_step(params, opt_state, batch):
         (loss, metrics), grads = grads_fn(params, batch)
@@ -268,16 +281,19 @@ def make_train_step(model, cfg, opt_cfg: opt.OptConfig, *,
     return train_step
 
 
-def jit_train_step(model, cfg, opt_cfg, *, microbatches: int = 1):
+def jit_train_step(model, cfg, opt_cfg, *, microbatches: int = 1,
+                   batch: int | None = None):
     """The train step with the parameters and optimizer state donated:
     on whole trees with no mesh, on a rank's blocks under a DeviceMesh
-    (the block program or the global view: the module docstring)."""
+    (the block program or the global view: the module docstring).
+    `batch`: the global batch's rows (`make_grads_fn`)."""
     if not sharding.ranks_in_use():
         return make_train_step(model, cfg, opt_cfg,
                                microbatches=microbatches, donate=True)
     ctx = sharding.current()
     specs = state_specs(model, opt_cfg)
-    grads_fn = make_grads_fn(model, cfg, microbatches=microbatches)
+    grads_fn = make_grads_fn(model, cfg, microbatches=microbatches,
+                             batch=batch)
     if sharding.runs_blocks(cfg):
         pspecs = sharding.param_pspecs(specs["params"])
 

@@ -196,6 +196,26 @@ class LiveBytes(TorchDispatchMode):
         return out
 
 
+class FlashInBackward(TorchDispatchMode):
+    """The FLOPs of the flash operator's calls made inside a backward
+    pass (`flops`: the forwards a checkpointed layer recomputes), and
+    whether any operator ran in one (`backward`)."""
+
+    def __init__(self):
+        super().__init__()
+        self.flops, self.backward = 0, False
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if torch._C._current_graph_task_id() != -1:
+            # the import registers the operator
+            from repro_torch.kernels.flash_attention import ops
+            self.backward = True
+            if func is torch.ops.repro_torch.flash_attention.default:
+                q, k, v = args[:3]
+                self.flops += ops.flops(q.shape, k.shape, v.shape)
+        return func(*args, **(kwargs or {}))
+
+
 class Trace:
     """FLOPs, collectives and, with `memory`, live bytes of what runs
     inside the `with`; `result()` is the reference's `analyze` dict."""

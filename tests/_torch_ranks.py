@@ -740,7 +740,8 @@ def dryrun_cell(rank, payload):
     """The dry-run's sharded cells run for real: the sharded train step
     of each reduced arch of payload["dr/archs"] on a (2, 2, 2) (pod,
     data, model) mesh, on a seeded batch of payload["dr/batch"] x
-    payload["dr/seq"] tokens, under `hlo_cost.Trace`: the collectives
+    payload["dr/seq"] tokens (and a frontend's seeded embeddings),
+    under `hlo_cost.Trace`: the collectives
     this rank issued (their wire bytes and counts by op) and the step's
     FLOPs, under "dr/<arch>/"."""
     from repro_torch.configs.base import get_config, reduced
@@ -762,6 +763,10 @@ def dryrun_cell(rank, payload):
                                                  (B, S + 1))
         batch = {"tokens": _t(toks[:, :-1].astype(np.int32)),
                  "labels": _t(toks[:, 1:].astype(np.int32))}
+        if cfg.frontend.kind != "none":
+            batch["embeddings"] = _t(np.random.default_rng(1).standard_normal(
+                (B, cfg.frontend.n_tokens, cfg.frontend.d_input)).astype(
+                    np.float32))
         with sharding.use_mesh(make_mesh((2, 2, 2), ("pod", "data",
                                                       "model"))):
             state = train_loop.shard_train_state(
@@ -786,16 +791,17 @@ def dryrun_cell(rank, payload):
 
 # -- slice 15: the block program ---------------------------------------------
 def block_cfg(arch: str, kw_json: str):
-    """A reduced config with the fields of `kw_json` replaced (a "moe"
-    entry a dict of the MoE config's fields)."""
+    """A reduced config with the fields of `kw_json` replaced (an entry
+    that is a dict, such as "moe" or "frontend", the fields of that
+    nested config)."""
     import dataclasses
     import json
 
     from repro_torch.configs.base import get_config, reduced
     cfg = reduced(get_config(arch))
-    kw = json.loads(kw_json)
-    if "moe" in kw:
-        kw["moe"] = dataclasses.replace(cfg.moe, **kw["moe"])
+    kw = {k: dataclasses.replace(getattr(cfg, k), **v)
+          if isinstance(v, dict) else v
+          for k, v in json.loads(kw_json).items()}
     return dataclasses.replace(cfg, **kw)
 
 
@@ -832,17 +838,21 @@ def blocks(rank, payload):
     gradient (gathered whole) and assignments of `make_grads_fn(
     microbatches=2)` on the rank's share of each microbatch. The shapes
     also list the mixers' inner activations (mamba2's scan input, the
-    RG-LRU scan's), "in_place" counts the logits contracted in place
-    (`layers._unembed_in_place`), "rows_in_place" the projections that
-    kept their weights in place (`sharding.matmul_block` under
-    `rows_in_place`), and a sixth field "1" plants a fault:
-    mamba2's gated norm without the psum of its sum of squares over
-    `model`."""
+    RG-LRU scan's) and, for the encoder-decoder, the residual stream
+    entering every encoder and decoder layer; "in_place" counts the
+    logits contracted in place (`layers._unembed_in_place`),
+    "rows_in_place" the projections that kept their weights in place
+    (`sharding.matmul_block` under `rows_in_place`). A sixth field
+    plants a fault: "1" mamba2's gated norm without the psum of its sum
+    of squares over `model`, "bias" the FFN's down bias added on every
+    rank of `model` before the psum. A seventh, a JSON dict, goes to
+    `sharding.use_mesh` (`ep_over_data`, `moe_impl`)."""
     import json
 
     from repro_torch import tree
     from repro_torch.launch.mesh import make_mesh
-    from repro_torch.models import ffn, mla, moe, rglru, ssm, transformer
+    from repro_torch.models import (encdec, ffn, mla, moe, rglru, ssm,
+                                    transformer)
     from repro_torch.models import module as mod
     from repro_torch.models.registry import build_model
     from repro_torch.parallel import sharding
@@ -895,6 +905,21 @@ def blocks(rank, payload):
     def residual(params, x, *a, **kw):
         seen["residual"].add(tuple(x.shape))
         return block_fn(params, x, *a, **kw)
+    layer_fns = {"_enc_layer": encdec._enc_layer,
+                 "_dec_layer": encdec._dec_layer}
+
+    def enc_dec_residual(name):
+        def call(p, x, *a, **kw):
+            seen["residual"].add(tuple(x.shape))
+            return layer_fns[name](p, x, *a, **kw)
+        return call
+    for n in layer_fns:
+        setattr(encdec, n, enc_dec_residual(n))
+    row_out = ffn._row_parallel_out
+
+    def bias_before_psum(y, down, split: bool):
+        y = ffn._biased(y, down)
+        return sharding.psum(y, "model") if split else y
 
     def hidden(*a, **kw):
         h = hidden_fn(*a, **kw)
@@ -907,10 +932,14 @@ def blocks(rank, payload):
     def put(prefix, t):
         out.update({prefix + k: _n(a) for k, a in tree.flatten_with_keys(t)})
     try:
-        for case, arch, kw, sp, mb, *fault in payload["bl/cases"].tolist():
+        for case, arch, kw, sp, mb, *rest in payload["bl/cases"].tolist():
+            fault = rest[0] if rest else "0"
+            mesh_kw = json.loads(rest[1]) if len(rest) > 1 else {}
             cfg = block_cfg(arch, kw)
             sp_calls.clear()
-            ssm._inner_psum = (lambda t: t) if fault == ["1"] else inner_psum
+            ssm._inner_psum = (lambda t: t) if fault == "1" else inner_psum
+            ffn._row_parallel_out = (bias_before_psum if fault == "bias"
+                                     else row_out)
             in_place[:] = [0, 0]
             model = build_model(cfg)
             specs = model.param_specs()
@@ -921,7 +950,7 @@ def blocks(rank, payload):
                 if f"{pre}batch{i}/{k}" in payload} for i in range(2)]
             B, S = batches[0]["tokens"].shape
             V = cfg.vocab_size
-            with sharding.use_mesh(mesh, seq_parallel=sp == "1"):
+            with sharding.use_mesh(mesh, seq_parallel=sp == "1", **mesh_kw):
                 assert sharding.runs_blocks(cfg)
                 params = sharding.shard_tree(whole, specs)
                 rows = [sharding.rows(b) for b in batches]
@@ -956,7 +985,7 @@ def blocks(rank, payload):
                 if mb == "1":
                     assignments[0] = []
                     (loss, mets), grads = train_loop.make_grads_fn(
-                        model, cfg, microbatches=2)(
+                        model, cfg, microbatches=2, batch=B)(
                             params, sharding.rows(batches[0], 2))
                     out[pre + "mb2/assignments"] = np.asarray(json.dumps(
                         sorted(assignments[0])))
@@ -1003,6 +1032,9 @@ def blocks(rank, payload):
         transformer.superblock_apply, ffn.hidden = block_fn, hidden_fn
         ssm.ssd_chunked, rglru.rglru_scan = scan_fns[ssm], scan_fns[rglru]
         ssm._inner_psum = inner_psum
+        ffn._row_parallel_out = row_out
+        for n, fn in layer_fns.items():
+            setattr(encdec, n, fn)
         layers._unembed_in_place = in_place_fn
         sharding.matmul_block = matmul_fn
         for n in sp_names:

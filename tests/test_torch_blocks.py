@@ -170,12 +170,13 @@ def put(prefix, t):
         out[prefix + key(k)] = np.asarray(a)
 
 
-for case, arch, kw, sp, mb in cases:
-    perf.set_flags(seq_parallel=sp == "1")
+for case, arch, kw, sp, mb, *flags in cases:
+    perf.reset_flags()
+    perf.set_flags(seq_parallel=sp == "1",
+                   **(json.loads(flags[0]) if flags else {}))
     cfg = reduced(get_config(arch))
-    kw = json.loads(kw)
-    if "moe" in kw:
-        kw["moe"] = dataclasses.replace(cfg.moe, **kw["moe"])
+    kw = {k: dataclasses.replace(getattr(cfg, k), **v)
+          if isinstance(v, dict) else v for k, v in json.loads(kw).items()}
     cfg = dataclasses.replace(cfg, **kw)
     model = build_model(cfg)
     flat, treedef = jax.tree_util.tree_flatten_with_path(
@@ -254,11 +255,12 @@ np.savez(sys.argv[2], **out)
 
 
 def _replaced(cfg, kw: dict):
-    """`cfg` with the fields of `kw` replaced (a "moe" entry a dict of the
-    MoE config's fields), as both packages' configs take them."""
+    """`cfg` with the fields of `kw` replaced (an entry that is a dict,
+    such as "moe" or "frontend", the fields of that nested config), as
+    both packages' configs take them."""
     import dataclasses
-    if "moe" in kw:
-        kw = dict(kw, moe=dataclasses.replace(cfg.moe, **kw["moe"]))
+    kw = {k: dataclasses.replace(getattr(cfg, k), **v)
+          if isinstance(v, dict) else v for k, v in kw.items()}
     return dataclasses.replace(cfg, **kw)
 
 
@@ -611,8 +613,10 @@ def test_chip_smoke_phase16_at_cpu_size(ranks):
     heads, grouped head-TP, depth 2; reduced granite-moe, repeated
     head-TP and 4 experts, and deepseek-v3, MLA, one dense_big layer,
     then MoE, with no MTP head as the card runs it; reduced mamba2-780m
-    and recurrentgemma-2b, window attention head-TP at depth 3; on a
-    (data 2, model 4) grid): the phase
+    and recurrentgemma-2b, window attention head-TP at depth 3;
+    whisper-base at 3 heads, 7 frames and vocab 257, its encoder local
+    and its decoder context-parallel as on the card; on a (data 2,
+    model 4) grid): the phase
     runs (its float32 holds against the unsharded steps, within SP_HOLD,
     raise on a miss; an MoE's at a capacity factor where none of its
     assignments drops), and its 8 ranks run in turns in this
@@ -654,7 +658,8 @@ def test_chip_smoke_phase16_at_cpu_size(ranks):
         assert {a: v["branch"] for a, v in res["archs"].items()} == {
             "gemma-2b": "cp", "codeqwen1.5-7b": "head_tp",
             "granite-moe-1b-a400m": "head_tp", "deepseek-v3-671b": "mla",
-            "mamba2-780m": "none", "recurrentgemma-2b": "head_tp"}
+            "mamba2-780m": "none", "recurrentgemma-2b": "head_tp",
+            "whisper-base": "cp"}
         for arch in ("granite-moe-1b-a400m", "deepseek-v3-671b"):
             r = res["archs"][arch]
             assert r["hold_drops"] == 0 < r["hold_assignments"], arch

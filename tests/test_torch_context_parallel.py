@@ -206,11 +206,13 @@ def test_reduced_gemma_on_a_model_mesh_matches_the_unsharded_reference(
 
 def test_chip_smoke_phase12_at_cpu_size():
     """`chip_smoke.py`'s phase 12 at a toy size on the CPU: reduced
-    gemma-2b, phi4-mini-3.8b and recurrentgemma-2b (window 8), a 64-token
-    prompt cut into 16 query shards of 4 — each shard held against the
-    plain version at its offset, the shards' concatenation equal to the
-    unsharded call — and the sharded decode's merge over 16 shards of a
-    64-row cache against the whole-cache decode."""
+    gemma-2b, phi4-mini-3.8b, recurrentgemma-2b (window 8) and
+    whisper-base (its self-attention and its cross-attention against 8
+    frames, no mask), a 64-token prompt cut into 16 query shards of 4 —
+    each shard held against the plain version at its offset, the shards'
+    concatenation equal to the unsharded call — and the sharded decode's
+    merge over 16 shards of a 64-row cache against the whole-cache
+    decode."""
     import torch
     sys.path.insert(0, REPO)
     import chip_smoke
@@ -221,14 +223,17 @@ def test_chip_smoke_phase12_at_cpu_size():
         C = chip_smoke.CpSizes(archs=chip_smoke.CP.archs, reduce=True,
                                batch=2, seq=64, model=16,
                                decode_arch="gemma-2b", decode_seq=64,
-                               decode_pos=50, dtype="float32")
+                               decode_pos=50, dtype="float32",
+                               cross=chip_smoke.CP.cross)
         out = chip_smoke.phase_cp(torch, np, torch.device("cpu"), C,
                                   np.random.default_rng(0),
                                   chip_smoke._Clock())
     finally:
         tdevice.set_default(prev)
     assert out["launches"] == {} and out["by_shape"] == {}
-    assert sorted(out["archs"]) == sorted(C.archs)
+    assert C.cross == ("whisper-base",)
+    assert sorted(out["archs"]) == sorted(
+        C.archs + tuple(a + "/cross" for a in C.cross))
     for arch, r in out["archs"].items():
         assert r["shards"] == 16 and r["rows"] == 4
         assert r["max_abs_err"] == 0.0, arch

@@ -347,9 +347,10 @@ def test_cli_writes_the_reference_s_keys_and_attributes(tmp_path):
     """`launch.dryrun` on gemma-2b x decode_32k x single and the skipped
     long_500k cell, `launch.attribute` on the same cell; an unknown flag
     raises; `--set` types values as the reference does. A record has the
-    reference's keys and three of the port's: the program it traced
-    ("view": gemma-2b's block program), flash's FLOPs and the
-    microbatches a train step ran ("chunks", None in a decode cell)."""
+    reference's keys and four of the port's: the program it traced
+    ("view": gemma-2b's block program), flash's FLOPs, what its
+    backwards recompute (0 in a decode cell) and the microbatches a
+    train step ran ("chunks", None in a decode cell)."""
     out = _run(CLI.replace("sys.argv[1]", repr(str(tmp_path))))
     got = json.loads(out.strip().splitlines()[-1])
     assert got["refused"]
@@ -359,11 +360,14 @@ def test_cli_writes_the_reference_s_keys_and_attributes(tmp_path):
     d = tmp_path / "baseline"
     rec = json.loads((d / "gemma-2b__decode_32k__single.json").read_text())
     keys, mem = _reference_keys()
-    # the reference's keys, and the program traced, flash's FLOPs and the
-    # microbatches a train step ran (none in a decode cell)
-    assert set(rec) == keys | {"view", "flash_flops", "chunks"}
+    # the reference's keys, and the program traced, flash's FLOPs, its
+    # recompute and the microbatches a train step ran (none in a decode
+    # cell)
+    assert set(rec) == keys | {"view", "flash_flops",
+                               "flash_recompute_flops", "chunks"}
     assert set(rec["memory"]) == mem
     assert rec["view"] == "blocks" and rec["flash_flops"] == 0
+    assert rec["flash_recompute_flops"] == 0
     assert rec["chunks"] is None
     assert rec["status"] == "ok" and rec["chips"] == 256
     assert rec["raw_cost_analysis"]["bytes"] is None

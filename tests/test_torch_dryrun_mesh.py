@@ -19,12 +19,13 @@ within 1 % of the reference's; its collectives (wire bytes, and counts
 and bytes by op) and FLOPs are equal to what rank 0 of the gloo run
 dispatched, and every gloo rank dispatched the same: the fake trace
 counts what the real program does (so too for reduced mamba2-780m's and
-recurrentgemma-2b's train steps). The train, prefill (4 x 32) and
-decode (4 slots of 32) cells of gemma-2b, of reduced deepseek-v3 (the
-MoE family: MLA, MoE, the MTP head), of reduced mamba2-780m (the SSM)
-and of reduced recurrentgemma-2b (the RG-LRU hybrid, windowed
-attention) each cost what the reference's compiled cell does per
-device: FLOPs within 5 % (less the flash recompute in train), arguments
+recurrentgemma-2b's and whisper-base's train steps). The train,
+prefill (4 x 32) and decode (4 slots of 32) cells of gemma-2b, of
+reduced deepseek-v3 (the MoE family: MLA, MoE, the MTP head), of
+reduced mamba2-780m (the SSM), of reduced recurrentgemma-2b (the RG-LRU
+hybrid, windowed attention) and of reduced whisper-base (the
+encoder-decoder: its 8 frames, the cross-attention, the frame caches)
+each cost what the reference's compiled cell does per device: FLOPs within 5 % (less the flash recompute in train), arguments
 within 1 %, temp bytes within 2× in train and prefill. internvl2-2b at
 vocab 1025 (its two tables whole over model, large enough to be most of
 what a reduced decode would move gathering them, as at full size)
@@ -52,10 +53,12 @@ FLOP_REL = 0.05
 TEMP_X = 2.0
 WIRE_X = 1.25
 # the dense decoder, the MoE (MLA, a dense_big layer, MoE layers, the
-# MTP head), the SSM and the RG-LRU hybrid of the block program
-ARCHS = ("gemma-2b", "deepseek-v3-671b", "mamba2-780m", "recurrentgemma-2b")
+# MTP head), the SSM, the RG-LRU hybrid and the encoder-decoder of the
+# block program
+ARCHS = ("gemma-2b", "deepseek-v3-671b", "mamba2-780m", "recurrentgemma-2b",
+         "whisper-base")
 # the families whose train step is also run on the gloo ranks
-RUN = ("gemma-2b", "mamba2-780m", "recurrentgemma-2b")
+RUN = ("gemma-2b", "mamba2-780m", "recurrentgemma-2b", "whisper-base")
 # the families whose decode of one row (long_500k's batch) is traced
 ONE_ROW = ("mamba2-780m", "recurrentgemma-2b")
 # the cells traced and compiled: (name, arch, fields replaced, kinds,
@@ -129,7 +132,9 @@ for name, arch, kw, kinds, rows in {CELLS!r}:
                 params, opt, dict(ins)).compile()
         elif kind == "prefill":
             compiled = jax.jit(lambda p, b: model.prefill(
-                p, b["tokens"])).lower(params, ins).compile()
+                p, b["tokens"], **({{"embeddings": b["embeddings"]}}
+                                   if "embeddings" in b else {{}}))).lower(
+                params, ins).compile()
         else:
             compiled = jax.jit(model.decode_step, donate_argnums=(2,)).lower(
                 params, ins["tokens"], ins["cache"], ins["pos"]).compile()
@@ -192,7 +197,8 @@ def test_block_program_cell_costs_the_reference_s_per_device(runs, kind,
     """The block program traced (this rank's blocks, its rows; decode
     on its param-rule block of the caches) against the reference's
     compiled cell, reduced gemma-2b, deepseek-v3 (MLA, its MoE and MTP
-    head), mamba2-780m and recurrentgemma-2b: `flops_dev`, less the
+    head), mamba2-780m, recurrentgemma-2b and whisper-base: `flops_dev`,
+    less the
     recompute in the train cell (one flash forward a layer: the port's
     flash backward recomputes it),
     within FLOP_REL; the arguments within ARG_REL; the temp bytes within
@@ -237,10 +243,11 @@ def test_fake_trace_counts_what_the_gloo_ranks_moved(runs):
 
 @pytest.mark.parametrize("arch", RUN[1:])
 def test_recurrent_families_trace_what_the_gloo_ranks_moved(runs, arch):
-    """mamba2's and recurrentgemma's train steps on the block program:
-    the fake trace counts the collectives and FLOPs their gloo ranks
-    dispatched (the gated norm's psum, in_B / in_C's, the windowed
-    attention's K/V gathers among them)."""
+    """mamba2's, recurrentgemma's and whisper-base's train steps on the
+    block program: the fake trace counts the collectives and FLOPs their
+    gloo ranks dispatched (the gated norm's psum, in_B / in_C's, the
+    windowed attention's K/V gathers, the encoder-decoder's frames and
+    cross-attention among them)."""
     fake, _, ranks = runs
     _trace_is_what_the_ranks_moved(fake, ranks, arch)
 

@@ -8,7 +8,10 @@ fed seeded frame embeddings in both packages) on a (2, 2, 2) (pod, data,
 model) mesh, on the `conditioned` copy of the reference's parameters
 (`tests/_train_parity.py`), gemma-2b and granite with remat on in both
 packages (`reduced()` turns it off), so that the collectives run again
-inside the backward. The ranks run once for the module
+inside the backward. Every config, whisper-base's encoder-decoder too,
+runs the block program (`sharding.BLOCK_FAMILIES`): the job cuts the
+parameters to the rank's blocks and the batch to its rows, and gathers
+the gradient blocks whole to compare. The ranks run once for the module
 (`_torch_ranks.run`, jobs `mesh_train` and `mesh_cli`); the reference's
 numbers come from two subprocesses (three configs each) that run beside
 them.
@@ -258,11 +261,11 @@ def _hold_update(what, before, after, want_before, want_after, v, step):
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_whole_gradient_matches_the_reference_on_every_rank(ranks, arch):
-    """The first batch's loss and whole gradient in the global view on
-    (2, 2, 2) — every sharded branch the config takes differentiated
-    through `sharding.shard_map` — against `jax.value_and_grad` of the
-    reference's loss on its mesh: each leaf within GRAD_REL of its
-    scale, and bit-equal on every rank."""
+    """The first batch's loss and gradient on (2, 2, 2) — the block
+    program's gradient blocks, every sharded branch the config takes
+    differentiated through its collectives, gathered whole — against
+    `jax.value_and_grad` of the reference's loss on its mesh: each leaf
+    within GRAD_REL of its scale, and bit-equal on every rank."""
     ref, got, _, _ = ranks
     pre = f"mt/{arch}/"
     np.testing.assert_allclose(got[0][pre + "loss0"], ref[f"{arch}/loss0"],
@@ -280,9 +283,9 @@ def test_whole_gradient_matches_the_reference_on_every_rank(ranks, arch):
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_two_sharded_steps_match_the_reference(ranks, arch):
-    """Two `jit_train_step`s on the ranks' blocks (gathered whole, the
-    global-view gradient, AdamW on the blocks with the whole gradient's
-    clip norm) against the reference's sharded `jit_train_step`: the
+    """Two `jit_train_step`s on the ranks' blocks (the block program's
+    gradient blocks, AdamW on the blocks with the clip norm over them)
+    against the reference's sharded `jit_train_step`: the
     losses at 1e-5, the clip norms at 1e-4, each step's update by
     `_hold_update`, and the parameters the same on every rank."""
     ref, got, _, _ = ranks

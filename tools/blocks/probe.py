@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Run `chip_smoke.py`'s phase 16 alone on the card (the block program
 rank by rank on a (data 2, model 16) grid: gemma-2b, codeqwen1.5-7b,
-granite-moe-1b-a400m, deepseek-v3-671b, mamba2-780m and
-recurrentgemma-2b at full width; float32 holds against the unsharded
+granite-moe-1b-a400m, deepseek-v3-671b, mamba2-780m, recurrentgemma-2b
+and whisper-base at full width; float32 holds against the unsharded
 steps, each rank's bf16 device ms). Card only:
 
     python3 tools/blocks/probe.py [--arch granite-moe-1b-a400m,...]

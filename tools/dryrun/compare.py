@@ -7,14 +7,16 @@ one JSON a cell (`<arch>__<shape>__<mesh>.json`):
     python3 tools/dryrun/compare.py P/baseline R/baseline [B/baseline]
 
 Per rank: `flops_dev` (in a train cell less the port's flash recompute:
-its backward recomputes one forward, half the operator's count under
-remat, all of it without), argument, temp and wire bytes, and the
+its backward recomputes one forward, `flash_recompute_flops` where the
+record has it, else half the operator's count under remat, all of it
+without), argument, temp and wire bytes, and the
 bounds' verdict (FLOPs within 5 %, arguments within 1 %, temp within
 2x in train and prefill). With a third folder (an earlier port's), its
 ratios too, as "before". Prints a markdown table; exits 1 if a
 block-program cell (`"view": "blocks"`) misses a bound. A global-view
-cell (a family not yet on the block program) is printed and listed,
-not held: the bounds are the block program's.
+cell (a family outside the block program; since the encoder-decoder
+joined it, no registered config) would be printed and listed, not held:
+the bounds are the block program's.
 """
 import glob
 import json
@@ -31,7 +33,8 @@ FLOP_REL, ARG_REL, TEMP_X = 0.05, 0.01, 2.0
 def ratios(port: dict, ref: dict, remat: bool) -> dict:
     flops = port["flops_dev"]
     if port["shape"].startswith("train"):
-        flops -= port.get("flash_flops", 0.0) / (2 if remat else 1)
+        flops -= port.get("flash_recompute_flops", port.get(
+            "flash_flops", 0.0) / (2 if remat else 1))
     pm, rm = port["memory"], ref["memory"]
     return {"flops": flops / ref["flops_dev"],
             "args": pm["argument_bytes"] / rm["argument_bytes"],
